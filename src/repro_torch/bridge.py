@@ -1,0 +1,48 @@
+"""Weight bridge: the JAX package's parameter pytree -> the port's params.
+
+The JAX TConst model stacks its blocks on a leading ``n_blocks`` axis
+(``jax.vmap`` over the block init), with ``blocks["layers"]`` a list of
+per-layer dicts whose leaves carry that axis; the port keeps a list of
+blocks, each ``{"layers": [...]}`` with unstacked leaves.  Weight layouts
+are the same on both sides: ``wq``/``wk``/``wv`` (d, H|KV, hd), ``wo``
+(H, hd, d), SwiGLU ``w_gate``/``w_up`` (d, ff) and ``w_down`` (ff, d),
+norms ``{"scale": (d,)}``, and the tied head reads ``embed.tok``.
+
+The caller turns the JAX leaves into numpy arrays first; this module
+never imports JAX.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+
+def _tensor(a: Any, device: Optional[torch.device]) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _map(tree: Any, fn) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(v, fn) for v in tree]
+    return fn(tree)
+
+
+def params_from_jax(tree: Any, device: Any = None) -> Any:
+    """``tree``: the JAX ``init_tconst_lm`` pytree with numpy leaves.
+    Returns the port's params (float32 tensors as stored) on ``device``
+    (default: CPU)."""
+    blocks = tree["blocks"]
+    nb = int(np.shape(blocks["layers"][0]["ln1"]["scale"])[0])
+    return {
+        "embed": _map(tree["embed"], lambda a: _tensor(a, device)),
+        "blocks": [{"layers": [_map(layer, lambda a, i=ib: _tensor(a[i],
+                                                                   device))
+                               for layer in blocks["layers"]]}
+                   for ib in range(nb)],
+        "final_norm": _map(tree["final_norm"],
+                           lambda a: _tensor(a, device)),
+    }

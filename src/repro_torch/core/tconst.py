@@ -1,0 +1,515 @@
+"""TConstFormer core in PyTorch (``mode="tconst"``).
+
+Port of ``src/repro/core/tconst.py``: the same topology (one TConst block
+of depth h + 2: context COMPRESS, h context self-attention layers,
+context RESTORE, and the generation window's causal self-attention plus
+cross-attention to the compressed states), the same Eq. (7) O(1) cache,
+the O(1) cache-hit decode step (paper Eq. 5) and the O(N) resync (Eq. 4).
+Forward only: every entry point runs under ``torch.no_grad``.
+
+Attention routing: every multi-query attention (compress, context self,
+restore, the teacher-forced generation window) is "causal by position
+AND key valid" and runs as K2 with ``INVALID_POS`` for dead keys; the
+decode step's two attentions run as K1 over ``[lo, hi)`` slot ranges.
+
+In-place updates: :func:`decode_step` writes the new token's K/V, its id
+and the counters into the cache tensors IN PLACE.  Rows that are not
+``live`` (inactive or EOS-finished slots) have their writes masked, so
+they come through bit-identical.
+
+Not ported yet: ``mode="tlin"`` and ``prefill_bucketed`` (ROADMAP Queue 1
+item 3) and ``verify_chunk_views`` (ROADMAP Queue 1 item 8, speculative
+decoding).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import INVALID_POS
+from repro_torch.layers import attention as A
+from repro_torch.layers import embed as E
+from repro_torch.layers import rope as R
+from repro_torch.layers.common import Params, rmsnorm
+from repro_torch.layers.mlp import swiglu
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def _check_mode(mode: str) -> None:
+    if mode != "tconst":
+        raise NotImplementedError(
+            f"mode={mode!r} is not ported yet: the port has mode='tconst' "
+            f"only (TLinFormer mode is ROADMAP Queue 1 item 3)")
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+def _dense_init(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:
+    """Truncated normal in [-2, 2] scaled by 1/sqrt(fan_in) (LeCun normal,
+    as the JAX package's ``dense_init``)."""
+    t = torch.empty(shape, dtype=torch.float32)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return t * (1.0 / math.sqrt(max(1, fan_in)))
+
+
+def _init_layer(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H, KV, ff = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    return {
+        "attn": {
+            "wq": _dense_init((d, H, hd), d, gen),
+            "wk": _dense_init((d, KV, hd), d, gen),
+            "wv": _dense_init((d, KV, hd), d, gen),
+            "wo": _dense_init((H, hd, d), H * hd, gen),
+        },
+        "ffn": {
+            "w_gate": _dense_init((d, ff), d, gen),
+            "w_up": _dense_init((d, ff), d, gen),
+            "w_down": _dense_init((ff, d), ff, gen),
+        },
+        "ln1": {"scale": torch.ones(d)},
+        "ln2": {"scale": torch.ones(d)},
+    }
+
+
+def init_tconst_lm(cfg: ModelConfig, seed: int = 0,
+                   device: Optional[torch.device] = None) -> Params:
+    """The port's own seeded init (float32 params, drawn on the CPU from
+    one ``torch.Generator`` so every device gets the same weights).  It
+    does not reproduce ``jax.random``: parity tests load the JAX weights
+    through :func:`repro_torch.bridge.params_from_jax` instead."""
+    if cfg.is_moe:
+        raise NotImplementedError("MoE FFNs are not ported (ROADMAP Queue 1 "
+                                  "item 7)")
+    gen = torch.Generator().manual_seed(seed)
+    embed = {"tok": torch.randn((cfg.vocab_size, cfg.d_model),
+                                generator=gen) * 0.02}
+    if not cfg.tie_embeddings:
+        embed["head"] = _dense_init((cfg.d_model, cfg.vocab_size),
+                                    cfg.d_model, gen)
+    blocks = [{"layers": [_init_layer(cfg, gen)
+                          for _ in range(cfg.tconst.block_depth)]}
+              for _ in range(cfg.tconst_blocks)]
+    params = {"embed": embed, "blocks": blocks,
+              "final_norm": {"scale": torch.ones(cfg.d_model)}}
+    return to_device(params, device)
+
+
+def to_device(params: Any, device: Optional[torch.device],
+              dtype: Optional[torch.dtype] = None) -> Any:
+    """Map a nested dict/list of tensors onto ``device`` (and, when
+    ``dtype`` is given, cast the weight matrices -- every tensor but the
+    norm scales, which stay float32 as ``rmsnorm`` reads them)."""
+    def go(x, key=""):
+        if isinstance(x, dict):
+            return {k: go(v, k) for k, v in x.items()}
+        if isinstance(x, list):
+            return [go(v, key) for v in x]
+        if dtype is not None and key != "scale":
+            x = x.to(dtype)
+        return x if device is None else x.to(device)
+    return go(params)
+
+
+# ---------------------------------------------------------------------------
+# Context path (compress -> h self-attn -> restore)
+# ---------------------------------------------------------------------------
+
+
+def _rope(pos: torch.Tensor, cfg: ModelConfig):
+    return R.rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
+
+
+def _key_pos(pos: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Positions with dead keys at ``INVALID_POS`` (the K2 key mask)."""
+    return torch.where(valid, pos, torch.full_like(pos, INVALID_POS))
+
+
+def context_path(block: Params, hist: torch.Tensor, hist_pos: torch.Tensor,
+                 hist_valid: torch.Tensor, tail_pos: torch.Tensor,
+                 tail_valid: torch.Tensor, cfg: ModelConfig,
+                 restore: bool = True
+                 ) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
+    """Context path of one block.  hist (B, N, D); hist_pos/hist_valid
+    (B, N); tail_pos/tail_valid (B, W_oh).  Returns (c_states [C_0..C_h]
+    each (B, W_oh, D), restored history (B, N, D) -- None when
+    ``restore`` is False, for a last block whose restore nothing reads).
+
+    Compress queries at negative tail positions are rotated at position 0
+    but masked at their raw position: they have no valid key and give 0.
+    """
+    eps = cfg.norm_eps
+    h = cfg.tconst.h
+    cap = cfg.logit_softcap
+    layers = block["layers"]
+    B, N, D = hist.shape
+
+    cos_h, sin_h = _rope(hist_pos, cfg)
+    cos_t, sin_t = _rope(tail_pos.clamp(min=0), cfg)
+    hist_kp = _key_pos(hist_pos, hist_valid)
+    tail_kp = _key_pos(tail_pos, tail_valid)
+
+    idx = tail_pos.clamp(0, N - 1)
+    tail_x = torch.gather(hist, 1, idx[..., None].expand(B, -1, D))
+
+    # layer 0: COMPRESS (Fig 2c) -- W_oh tail queries over the history
+    l0 = layers[0]
+    c = tail_x + A.attention_block(
+        l0["attn"], rmsnorm(l0["ln1"], tail_x, eps),
+        rmsnorm(l0["ln1"], hist, eps), tail_pos, hist_kp,
+        cos_t, sin_t, cos_h, sin_h, cap)
+    c = c + swiglu(l0["ffn"], rmsnorm(l0["ln2"], c, eps))
+    c_states = [c]
+
+    # layers 1..h: context self-attention over the W_oh slots
+    for i in range(1, h + 1):
+        li = layers[i]
+        cn = rmsnorm(li["ln1"], c, eps)
+        c = c + A.attention_block(li["attn"], cn, cn, tail_pos, tail_kp,
+                                  cos_t, sin_t, cos_t, sin_t, cap)
+        c = c + swiglu(li["ffn"], rmsnorm(li["ln2"], c, eps))
+        c_states.append(c)
+
+    if not restore:
+        return c_states, None
+    # layer h+1: RESTORE (Fig 2d) -- history queries over the W_oh slots
+    lf = layers[h + 1]
+    r = hist + A.attention_block(
+        lf["attn"], rmsnorm(lf["ln1"], hist, eps),
+        rmsnorm(lf["ln1"], c, eps), hist_pos, tail_kp,
+        cos_h, sin_h, cos_t, sin_t, cap)
+    restored = r + swiglu(lf["ffn"], rmsnorm(lf["ln2"], r, eps))
+    return c_states, restored
+
+
+# ---------------------------------------------------------------------------
+# Generation path (teacher-forced window pass -- training forward)
+# ---------------------------------------------------------------------------
+
+
+def gen_path(block: Params, hg: torch.Tensor, gen_pos: torch.Tensor,
+             c_states: List[torch.Tensor], tail_pos: torch.Tensor,
+             tail_valid: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Generation-window pass of one block: hg (B, G, D).  Returns hg."""
+    eps = cfg.norm_eps
+    h = cfg.tconst.h
+    cap = cfg.logit_softcap
+    layers = block["layers"]
+    cos_g, sin_g = _rope(gen_pos, cfg)
+    cos_t, sin_t = _rope(tail_pos.clamp(min=0), cfg)
+    tail_kp = _key_pos(tail_pos, tail_valid)
+    for i in range(h + 2):
+        li = layers[i]
+        xn = rmsnorm(li["ln1"], hg, eps)
+        out = A.attention_block(li["attn"], xn, xn, gen_pos, gen_pos,
+                                cos_g, sin_g, cos_g, sin_g, cap)
+        if i >= 1:
+            cn = rmsnorm(li["ln1"], c_states[i - 1], eps)
+            out = out + A.attention_block(li["attn"], xn, cn, gen_pos,
+                                          tail_kp, cos_g, sin_g, cos_t,
+                                          sin_t, cap)
+        hg = hg + out
+        hg = hg + swiglu(li["ffn"], rmsnorm(li["ln2"], hg, eps))
+    return hg
+
+
+@torch.no_grad()
+def tconst_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                   mode: str = "tconst") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced forward (no autograd).  tokens (B, N), N % W_og == 0;
+    chunk j sees chunks 0..j-1 as compressed history.  Returns (logits
+    (B, N, V) float32, aux loss -- always 0 here, no MoE)."""
+    _check_mode(mode)
+    tc = cfg.tconst
+    B, N = tokens.shape
+    if N % tc.w_og:
+        raise ValueError(f"sequence length {N} must be a multiple of W_og "
+                         f"{tc.w_og}")
+    dev = tokens.device
+    X = E.embed_tokens(params["embed"], tokens, _dtype(cfg.dtype))
+    pos = torch.arange(N, device=dev).expand(B, N)
+    nb = len(params["blocks"])
+    out = []
+    for j in range(N // tc.w_og):
+        hist_valid = pos < j * tc.w_og
+        tail_pos = (j * tc.w_og - tc.w_oh +
+                    torch.arange(tc.w_oh, device=dev)).expand(B, tc.w_oh)
+        tail_valid = tail_pos >= 0
+        gen_pos = (j * tc.w_og +
+                   torch.arange(tc.w_og, device=dev)).expand(B, tc.w_og)
+        hist = X
+        hg = X[:, j * tc.w_og:(j + 1) * tc.w_og]
+        for ib, block in enumerate(params["blocks"]):
+            c_states, restored = context_path(
+                block, hist, pos, hist_valid, tail_pos, tail_valid, cfg,
+                restore=ib + 1 < nb)
+            hg = gen_path(block, hg, gen_pos, c_states, tail_pos,
+                          tail_valid, cfg)
+            hist = restored
+        hg = rmsnorm(params["final_norm"], hg, cfg.norm_eps)
+        out.append(E.lm_head(params["embed"], hg, cfg.logit_softcap))
+    return torch.cat(out, dim=1), torch.zeros((), device=dev)
+
+
+# ---------------------------------------------------------------------------
+# Inference: O(1) cache, cache-hit decode step, periodic resync
+# ---------------------------------------------------------------------------
+
+# True KV-cache entries vs bookkeeping (token ids, lengths, phase flags).
+KV_KEYS = ("ctx_k", "ctx_v", "gen_k", "gen_v")
+# Batch ("slot") axis of every cache entry.
+CACHE_BATCH_AXES = {
+    "tokens": 0, "hist_len": 0, "gen_len": 0, "done": 0, "ctx_valid": 0,
+    "ctx_k": 2, "ctx_v": 2, "gen_k": 2, "gen_v": 2,
+}
+# resync rebuilds the ctx KV from these alone; a row-wise resync gathers
+# only them -- never the KV cache.
+RESYNC_INPUT_KEYS = ("tokens", "hist_len", "gen_len")
+
+
+def init_tconst_cache(cfg: ModelConfig, batch: int, max_len: int,
+                      mode: str = "tconst",
+                      device: Optional[torch.device] = None
+                      ) -> Dict[str, torch.Tensor]:
+    """The paper's Eq. (7) constant-size cache (+ the raw token id buffer,
+    int32, which is not KV cache and is the only O(N) residue)."""
+    _check_mode(mode)
+    tc = cfg.tconst
+    nb = cfg.tconst_blocks
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    dt = _dtype(cfg.dtype)
+
+    def z(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return {
+        "tokens": z((batch, max_len), torch.int32),
+        "hist_len": z((batch,), torch.int32),
+        "gen_len": z((batch,), torch.int32),
+        "done": z((batch,), torch.bool),
+        "ctx_k": z((nb, tc.h + 1, batch, tc.w_oh, kv, hd), dt),
+        "ctx_v": z((nb, tc.h + 1, batch, tc.w_oh, kv, hd), dt),
+        "ctx_valid": z((batch, tc.w_oh), torch.bool),
+        "gen_k": z((nb, tc.h + 2, batch, tc.w_og, kv, hd), dt),
+        "gen_v": z((nb, tc.h + 2, batch, tc.w_og, kv, hd), dt),
+    }
+
+
+def kv_cache_bytes(cache: Dict[str, torch.Tensor]) -> int:
+    """KV-cache footprint (the quantity in paper Fig 8g)."""
+    return sum(cache[k].numel() * cache[k].element_size()
+               for k in cache if k.endswith("_k") or k.endswith("_v"))
+
+
+def needs_resync(cache: Dict[str, torch.Tensor], cfg: ModelConfig
+                 ) -> torch.Tensor:
+    """(B,) bool: the generation window is full."""
+    return cache["gen_len"] >= cfg.tconst.w_og
+
+
+def pending_resync_rows(cache: Dict[str, torch.Tensor], cfg: ModelConfig
+                        ) -> torch.Tensor:
+    """(B,) bool: rows that must sync before the next step -- the window
+    is full AND the slot is not EOS-finished."""
+    return needs_resync(cache, cfg) & ~cache["done"]
+
+
+@torch.no_grad()
+def resync(params: Params, cache: Dict[str, torch.Tensor], cfg: ModelConfig,
+           mode: str = "tconst") -> Dict[str, torch.Tensor]:
+    """Cache-miss path (paper Eq. 4): fold the generation window into
+    history and recompute the compressed-context KV from the token ids.
+    Cost O(N).  Needs only ``RESYNC_INPUT_KEYS``; returns a new dict with
+    ``ctx_k``/``ctx_v``/``ctx_valid`` rebuilt, ``hist_len`` advanced and
+    ``gen_len`` zeroed (other entries passed through)."""
+    _check_mode(mode)
+    tc = cfg.tconst
+    eps = cfg.norm_eps
+    B, max_len = cache["tokens"].shape
+    dev = cache["tokens"].device
+    hist_len = cache["hist_len"] + cache["gen_len"]
+    X = E.embed_tokens(params["embed"], cache["tokens"], _dtype(cfg.dtype))
+    pos = torch.arange(max_len, device=dev).expand(B, max_len)
+    hist_valid = pos < hist_len[:, None]
+    tail_pos = hist_len[:, None] - tc.w_oh + \
+        torch.arange(tc.w_oh, device=dev)[None]
+    tail_valid = tail_pos >= 0
+    cos_t, sin_t = _rope(tail_pos.clamp(min=0), cfg)
+
+    nb = len(params["blocks"])
+    cks, cvs = [], []
+    hist = X
+    for ib, block in enumerate(params["blocks"]):
+        c_states, restored = context_path(block, hist, pos, hist_valid,
+                                          tail_pos, tail_valid, cfg,
+                                          restore=ib + 1 < nb)
+        ks, vs = [], []
+        for i in range(1, tc.h + 2):
+            li = block["layers"][i]
+            cn = rmsnorm(li["ln1"], c_states[i - 1], eps)
+            ck, cv = A.project_kv(li["attn"], cn, cos_t, sin_t)
+            ks.append(ck)
+            vs.append(cv)
+        cks.append(torch.stack(ks))
+        cvs.append(torch.stack(vs))
+        hist = restored
+    out = dict(cache)
+    out["ctx_k"] = torch.stack(cks)
+    out["ctx_v"] = torch.stack(cvs)
+    out["ctx_valid"] = tail_valid
+    out["hist_len"] = hist_len.to(torch.int32)
+    out["gen_len"] = torch.zeros_like(cache["gen_len"])
+    return out
+
+
+@torch.no_grad()
+def decode_step(params: Params, cache: Dict[str, torch.Tensor],
+                token: torch.Tensor, cfg: ModelConfig, mode: str = "tconst",
+                live: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Cache-hit step (paper Eq. 5): O(1) compute and reads.  token (B,).
+
+    Updates ``cache`` IN PLACE and returns (logits (B, V), cache).  Rows
+    where ``live`` (B,) bool is False keep every cache entry bit-identical
+    (their K/V, id and counter writes are masked).  The caller must run
+    :func:`resync` on a live row once its ``gen_len`` reaches ``W_og``.
+    """
+    _check_mode(mode)
+    tc = cfg.tconst
+    eps = cfg.norm_eps
+    cap = cfg.logit_softcap
+    B = token.shape[0]
+    dev = token.device
+    if live is None:
+        live = torch.ones((B,), dtype=torch.bool, device=dev)
+    gen_len = cache["gen_len"]
+    pos = cache["hist_len"] + gen_len                           # (B,)
+    x = E.embed_tokens(params["embed"], token[:, None], _dtype(cfg.dtype))
+    cos_q, sin_q = _rope(pos[:, None], cfg)
+
+    write = live & (gen_len < tc.w_og)
+    slot = gen_len.clamp(0, tc.w_og - 1).long()
+    self_lo = torch.zeros_like(gen_len)
+    self_hi = gen_len + 1
+    # the valid context slots are a suffix: ctx_valid = tail_pos >= 0
+    ctx_lo = (tc.w_oh - cache["ctx_valid"].sum(dim=-1)).to(torch.int32)
+    ctx_hi = torch.full_like(gen_len, tc.w_oh)
+
+    for ib, block in enumerate(params["blocks"]):
+        for i in range(tc.h + 2):
+            li = block["layers"][i]
+            xn = rmsnorm(li["ln1"], x, eps)
+            out, q = A.decode_attend(li["attn"], xn, cache["gen_k"][ib, i],
+                                     cache["gen_v"][ib, i], slot, write,
+                                     self_lo, self_hi, cos_q, sin_q, cap)
+            if i >= 1:
+                out = out + A.cross_attend_cached(
+                    li["attn"], q, cache["ctx_k"][ib, i - 1],
+                    cache["ctx_v"][ib, i - 1], ctx_lo, ctx_hi, cap)
+            x = x + out
+            x = x + swiglu(li["ffn"], rmsnorm(li["ln2"], x, eps))
+
+    x = rmsnorm(params["final_norm"], x, eps)
+    logits = E.lm_head(params["embed"], x, cap)[:, 0]
+
+    # record the token id into the O(N) id buffer (int32, not KV cache)
+    toks = cache["tokens"]
+    max_len = toks.shape[1]
+    rows = torch.arange(B, device=dev)
+    tpos = pos.clamp(0, max_len - 1).long()
+    toks[rows, tpos] = torch.where(live & (pos < max_len),
+                                   token.to(torch.int32), toks[rows, tpos])
+    gen_len += live.to(gen_len.dtype)
+    return logits, cache
+
+
+def _prefill_window_pass(params: Params, cache: Dict[str, torch.Tensor],
+                         win: torch.Tensor, gen_pos: torch.Tensor,
+                         cfg: ModelConfig
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Teacher-forced pass over the prompt's trailing window (B, W):
+    causal self-attention over the window plus cross-attention to the
+    valid context slots.  Returns (hg (B, W, D), gen_k, gen_v stacked
+    (nb, h+2, B, W, KV, hd))."""
+    tc = cfg.tconst
+    eps = cfg.norm_eps
+    cap = cfg.logit_softcap
+    dtype = _dtype(cfg.dtype)
+    cos_g, sin_g = _rope(gen_pos, cfg)
+    hg = E.embed_tokens(params["embed"], win, dtype)
+    # cross-attention to the context is masked by validity only
+    ctx_kp = _key_pos(torch.zeros_like(cache["ctx_valid"], dtype=torch.int32),
+                      cache["ctx_valid"])
+    gks, gvs = [], []
+    for ib, block in enumerate(params["blocks"]):
+        ks, vs = [], []
+        for i in range(tc.h + 2):
+            li = block["layers"][i]
+            xn = rmsnorm(li["ln1"], hg, eps)
+            k, v = A.project_kv(li["attn"], xn, cos_g, sin_g)
+            q = R.apply_rope(A.q_proj(li["attn"], xn, dtype), cos_g, sin_g)
+            out = A.out_proj(li["attn"], ops.flash_attention(
+                q, k, v, gen_pos, gen_pos, causal=True, softcap=cap), dtype)
+            ks.append(k)
+            vs.append(v)
+            if i >= 1:
+                out = out + A.out_proj(li["attn"], ops.flash_attention(
+                    q, cache["ctx_k"][ib, i - 1].to(dtype),
+                    cache["ctx_v"][ib, i - 1].to(dtype), gen_pos, ctx_kp,
+                    causal=False, softcap=cap), dtype)
+            hg = hg + out
+            hg = hg + swiglu(li["ffn"], rmsnorm(li["ln2"], hg, eps))
+        gks.append(torch.stack(ks))
+        gvs.append(torch.stack(vs))
+    return hg, torch.stack(gks), torch.stack(gvs)
+
+
+@torch.no_grad()
+def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            max_len: int, mode: str = "tconst"
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Process a prompt: resync over the history part, teacher-forced pass
+    over the trailing (1..W_og) generation-window part, fill all caches.
+    tokens (B, N0).  Returns (next-token logits (B, V), cache)."""
+    _check_mode(mode)
+    tc = cfg.tconst
+    B, n0 = tokens.shape
+    if n0 < 1 or n0 > max_len:
+        raise ValueError(f"prompt length {n0} must be in [1, {max_len}]")
+    g0 = ((n0 - 1) % tc.w_og) + 1
+    dev = tokens.device
+    cache = init_tconst_cache(cfg, B, max_len, mode, device=dev)
+    cache["tokens"][:, :n0] = tokens.to(torch.int32)
+    cache["hist_len"].fill_(n0 - g0)
+    cache = resync(params, cache, cfg, mode)
+
+    win = tokens[:, n0 - g0:]
+    gen_pos = (n0 - g0 + torch.arange(g0, device=dev)).expand(B, g0)
+    hg, gk, gv = _prefill_window_pass(params, cache, win, gen_pos, cfg)
+    hg = rmsnorm(params["final_norm"], hg, cfg.norm_eps)
+    logits = E.lm_head(params["embed"], hg[:, -1:], cfg.logit_softcap)[:, 0]
+    cache["gen_k"][:, :, :, :g0] = gk
+    cache["gen_v"][:, :, :, :g0] = gv
+    cache["gen_len"] = torch.full_like(cache["gen_len"], g0)
+    return logits, cache
+
+
+def prefill_bucketed(*args, **kwargs):
+    raise NotImplementedError(
+        "prefill_bucketed (one fixed-shape admission for every prompt "
+        "length) is not ported yet: ROADMAP Queue 1 item 3")
+
+
+def verify_chunk_views(*args, **kwargs):
+    raise NotImplementedError(
+        "verify_chunk_views (speculative verify) is not ported yet: ROADMAP "
+        "Queue 1 item 8 (speculative decoding)")

@@ -1,0 +1,107 @@
+"""K1: one-query decode attention over a constant-size KV buffer.
+
+Port of ``src/repro/kernels/decode_attention.py`` (``decode_attention_pallas``,
+the TPU kernel of the O(1) cache-hit step, paper Eq. 5).  The port's
+kernel is CUDA C++ (``csrc/decode_attention.cu``); it takes a per-row
+slot range ``[lo, hi)`` instead of ``valid_len``/``window``, so one kernel
+serves the generation-window self-attention (``[0, gen_len + 1)``) and the
+compressed-context cross-attention (the valid context slots are a suffix
+``[W_oh - n_valid, W_oh)``).
+
+Beside the kernel's wrapper sits its plain PyTorch version; only CPU
+tensors reach it (the dispatch is :func:`repro_torch.kernels.ops.decode_attention`).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch import runtime
+from repro_torch.kernels import _build
+
+NEG_INF = -2.3819763e38
+MAX_GROUP = 8            # query heads per KV head the kernel holds
+MAX_HEAD_DIM = 256
+SMEM_LIMIT = 48 * 1024   # bytes of shared memory one launch may use
+COUNTER = runtime.counter("decode_attention")
+
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 +
+             [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           lo: torch.Tensor, hi: torch.Tensor,
+                           softcap: float = 0.0) -> torch.Tensor:
+    """q (B, H, D); k/v (B, S, KV, D); lo/hi (B,) int.  Slots
+    ``lo <= s < hi`` are attended; an empty range gives zeros.  f32
+    arithmetic, output in q's dtype.  Returns (B, H, D)."""
+    B, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, D).float() * (D ** -0.5)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k.float())
+    if softcap > 0.0:
+        s = torch.tanh(s / softcap) * softcap
+    slot = torch.arange(S, device=q.device)[None]
+    valid = (slot >= lo[:, None]) & (slot < hi[:, None])       # (B, S)
+    mm = valid[:, None, None, :]
+    s = torch.where(mm, s, torch.full_like(s, NEG_INF))
+    mx = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - mx) * mm
+    p = e / (e.sum(dim=-1, keepdim=True) + 1e-30)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    return o.reshape(B, H, D).to(q.dtype)
+
+
+def smem_bytes(S: int, H: int, KV: int, D: int) -> int:
+    """Shared memory of one launch (mirrors ``smem_bytes`` in the CUDA
+    source: q, scores, the cross-warp reduction of 4 warps, the sums)."""
+    G = H // KV
+    return 4 * (G * D + G * S + 4 * G * D + G)
+
+
+def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          lo: torch.Tensor, hi: torch.Tensor,
+                          softcap: float = 0.0) -> torch.Tensor:
+    """Launch the CUDA kernel on PyTorch's current stream.  Raises on an
+    input the kernel does not take and on a failed launch."""
+    if not (q.is_cuda and k.is_cuda and v.is_cuda and lo.is_cuda
+            and hi.is_cuda):
+        raise ValueError("decode_attention_cuda takes CUDA tensors only")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"decode attention takes matching float32/bfloat16 "
+                        f"q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
+    B, H, D = q.shape
+    if k.ndim != 4 or k.shape[0] != B or k.shape[3] != D or \
+            v.shape != k.shape:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    S, KV = k.shape[1], k.shape[2]
+    if H % KV or H // KV > MAX_GROUP or D > MAX_HEAD_DIM:
+        raise ValueError(f"decode kernel needs H % KV == 0, H/KV <= "
+                         f"{MAX_GROUP}, head_dim <= {MAX_HEAD_DIM}; got "
+                         f"H={H} KV={KV} D={D}")
+    if smem_bytes(S, H, KV, D) > SMEM_LIMIT:
+        raise ValueError(f"decode kernel keeps the scores in shared memory: "
+                         f"S={S} with H/KV={H // KV}, D={D} needs "
+                         f"{smem_bytes(S, H, KV, D)} B > {SMEM_LIMIT} B")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    lo = lo.to(torch.int32).contiguous()
+    hi = hi.to(torch.int32).contiguous()
+    if lo.shape != (B,) or hi.shape != (B,):
+        raise ValueError("lo/hi must be (B,)")
+    out = torch.empty_like(q)
+    fn = _build.function("decode_attention", "decode_attention_fwd",
+                         _ARGTYPES)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lo.data_ptr(),
+                 hi.data_ptr(), out.data_ptr(), B, S, H, KV, D,
+                 float(D ** -0.5), float(softcap), _DTYPES[q.dtype], stream)
+    if err:
+        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    COUNTER.kernel += 1
+    return out

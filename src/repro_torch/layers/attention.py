@@ -1,0 +1,149 @@
+"""Grouped-query attention for the TConst paths.
+
+Port of ``src/repro/layers/attention.py`` (projections, ``make_mask``,
+the masked-safe ``sdpa`` and the dense decode/cross attends).  Every
+attention the model runs goes through :mod:`repro_torch.kernels.ops`:
+multi-query attention is K2 (flash, positional masks), one-query decode
+attention is K1 (a per-row ``[lo, hi)`` slot range).  ``sdpa`` with a
+boolean mask is kept as the plain reference of the JAX function and
+takes CPU tensors only.
+
+Weights keep the JAX layouts: ``wq`` (d, H, hd), ``wk``/``wv``
+(d, KV, hd), ``wo`` (H, hd, d).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import masked_attention
+from repro_torch.layers.common import Params
+from repro_torch.layers.rope import apply_rope
+
+NEG_INF = -2.3819763e38
+
+
+def qkv_proj(params: Params, xq: torch.Tensor, xkv: torch.Tensor,
+             dtype: torch.dtype
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    q = torch.einsum("bld,dhk->blhk", xq, params["wq"].to(dtype))
+    k = torch.einsum("bsd,dhk->bshk", xkv, params["wk"].to(dtype))
+    v = torch.einsum("bsd,dhk->bshk", xkv, params["wv"].to(dtype))
+    return q, k, v
+
+
+def q_proj(params: Params, x: torch.Tensor, dtype: torch.dtype
+           ) -> torch.Tensor:
+    return torch.einsum("bld,dhk->blhk", x, params["wq"].to(dtype))
+
+
+def out_proj(params: Params, o: torch.Tensor, dtype: torch.dtype
+             ) -> torch.Tensor:
+    return torch.einsum("blhk,hkd->bld", o, params["wo"].to(dtype))
+
+
+def project_kv(params: Params, x: torch.Tensor,
+               cos: Optional[torch.Tensor] = None,
+               sin: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Project (and RoPE) K/V for caching. x (B, S, d) -> (B, S, KV, D)."""
+    dtype = x.dtype
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dtype))
+    if cos is not None:
+        k = apply_rope(k, cos, sin)
+    return k, v
+
+
+def make_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, mode: str,
+              window: int = 0) -> Optional[torch.Tensor]:
+    """Boolean (..., Lq, Lk) mask, True = attend.  mode: causal | sliding
+    | full (None)."""
+    if mode == "full":
+        return None
+    qp = q_pos[..., :, None]
+    kp = k_pos[..., None, :]
+    mask = kp <= qp
+    if mode == "sliding":
+        weff = window if window > 0 else 2 ** 30
+        mask = mask & (kp > qp - weff)
+    elif mode != "causal":
+        raise ValueError(mode)
+    return mask
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         mask: Optional[torch.Tensor] = None, logit_softcap: float = 0.0,
+         kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain masked-safe attention with a boolean mask (B?, Lq, Lk) and/or
+    ``kv_valid`` (B, Lk); fully masked rows give zeros.  CPU tensors only:
+    the model's attention runs through :mod:`repro_torch.kernels.ops`."""
+    if q.device.type != "cpu":
+        raise ValueError("sdpa is the plain reference (CPU only); CUDA "
+                         "attention goes through repro_torch.kernels.ops")
+    B, Lq = q.shape[:2]
+    Lk = k.shape[1]
+    cm = torch.ones((B, Lq, Lk), dtype=torch.bool)
+    if mask is not None:
+        cm = cm & (mask if mask.ndim == 3 else mask[None])
+    if kv_valid is not None:
+        cm = cm & kv_valid[:, None, :]
+    return masked_attention(q, k, v, cm, logit_softcap)
+
+
+def attention_block(params: Params, xq: torch.Tensor, xkv: torch.Tensor,
+                    q_pos: torch.Tensor, k_pos: torch.Tensor,
+                    cos_q: torch.Tensor, sin_q: torch.Tensor,
+                    cos_k: torch.Tensor, sin_k: torch.Tensor,
+                    logit_softcap: float = 0.0,
+                    causal: bool = True) -> torch.Tensor:
+    """Projected multi-query attention (K2): RoPE'd q/k, a key attended
+    iff ``k_pos != INVALID_POS`` and (causal) ``k_pos <= q_pos``."""
+    dtype = xq.dtype
+    q, k, v = qkv_proj(params, xq, xkv, dtype)
+    q = apply_rope(q, cos_q, sin_q)
+    k = apply_rope(k, cos_k, sin_k)
+    o = ops.flash_attention(q, k, v, q_pos, k_pos, causal=causal,
+                            softcap=logit_softcap)
+    return out_proj(params, o, dtype)
+
+
+def decode_attend(params: Params, x: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, slot: torch.Tensor,
+                  write: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                  cos_q: torch.Tensor, sin_q: torch.Tensor,
+                  logit_softcap: float = 0.0
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-token decode self-attention over a dense (B, S, KV, D) cache
+    (K1).  Projects q/k/v for the new token and writes k/v IN PLACE at
+    ``slot`` for rows where ``write`` is True -- the other rows' cache
+    entries are rewritten with their own values, so they come through
+    bit-identical.  Attends slots ``[lo, hi)``.  Returns (out (B, 1, d),
+    the RoPE'd query (B, 1, H, D) for the cross-attention)."""
+    dtype = x.dtype
+    q, k_new, v_new = qkv_proj(params, x, x, dtype)
+    q = apply_rope(q, cos_q, sin_q)
+    k_new = apply_rope(k_new, cos_q, sin_q)
+    rows = torch.arange(x.shape[0], device=x.device)
+    w = write[:, None, None]
+    k_cache[rows, slot] = torch.where(w, k_new[:, 0].to(k_cache.dtype),
+                                      k_cache[rows, slot])
+    v_cache[rows, slot] = torch.where(w, v_new[:, 0].to(v_cache.dtype),
+                                      v_cache[rows, slot])
+    o = ops.decode_attention(q[:, 0], k_cache.to(dtype), v_cache.to(dtype),
+                             lo, hi, logit_softcap)
+    return out_proj(params, o[:, None], dtype), q
+
+
+def cross_attend_cached(params: Params, q: torch.Tensor,
+                        k_cache: torch.Tensor, v_cache: torch.Tensor,
+                        lo: torch.Tensor, hi: torch.Tensor,
+                        logit_softcap: float = 0.0) -> torch.Tensor:
+    """One-token cross-attention of RoPE'd queries q (B, 1, H, D) to
+    cached, already RoPE'd K/V (B, S, KV, D), slots ``[lo, hi)`` (K1)."""
+    dtype = q.dtype
+    o = ops.decode_attention(q[:, 0], k_cache.to(dtype), v_cache.to(dtype),
+                             lo, hi, logit_softcap)
+    return out_proj(params, o[:, None], dtype)
