@@ -7,26 +7,42 @@ Phases (any failure raises, so the exit code is non-zero):
 
 1. Device: a CUDA device must be visible; prints the card's name and
    power limit as ``nvidia-smi`` reports them.
-2. Build: compiles every kernel of the main path from
-   ``src/repro_torch/csrc/*.cu`` with ``nvcc`` for ``sm_90a`` (one process
-   per source, in parallel) and times it.
+2. Build: compiles every kernel source from ``src/repro_torch/csrc/*.cu``
+   with ``nvcc`` for ``sm_90a`` (one process per source, in parallel) and
+   times it.
 3. Kernels: each kernel against its plain PyTorch version on the same
    CUDA tensors, in bf16 and f32, at the shapes ``tconst-41m`` serving
-   gives it (K1: the decode step's self and cross attention with full,
-   partial and empty slot ranges; K2: the resync's compress / context
-   self / restore and the admission's window passes, with dead keys and
-   negative query positions).  Prints the kernel's, the plain version's
-   and ``F.scaled_dot_product_attention``'s times (a yardstick only; the
-   port never calls it) and the least time the card could take.
-4. Serve ``tconst-41m`` at full width with the port's seeded init:
-   ``--sessions 4 --slots 2 --prompt-len 600 --gen 320 --chunk 32`` in
-   bf16 (the main path: launch counters reset before the scheduler runs
-   and read right after it, before the solo runs that check the streams)
-   and in f32 (greedy streams must equal the solo runs).  Each session's
-   first-token logits and those of a few decode steps after it are held
-   against the f32 plain path on the CPU.
-5. Uniform-batch Engine (``--batch 4 --prompt-len 1024 --gen 800``): the
-   mean cache-hit step and resync times (three warm resyncs).
+   gives it.  K1 (decode): the step's self and cross attention with full,
+   partial and empty slot ranges, TLinFormer's history cross-attention at
+   ``S = max_len`` and a long history above 48 KB of scores (the kernel
+   raises its shared-memory limit).  K1-int8: int8 K/V with per-vector
+   scales at the gen-self, ctx-cross and hist-cross shapes.  K2 (flash):
+   the resync's compress / context self / restore and the admission's
+   window passes, with dead keys and negative query positions.  K3 (paged
+   decode) and K3-int8: the history over a page pool of 64-token pages,
+   ragged valid lengths (0, a partial last page), window 0 and 256, trash
+   entries in the table.  Prints the kernel's, the plain version's and
+   ``F.scaled_dot_product_attention``'s times (a yardstick only, with the
+   gather or dequantisation it needs; the port never calls it) and the
+   least time the card could take.
+4. Serve ``tconst-41m`` at full width with the port's seeded init
+   (``--sessions 4 --prompt-len 600 --gen 320 --chunk 32``), each run's
+   launch counters reset before the scheduler and read right after it:
+   tconst on the dense layout (the first slice's main path, bf16 and f32)
+   and, in bf16 and f32, TLinFormer on the paged and paged_int8 layouts
+   (3 slots, a pool of 31 pages of 64 below the full 48, so an admission
+   waits for pages a finished session frees while two sessions decode)
+   and tconst on the int8 layout.  Each run must launch exactly its
+   kernels (K3 on the paged runs, K1-int8 on the int8 runs) and no plain
+   version.  f32 greedy streams must equal their solo runs on the same
+   layout (the f32 runs of the new layouts use ``--prompt-len 700 --gen
+   96``: every session still crosses a resync).  bf16 logits after the
+   prefill and after a few decode steps are held against the f32 plain
+   path on the CPU, same layout.
+5. Uniform-batch Engine (``--batch 4 --prompt-len 1024 --gen 800``), on
+   tconst/dense and tlin/paged in the same call, in turns (A, B, B, A):
+   the mean cache-hit step (the paper's O(1) against O(N)) and resync
+   times of each run.
 6. Prints the per-kernel JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.  Details go to
    ``build/chip_smoke.json``.
@@ -58,9 +74,46 @@ LOGIT_STEPS = 8      # decode steps checked after the prefill (K1's path)
 
 SESSIONS_ARGS = ["--arch", "tconst-41m", "--sessions", "4", "--slots", "2",
                  "--prompt-len", "600", "--gen", "320", "--chunk", "32"]
+# paged runs: 3 slots, a pool below the full 3 x 16 pages: sessions need
+# 15, 15, 16, 16 pages of 64 (prompt + gen + one chunk), so two decode
+# together and the third waits for pages with a slot free
+PAGED_ARGS = ["--slots", "3", "--page-size", "64", "--pool-pages", "31"]
+# f32 runs of the new layouts: shorter, every session still crosses a
+# resync (g0 = 188..203 of W_og = 256); paged pool 27 of 3 x 14 pages
+F32_ARGS = ["--prompt-len", "700", "--gen", "96"]
+F32_PAGED_ARGS = ["--slots", "3", "--page-size", "64", "--pool-pages", "27"]
 # gen 800 from a 1024-token prompt: four resyncs, three of them warm
 ENGINE_ARGS = ["--arch", "tconst-41m", "--batch", "4", "--prompt-len",
                "1024", "--gen", "800"]
+
+K1, K1_INT8, K2 = "decode_attention", "decode_attention_int8", \
+    "flash_attention"
+K3, K3_INT8 = "paged_decode_attention", "paged_decode_attention_int8"
+# (mode, layout, the kernels the run launches -- and no other)
+SESSION_RUNS = [
+    ("tconst", "dense", (K1, K2)),
+    ("tlin", "paged", (K1, K2, K3)),
+    ("tlin", "paged_int8", (K1_INT8, K2, K3_INT8)),
+    ("tconst", "int8", (K1_INT8, K2)),
+]
+# the kernels line: kernel -> (representative case, source, TPU kernel,
+# the session run whose counts are its launches)
+KERNELS = {
+    K1: ("self_full", "src/repro_torch/csrc/decode_attention.cu",
+         "src/repro/kernels/decode_attention.py:108", ("tconst", "dense")),
+    K1_INT8: ("int8_gen_self", "src/repro_torch/csrc/decode_attention.cu",
+              "src/repro/kernels/decode_attention.py:108",
+              ("tlin", "paged_int8")),
+    K2: ("compress", "src/repro_torch/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:116", ("tconst", "dense")),
+    K3: ("hist_ragged", "src/repro_torch/csrc/paged_decode_attention.cu",
+         "src/repro/kernels/paged_decode_attention.py:156",
+         ("tlin", "paged")),
+    K3_INT8: ("hist_ragged",
+              "src/repro_torch/csrc/paged_decode_attention.cu",
+              "src/repro/kernels/paged_decode_attention.py:156",
+              ("tlin", "paged_int8")),
+}
 
 
 class SmokeError(RuntimeError):
@@ -123,7 +176,7 @@ def nbytes(*ts) -> int:
 # ---------------------------------------------------------------------------
 
 
-def k1_cases(torch, cfg, dev):
+def k1_cases(torch, cfg, dev, max_len: int):
     """(label, B, S, lo, hi) at the decode step's shapes: B = slots."""
     W = cfg.tconst.w_og
     t = lambda xs: torch.tensor(xs, dtype=torch.int32, device=dev)  # noqa
@@ -133,7 +186,31 @@ def k1_cases(torch, cfg, dev):
         ("cross_partial", 2, cfg.tconst.w_oh, t([156, 0]),
          t([cfg.tconst.w_oh, cfg.tconst.w_oh])),
         ("empty", 2, W, t([0, W]), t([0, W])),
+        # TLinFormer's history cross-attention on the dense layout
+        ("hist_cross", 3, max_len, t([0, 0, 0]), t([0, 613, 960])),
+        # scores above 48 KB of shared memory (G = 1: S > ~11.9k)
+        ("hist_long", 2, 16384, t([0, 0]), t([16000, 9000])),
     ]
+
+
+def k1_int8_cases(torch, cfg, dev, max_len: int):
+    """(label, B, S, lo, hi): the int8 layouts' gen-window self, ctx
+    cross and tlin history cross attention, B = slots."""
+    W, Wh = cfg.tconst.w_og, cfg.tconst.w_oh
+    t = lambda xs: torch.tensor(xs, dtype=torch.int32, device=dev)  # noqa
+    return [
+        ("int8_gen_self", 3, W, t([0, 0, 0]), t([89, 170, W])),
+        ("int8_ctx_cross", 3, Wh, t([156, 0, Wh]), t([Wh, Wh, Wh])),
+        ("int8_hist_cross", 3, max_len, t([0, 0, 0]), t([0, 613, 960])),
+    ]
+
+
+def k3_cases(max_len: int):
+    """(label, valid_len per slot, window): the paged history of 3 slots
+    at max_len, pages of 64: an empty row, a partial last page, a long
+    row; window 0 (tlin) and 256."""
+    return [("hist_ragged", [0, 613, min(960, max_len)], 0),
+            ("hist_window", [0, 613, min(960, max_len)], 256)]
 
 
 def k2_cases(torch, cfg, dev, max_len: int):
@@ -163,14 +240,44 @@ def k2_cases(torch, cfg, dev, max_len: int):
     ]
 
 
-def sdpa_k1(torch, q, k, v, lo, hi):
+def sdpa_k1(torch, q, k, v, lo, hi, k_scale=None, v_scale=None):
+    """SDPA over the dense K/V (int8: dequantised in the timed call)."""
     import torch.nn.functional as F
     S = k.shape[1]
     slot = torch.arange(S, device=q.device)[None]
     mask = ((slot >= lo[:, None]) & (slot < hi[:, None]))[:, None, None]
-    qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    return lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    qt = q[:, :, None]
+
+    def fn():
+        kk, vv = k, v
+        if k_scale is not None:
+            kk = (k.float() * k_scale).to(q.dtype)
+            vv = (v.float() * v_scale).to(q.dtype)
+        return F.scaled_dot_product_attention(
+            qt, kk.transpose(1, 2), vv.transpose(1, 2), attn_mask=mask,
+            enable_gqa=True)
+    return fn
+
+
+def sdpa_k3(torch, q, pk, pv, pt, lo, hi, k_scale=None, v_scale=None):
+    """SDPA over the rows' gathered pages (gather, and int8: dequantise,
+    in the timed call)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_decode_attention import gather_pages
+    S = pt.shape[1] * pk.shape[1]
+    slot = torch.arange(S, device=q.device)[None]
+    mask = ((slot >= lo[:, None]) & (slot < hi[:, None]))[:, None, None]
+    qt = q[:, :, None]
+
+    def fn():
+        k, v = gather_pages(pk, pt), gather_pages(pv, pt)
+        if k_scale is not None:
+            k = (k.float() * gather_pages(k_scale, pt)).to(q.dtype)
+            v = (v.float() * gather_pages(v_scale, pt)).to(q.dtype)
+        return F.scaled_dot_product_attention(
+            qt, k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+            enable_gqa=True)
+    return fn
 
 
 def sdpa_k2(torch, q, k, v, mask):
@@ -181,9 +288,55 @@ def sdpa_k2(torch, q, k, v, mask):
         qt, kt, vt, attn_mask=m, enable_gqa=True)
 
 
+def int8_codes(torch, gen, shape, dev):
+    return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                         dtype=torch.int32).to(torch.int8)
+
+
+def paged_pool(torch, randn, gen, B, KV, D, page, pps, valid_len, dtype,
+               dev):
+    """A full pool of B x pps pages (+ trash) with a shuffled table whose
+    entries past each row's valid length point at the trash page; int8
+    (``dtype`` None) with per-vector scales."""
+    P = B * pps
+    shape = (P + 1, page, KV, D)
+    if dtype is None:
+        pk = int8_codes(torch, gen, shape, dev)
+        pv = int8_codes(torch, gen, shape, dev)
+        ks = randn(shape[:3] + (1,), torch.float32).abs() * 0.02 + 1e-3
+        vs = randn(shape[:3] + (1,), torch.float32).abs() * 0.02 + 1e-3
+    else:
+        pk, pv = randn(shape, dtype), randn(shape, dtype)
+        ks = vs = None
+    pt = torch.randperm(P, generator=torch.Generator().manual_seed(P)).to(
+        dev, torch.int32).reshape(B, pps)
+    for b, n in enumerate(valid_len):
+        pt[b, -(-n // page):] = P
+    vl = torch.tensor(valid_len, dtype=torch.int32, device=dev)
+    return pk, pv, ks, vs, pt, vl
+
+
+def kernel_row(rows, kernel, case, dname, shape, out, ref, run, plain,
+               library, n_bytes, flops):
+    import torch
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    check(bool(torch.isfinite(out.float()).all()),
+          f"{kernel} {case}/{dname}: non-finite output")
+    check(err <= TOL[dname], f"{kernel} {case}/{dname}: max |kernel - "
+          f"plain| = {err} > {TOL[dname]}")
+    b, by = bound_ms(n_bytes, flops, dname)
+    rows.append({"kernel": kernel, "case": case, "dtype": dname,
+                 "shape": shape, "max_abs_err": err, "tol": TOL[dname],
+                 "ms": time_ms(run), "plain_ms": time_ms(plain),
+                 "library_ms": time_ms(library), "bound_ms": b,
+                 "bound_by": by})
+
+
 def kernel_phase(torch, cfg, dev, max_len: int):
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_decode_attention as PD
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
@@ -194,32 +347,67 @@ def kernel_phase(torch, cfg, dev, max_len: int):
 
     for dname in ("bfloat16", "float32"):
         dt = getattr(torch, dname)
-        for label, B, S, lo, hi in k1_cases(torch, cfg, dev):
+        for label, B, S, lo, hi in k1_cases(torch, cfg, dev, max_len):
             q = randn((B, H, D), dt)
             k = randn((B, S, KV, D), dt)
             v = randn((B, S, KV, D), dt)
-            out = DA.decode_attention_cuda(q, k, v, lo, hi)
-            ref = DA.decode_attention_plain(q, k, v, lo, hi)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            check(bool(torch.isfinite(out.float()).all()),
-                  f"K1 {label}/{dname}: non-finite output")
-            check(err <= TOL[dname], f"K1 {label}/{dname}: max |kernel - "
-                  f"plain| = {err} > {TOL[dname]}")
             n = (hi - lo).clamp(min=0)
             used = int(n.sum()) * KV * D * k.element_size()
-            b, by = bound_ms(nbytes(q, lo, hi, out) + 2 * used,
-                             4 * H * D * int(n.sum()), dname)
-            rows.append({
-                "kernel": "decode_attention", "case": label, "dtype": dname,
-                "shape": f"B={B} H={H} KV={KV} D={D} S={S}",
-                "max_abs_err": err, "tol": TOL[dname],
-                "ms": time_ms(lambda: DA.decode_attention_cuda(
-                    q, k, v, lo, hi)),
-                "plain_ms": time_ms(lambda: DA.decode_attention_plain(
-                    q, k, v, lo, hi)),
-                "library_ms": time_ms(sdpa_k1(torch, q, k, v, lo, hi)),
-                "bound_ms": b, "bound_by": by})
+            out = DA.decode_attention_cuda(q, k, v, lo, hi)
+            kernel_row(rows, K1, label, dname,
+                       f"B={B} H={H} KV={KV} D={D} S={S}", out,
+                       DA.decode_attention_plain(q, k, v, lo, hi),
+                       lambda: DA.decode_attention_cuda(q, k, v, lo, hi),
+                       lambda: DA.decode_attention_plain(q, k, v, lo, hi),
+                       sdpa_k1(torch, q, k, v, lo, hi),
+                       nbytes(q, lo, hi, out) + 2 * used,
+                       4 * H * D * int(n.sum()))
+        for label, B, S, lo, hi in k1_int8_cases(torch, cfg, dev, max_len):
+            q = randn((B, H, D), dt)
+            k = int8_codes(torch, gen, (B, S, KV, D), dev)
+            v = int8_codes(torch, gen, (B, S, KV, D), dev)
+            ks = randn((B, S, KV, 1), torch.float32).abs() * 0.02 + 1e-3
+            vs = randn((B, S, KV, 1), torch.float32).abs() * 0.02 + 1e-3
+            n = (hi - lo).clamp(min=0)
+            used = int(n.sum()) * KV * (D + 4)        # codes + one scale
+            out = DA.decode_attention_int8_cuda(q, k, v, ks, vs, lo, hi)
+            kernel_row(
+                rows, K1_INT8, label, dname,
+                f"B={B} H={H} KV={KV} D={D} S={S} int8", out,
+                DA.decode_attention_plain(q, k, v, lo, hi, 0.0, ks, vs),
+                lambda: DA.decode_attention_int8_cuda(q, k, v, ks, vs, lo,
+                                                      hi),
+                lambda: DA.decode_attention_plain(q, k, v, lo, hi, 0.0, ks,
+                                                  vs),
+                sdpa_k1(torch, q, k, v, lo, hi, ks, vs),
+                nbytes(q, lo, hi, out) + 2 * used, 4 * H * D * int(n.sum()))
+        page = 64
+        pps = -(-max_len // page)
+        for quant in (False, True):
+            for label, vlist, window in k3_cases(max_len):
+                B = len(vlist)
+                pk, pv, ks, vs, pt, vl = paged_pool(
+                    torch, randn, gen, B, KV, D, page, pps, vlist,
+                    None if quant else dt, dev)
+                q = randn((B, H, D), dt)
+                lo, hi = PD.attended_range(vl, window, pps * page)
+                n = int((hi - lo).sum())
+                per_slot = KV * (D + 4) if quant else \
+                    KV * D * pk.element_size()
+                pages_read = sum(-(-int(h) // page) - int(lv) // page
+                                 for lv, h in zip(lo, hi) if h > lv)
+                args = (q, pk, pv, pt, vl, 0.0, window, ks, vs)
+                out = PD.paged_decode_attention_cuda(*args)
+                kernel_row(
+                    rows, K3_INT8 if quant else K3, label, dname,
+                    f"B={B} H={H} KV={KV} D={D} page={page} pps={pps}"
+                    f"{' int8' if quant else ''} window={window}", out,
+                    PD.paged_decode_attention_plain(*args),
+                    lambda: PD.paged_decode_attention_cuda(*args),
+                    lambda: PD.paged_decode_attention_plain(*args),
+                    sdpa_k3(torch, q, pk, pv, pt, lo, hi, ks, vs),
+                    nbytes(q, vl, out) + 4 * pages_read + 2 * n * per_slot,
+                    4 * H * D * n)
         for label, qp, kp, causal in k2_cases(torch, cfg, dev, max_len):
             B, Lq, Lk = qp.shape[0], qp.shape[1], kp.shape[1]
             if kp.shape[0] != B:
@@ -227,35 +415,26 @@ def kernel_phase(torch, cfg, dev, max_len: int):
             q = randn((B, Lq, H, D), dt)
             k = randn((B, Lk, KV, D), dt)
             v = randn((B, Lk, KV, D), dt)
-            out = FA.flash_attention_cuda(q, k, v, qp, kp, causal)
-            ref = FA.flash_attention_plain(q, k, v, qp, kp, causal)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            check(bool(torch.isfinite(out.float()).all()),
-                  f"K2 {label}/{dname}: non-finite output")
-            check(err <= TOL[dname], f"K2 {label}/{dname}: max |kernel - "
-                  f"plain| = {err} > {TOL[dname]}")
             mask = FA.position_mask(qp, kp, causal, 0)
             pairs = int(mask.sum())
             # K/V bytes only of the keys some query attends (dead keys and
             # keys past every query's position need not be read)
             keys = int(mask.any(dim=1).sum())
             used = keys * KV * D * k.element_size()
-            b, by = bound_ms(nbytes(q, qp, kp, out) + 2 * used,
-                             4 * H * D * pairs, dname)
-            rows.append({
-                "kernel": "flash_attention", "case": label, "dtype": dname,
-                "shape": f"B={B} Lq={Lq} Lk={Lk} H={H} KV={KV} D={D}",
-                "max_abs_err": err, "tol": TOL[dname],
-                "ms": time_ms(lambda: FA.flash_attention_cuda(
-                    q, k, v, qp, kp, causal)),
-                "plain_ms": time_ms(lambda: FA.flash_attention_plain(
-                    q, k, v, qp, kp, causal)),
-                "library_ms": time_ms(sdpa_k2(torch, q, k, v, mask)),
-                "bound_ms": b, "bound_by": by})
+            out = FA.flash_attention_cuda(q, k, v, qp, kp, causal)
+            kernel_row(rows, K2, label, dname,
+                       f"B={B} Lq={Lq} Lk={Lk} H={H} KV={KV} D={D}", out,
+                       FA.flash_attention_plain(q, k, v, qp, kp, causal),
+                       lambda: FA.flash_attention_cuda(q, k, v, qp, kp,
+                                                       causal),
+                       lambda: FA.flash_attention_plain(q, k, v, qp, kp,
+                                                        causal),
+                       sdpa_k2(torch, q, k, v, mask),
+                       nbytes(q, qp, kp, out) + 2 * used,
+                       4 * H * D * pairs)
     for r in rows:
-        print(f"[kernel] {r['kernel']:16s} {r['case']:13s} {r['dtype']:8s} "
-              f"{r['shape']:34s} err={r['max_abs_err']:.2e} "
+        print(f"[kernel] {r['kernel']:27s} {r['case']:15s} {r['dtype']:8s} "
+              f"{r['shape']:50s} err={r['max_abs_err']:.2e} "
               f"ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
               f"sdpa={r['library_ms']:.4f} bound={r['bound_ms']:.5f} "
               f"({r['bound_by']})")
@@ -263,47 +442,86 @@ def kernel_phase(torch, cfg, dev, max_len: int):
 
 
 # ---------------------------------------------------------------------------
-# phases 4-5: the port's main path
+# phases 4-5: the port's main paths
 # ---------------------------------------------------------------------------
 
 
-def serve_phase(torch, runtime, serve, dtype: str):
-    args = serve.parse_args(SESSIONS_ARGS + ["--dtype", dtype])
-    cfg, api, params = serve.load(args)
+def session_argv(layout: str, dtype: str):
+    """The launcher's argv of one sessions run."""
+    argv = SESSIONS_ARGS + ["--dtype", dtype, "--layout", layout]
+    new = layout != "dense"
+    if dtype == "float32" and new:
+        argv += F32_ARGS
+    if layout.startswith("paged"):
+        argv += F32_PAGED_ARGS if dtype == "float32" else PAGED_ARGS
+    return argv
+
+
+def serve_phase(torch, runtime, serve, mode: str, layout: str, dtype: str,
+                kernels):
+    """One sessions run of the main path: counters reset right before
+    the scheduler, read right after it; then the checks."""
+    args = serve.parse_args(session_argv(layout, dtype))
+    cfg, api, params = serve.load(args, attention_mode=mode)
     torch.cuda.synchronize()
     runtime.reset_counters()
     served = serve.serve_sessions(cfg, api, params, args)
     torch.cuda.synchronize()
     counts = runtime.read_counters()
-    # the solo runs the streams are checked against come after the read
-    rep = serve.check_sessions(api, params, served, args)
+    sched = served["sched"]
+    what = f"{mode}/{layout} {dtype} sessions"
     for name, c in counts.items():
-        check(c["kernel"] > 0, f"{dtype} sessions: kernel {name} was never "
-              f"launched ({counts})")
-        check(c["plain"] == 0, f"{dtype} sessions: plain version of {name} "
-              f"ran on the main path ({counts})")
-    for s in rep["sessions"]:
-        check(len(s["tokens"]) == args.gen, f"session {s['sid']}: "
-              f"{len(s['tokens'])} tokens, expected {args.gen}")
-        check(s["resyncs"] >= 1, f"session {s['sid']} crossed no resync")
-    if dtype == "float32":
-        check(rep["rc"] == 0 and all(s["matches"] for s in rep["sessions"]),
-              "f32 greedy session streams differ from their solo runs")
-    return cfg, args, params, rep, counts
+        if name in kernels:
+            check(c["kernel"] > 0, f"{what}: kernel {name} was never "
+                  f"launched ({counts})")
+        else:
+            check(c["kernel"] == 0, f"{what}: kernel {name} is not on this "
+                  f"path but launched ({counts})")
+        check(c["plain"] == 0, f"{what}: plain version of {name} ran on "
+              f"the main path ({counts})")
+    for s in served["sessions"]:
+        check(len(s.tokens) == args.gen, f"{what}: session {s.sid}: "
+              f"{len(s.tokens)} tokens, expected {args.gen}")
+        check(sched.resyncs.get(s.sid, 0) >= 1,
+              f"{what}: session {s.sid} crossed no resync")
+    if sched._paged:
+        check(sched.peak_active >= 2, f"{what}: fewer than two sessions "
+              f"decoded at once")
+        check(sched.page_waits >= 1, f"{what}: no admission waited for "
+              f"pool pages")
+        check(sorted(sched.free_pages) == list(range(
+            sched.layout.pool_pages)), f"{what}: pages leaked")
+    rep = {"seconds": served["seconds"], "launches": counts,
+           "page_waits": sched.page_waits, "peak_active": sched.peak_active,
+           "kv_bytes": sched.kv_bytes()}
+    # the solo runs the streams are checked against come after the read;
+    # the first slice's dense runs keep theirs in bf16 too
+    if dtype == "float32" or layout == "dense":
+        chk = serve.check_sessions(api, params, served, args)
+        rep["sessions"] = [{k: s[k] for k in ("sid", "prompt_len",
+                                              "resyncs", "matches")}
+                           for s in chk["sessions"]]
+        if dtype == "float32":
+            check(chk["rc"] == 0 and all(s["matches"]
+                                         for s in chk["sessions"]),
+                  f"{what}: f32 greedy streams differ from their solo runs")
+    return cfg, args, params, rep
 
 
-def logits_phase(torch, serve, cfg, args, params, device="cuda"):
-    """Logits of each session prompt on the card (kernels) against the
-    plain path on the CPU in f32, same weights: the first token (the
-    admission, K2) and ``LOGIT_STEPS`` cache-hit steps after it (K1), both
-    fed the reference's greedy tokens."""
-    from repro_torch.models.api import build_model
-    prompts = serve.session_prompts(cfg, args)
+def logits_phase(torch, serve, cfg, args, params, n_prompts=None,
+                 device="cuda"):
+    """Logits of session prompts on the card (kernels) against the plain
+    path on the CPU in f32, same weights and layout (full pool): the
+    first token (the admission, K2) and ``LOGIT_STEPS`` cache-hit steps
+    after it (K1 / K1-int8 / K3), both fed the reference's greedy
+    tokens."""
+    from repro_torch.models.api import build_decode
+    prompts = serve.session_prompts(cfg, args)[:n_prompts]
     max_len = serve.sessions_max_len(args)
-    ref_cfg = cfg.replace(dtype="float32")
-    ref_dec = build_model(ref_cfg, device="cpu").decode
+    spec = serve.layout_spec(args, full_pool=True)
+    ref_dec = build_decode(cfg.replace(dtype="float32"), spec, device="cpu")
     ref_params = ref_dec.prepare_params(params)
-    card_dec = build_model(cfg, device=device).decode
+    card_dec = build_decode(cfg, spec, device=device)
     card_params = card_dec.prepare_params(params)
     errs = []
     for p in prompts:
@@ -316,9 +534,9 @@ def logits_phase(torch, serve, cfg, args, params, device="cuda"):
             check(bool(torch.isfinite(got).all()), f"non-finite {what} "
                   f"logits")
             err = (got.float().cpu() - ref).abs().max().item()
-            check(err <= LOGIT_TOL[cfg.dtype], f"{cfg.dtype} {what} logits "
-                  f"differ from the CPU plain path by {err} > "
-                  f"{LOGIT_TOL[cfg.dtype]}")
+            check(err <= LOGIT_TOL[cfg.dtype], f"{cfg.attention_mode}/"
+                  f"{args.layout} {cfg.dtype} {what} logits differ from "
+                  f"the CPU plain path by {err} > {LOGIT_TOL[cfg.dtype]}")
             errs.append({"prompt_len": len(p), "step": step, "err": err})
             if step == LOGIT_STEPS:
                 break
@@ -354,6 +572,8 @@ def main() -> int:
     t0 = time.time()
     built = _build.build(verbose=True)
     build_s = time.time() - t0
+    check(all(_build.target(n).exists() for n in _build.SOURCES),
+          f"not every source of {_build.SOURCES} was built")
     for name, log in sorted(_build.BUILD_LOG.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -369,49 +589,70 @@ def main() -> int:
     max_len = serve.sessions_max_len(serve.parse_args(SESSIONS_ARGS))
 
     # 3. kernels vs plain
+    t_phase = time.time()
     rows = kernel_phase(torch, cfg41, dev, max_len)
+    phase_s = {"kernels": time.time() - t_phase}
 
-    # 4. serve at full width: bf16 is the counted main path
-    cfg, args, params, rep_bf16, counts = serve_phase(torch, runtime, serve,
-                                                      "bfloat16")
-    logit_err_bf16 = logits_phase(torch, serve, cfg, args, params)
-    cfg32, args32, params32, rep_f32, counts32 = serve_phase(
-        torch, runtime, serve, "float32")
-    logit_err_f32 = logits_phase(torch, serve, cfg32, args32, params32)
-    for dname, c, errs in (("bf16", counts, logit_err_bf16),
-                           ("f32", counts32, logit_err_f32)):
-        first = max(e["err"] for e in errs if e["step"] == 0)
-        steps = max(e["err"] for e in errs if e["step"] > 0)
-        print(f"[serve] {dname} sessions launches {c}; logits max err vs "
-              f"the CPU f32 plain path: first token {first:.3e}, "
-              f"{LOGIT_STEPS} decode steps {steps:.3e} (tol "
-              f"{LOGIT_TOL['bfloat16' if dname == 'bf16' else 'float32']})")
-    print("[serve] f32 greedy session streams match their solo runs")
+    # 4. serve at full width: every run is a main path, counted alone
+    runs = {}
+    for mode, layout, kernels in SESSION_RUNS:
+        for dtype in ("bfloat16", "float32"):
+            t_phase = time.time()
+            cfg, args, params, rep = serve_phase(torch, runtime, serve, mode,
+                                                 layout, dtype, kernels)
+            if dtype == "bfloat16" or layout == "dense":
+                rep["logit_err"] = logits_phase(
+                    torch, serve, cfg, args, params,
+                    n_prompts=None if layout == "dense" else 2)
+                first = max(e["err"] for e in rep["logit_err"]
+                            if e["step"] == 0)
+                steps = max(e["err"] for e in rep["logit_err"]
+                            if e["step"] > 0)
+                rep["logit_max_err"] = {"first": first, "steps": steps}
+            runs[f"{mode}/{layout}/{dtype}"] = rep
+            phase_s[f"{mode}/{layout}/{dtype}"] = time.time() - t_phase
+            launched = {n: c["kernel"] for n, c in rep["launches"].items()
+                        if c["kernel"]}
+            print(f"[serve] {mode}/{layout} {dtype}: launches {launched} "
+                  f"(plain 0); logits max err vs the CPU f32 plain path "
+                  f"{rep.get('logit_max_err', 'not checked')} (tol "
+                  f"{LOGIT_TOL[dtype]}); {time.time() - t_phase:.1f}s")
+    print("[serve] f32 greedy session streams match their solo runs on "
+          "every layout")
 
-    # 5. uniform batch engine (bf16)
-    eargs = serve.parse_args(ENGINE_ARGS)
-    ecfg, eapi, eparams = serve.load(eargs)
-    erep = serve.run_batch(ecfg, eapi, eparams, eargs)
-    check(erep["hit_ms"] is not None and erep["miss_ms"] is not None,
-          "engine run recorded no warm hit or miss")
+    # 5. uniform batch engine (bf16): tconst/dense and tlin/paged in turns
+    # (A, B, B, A): the host-bound step time drifts between runs
+    engines = {}
+    for mode, layout in (("tconst", "dense"), ("tlin", "paged"),
+                         ("tlin", "paged"), ("tconst", "dense")):
+        t_phase = time.time()
+        eargs = serve.parse_args(ENGINE_ARGS + ["--layout", layout])
+        ecfg, eapi, eparams = serve.load(eargs, attention_mode=mode)
+        erep = serve.run_batch(ecfg, eapi, eparams, eargs)
+        check(erep["hit_ms"] is not None and erep["miss_ms"] is not None,
+              f"{mode}/{layout} engine run recorded no warm hit or miss")
+        done = engines.setdefault(f"{mode}/{layout}", [])
+        done.append({k: erep[k] for k in ("hit_ms", "miss_ms", "n_hits",
+                                          "n_misses", "miss_samples_ms",
+                                          "seconds")})
+        phase_s[f"engine {mode}/{layout} #{len(done)}"] = \
+            time.time() - t_phase
+    print(f"[engine] bf16 batch {eargs.batch}, max_len "
+          f"{serve.batch_max_len(eargs)}, runs in turns A B B A: " +
+          "; ".join(f"{k} cache-hit step "
+                    f"{[round(r['hit_ms'], 3) for r in v]} ms, resync "
+                    f"{[round(r['miss_ms'], 3) for r in v]} ms"
+                    for k, v in engines.items()))
 
     # 6. report
-    def pick(kernel, case):
-        return next(r for r in rows if r["kernel"] == kernel and
-                    r["case"] == case and r["dtype"] == "bfloat16")
-
     line = []
-    for name, case, src, repl in (
-            ("decode_attention", "self_full",
-             "src/repro_torch/csrc/decode_attention.cu",
-             "src/repro/kernels/decode_attention.py:108"),
-            ("flash_attention", "compress",
-             "src/repro_torch/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:116")):
-        r = pick(name, case)
+    for name, (case, src, repl, run) in KERNELS.items():
+        r = next(x for x in rows if x["kernel"] == name and
+                 x["case"] == case and x["dtype"] == "bfloat16")
         line.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
-            "launches": counts[name]["kernel"],
+            "launches": runs[f"{run[0]}/{run[1]}/bfloat16"]["launches"][
+                name]["kernel"],
             "max_abs_err": max(x["max_abs_err"] for x in rows
                                if x["kernel"] == name),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -420,22 +661,12 @@ def main() -> int:
     detail = {
         "card": card, "kind": kind, "torch": torch.__version__,
         "cuda": torch.version.cuda, "build_s": built,
-        "kernel_rows": rows,
-        "sessions_bf16": {"launches": counts, "seconds":
-                          rep_bf16["seconds"], "sessions": [
-                              {k: s[k] for k in ("sid", "prompt_len",
-                                                 "resyncs", "matches")}
-                              for s in rep_bf16["sessions"]],
-                          "logit_err": logit_err_bf16},
-        "sessions_f32": {"launches": counts32, "seconds":
-                         rep_f32["seconds"], "logit_err": logit_err_f32},
-        "engine_bf16": {k: erep[k] for k in ("hit_ms", "miss_ms", "n_hits",
-                                              "n_misses", "miss_samples_ms",
-                                              "seconds")},
-        "total_s": time.time() - t_start,
+        "kernel_rows": rows, "sessions": runs, "engines": engines,
+        "phase_s": phase_s, "total_s": time.time() - t_start,
     }
     (OUT / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
-    print(f"[done] {time.time() - t_start:.1f}s")
+    print(f"[done] {time.time() - t_start:.1f}s "
+          f"({ {k: round(v, 1) for k, v in phase_s.items()} })")
     print(card)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -1,24 +1,31 @@
-"""TConstFormer core in PyTorch (``mode="tconst"``).
+"""TConstFormer core in PyTorch (``mode="tconst"`` and ``mode="tlin"``).
 
 Port of ``src/repro/core/tconst.py``: the same topology (one TConst block
 of depth h + 2: context COMPRESS, h context self-attention layers,
 context RESTORE, and the generation window's causal self-attention plus
 cross-attention to the compressed states), the same Eq. (7) O(1) cache,
 the O(1) cache-hit decode step (paper Eq. 5) and the O(N) resync (Eq. 4).
-Forward only: every entry point runs under ``torch.no_grad``.
+``mode="tlin"`` is the paper's TLinFormer baseline (Fig 1a): layer 0 of
+each block's generation path also cross-attends the raw history, so the
+cache keeps an O(N) per-block history KV (``hist_k`` / ``hist_v``) and the
+hit step reads it -- the one field the paged layouts page.  Forward only:
+every entry point runs under ``torch.no_grad``.
 
 Attention routing: every multi-query attention (compress, context self,
-restore, the teacher-forced generation window) is "causal by position
-AND key valid" and runs as K2 with ``INVALID_POS`` for dead keys; the
-decode step's two attentions run as K1 over ``[lo, hi)`` slot ranges.
+restore, the teacher-forced generation window and its history
+cross-attention) is "causal by position AND key valid" and runs as K2
+with ``INVALID_POS`` for dead keys.  The decode step reads the cache
+through KVViews (:mod:`repro_torch.models.layouts`): dense views run K1
+over ``[lo, hi)`` slot ranges, int8 views K1's int8 variant, the paged
+history K3.
 
-In-place updates: :func:`decode_step` writes the new token's K/V, its id
-and the counters into the cache tensors IN PLACE.  Rows that are not
-``live`` (inactive or EOS-finished slots) have their writes masked, so
-they come through bit-identical.
+In-place updates: :func:`decode_step_views` writes the new token's K/V,
+its id and the counters into the cache tensors IN PLACE.  Rows that are
+not ``live`` (inactive or EOS-finished slots) have their writes masked,
+so they come through bit-identical.
 
-Not ported yet: ``mode="tlin"`` and ``prefill_bucketed`` (ROADMAP Queue 1
-item 3) and ``verify_chunk_views`` (ROADMAP Queue 1 item 8, speculative
+Not ported yet: ``prefill_bucketed`` (chunked admission, ROADMAP Queue 1
+item 8) and ``verify_chunk_views`` (ROADMAP Queue 1 item 8, speculative
 decoding).
 """
 from __future__ import annotations
@@ -36,6 +43,9 @@ from repro_torch.layers import embed as E
 from repro_torch.layers import rope as R
 from repro_torch.layers.common import Params, rmsnorm
 from repro_torch.layers.mlp import swiglu
+from repro_torch.models import layouts as LT
+
+MODES = ("tconst", "tlin")
 
 # ---------------------------------------------------------------------------
 # Parameters
@@ -43,10 +53,8 @@ from repro_torch.layers.mlp import swiglu
 
 
 def _check_mode(mode: str) -> None:
-    if mode != "tconst":
-        raise NotImplementedError(
-            f"mode={mode!r} is not ported yet: the port has mode='tconst' "
-            f"only (TLinFormer mode is ROADMAP Queue 1 item 3)")
+    if mode not in MODES:
+        raise ValueError(f"mode={mode!r}: the TConst core has modes {MODES}")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -198,8 +206,14 @@ def context_path(block: Params, hist: torch.Tensor, hist_pos: torch.Tensor,
 
 def gen_path(block: Params, hg: torch.Tensor, gen_pos: torch.Tensor,
              c_states: List[torch.Tensor], tail_pos: torch.Tensor,
-             tail_valid: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Generation-window pass of one block: hg (B, G, D).  Returns hg."""
+             tail_valid: torch.Tensor, cfg: ModelConfig,
+             hist: Optional[torch.Tensor] = None,
+             hist_kp: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Generation-window pass of one block: hg (B, G, D).  When ``hist``
+    (B, N, D) is given (mode="tlin"), layer 0 also cross-attends the raw
+    history -- the TLinFormer pathway the paper severs -- at key positions
+    ``hist_kp`` (B, N) (``INVALID_POS`` for keys outside the history).
+    Returns hg."""
     eps = cfg.norm_eps
     h = cfg.tconst.h
     cap = cfg.logit_softcap
@@ -217,6 +231,13 @@ def gen_path(block: Params, hg: torch.Tensor, gen_pos: torch.Tensor,
             out = out + A.attention_block(li["attn"], xn, cn, gen_pos,
                                           tail_kp, cos_g, sin_g, cos_t,
                                           sin_t, cap)
+        elif hist is not None:
+            hpos = torch.arange(hist.shape[1], device=hist.device).expand(
+                hist.shape[0], -1)
+            cos_h, sin_h = _rope(hpos, cfg)
+            out = out + A.attention_block(
+                li["attn"], xn, rmsnorm(li["ln1"], hist, eps), gen_pos,
+                hist_kp, cos_g, sin_g, cos_h, sin_h, cap)
         hg = hg + out
         hg = hg + swiglu(li["ffn"], rmsnorm(li["ln2"], hg, eps))
     return hg
@@ -226,8 +247,9 @@ def gen_path(block: Params, hg: torch.Tensor, gen_pos: torch.Tensor,
 def tconst_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                    mode: str = "tconst") -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced forward (no autograd).  tokens (B, N), N % W_og == 0;
-    chunk j sees chunks 0..j-1 as compressed history.  Returns (logits
-    (B, N, V) float32, aux loss -- always 0 here, no MoE)."""
+    chunk j sees chunks 0..j-1 as compressed history (and, in tlin mode,
+    its block's raw history at layer 0).  Returns (logits (B, N, V)
+    float32, aux loss -- always 0 here, no MoE)."""
     _check_mode(mode)
     tc = cfg.tconst
     B, N = tokens.shape
@@ -238,9 +260,11 @@ def tconst_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     X = E.embed_tokens(params["embed"], tokens, _dtype(cfg.dtype))
     pos = torch.arange(N, device=dev).expand(B, N)
     nb = len(params["blocks"])
+    use_tlin = mode == "tlin"
     out = []
     for j in range(N // tc.w_og):
         hist_valid = pos < j * tc.w_og
+        hist_kp = _key_pos(pos, hist_valid) if use_tlin else None
         tail_pos = (j * tc.w_og - tc.w_oh +
                     torch.arange(tc.w_oh, device=dev)).expand(B, tc.w_oh)
         tail_valid = tail_pos >= 0
@@ -253,7 +277,8 @@ def tconst_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                 block, hist, pos, hist_valid, tail_pos, tail_valid, cfg,
                 restore=ib + 1 < nb)
             hg = gen_path(block, hg, gen_pos, c_states, tail_pos,
-                          tail_valid, cfg)
+                          tail_valid, cfg, hist=hist if use_tlin else None,
+                          hist_kp=hist_kp)
             hist = restored
         hg = rmsnorm(params["final_norm"], hg, cfg.norm_eps)
         out.append(E.lm_head(params["embed"], hg, cfg.logit_softcap))
@@ -265,12 +290,19 @@ def tconst_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 # True KV-cache entries vs bookkeeping (token ids, lengths, phase flags).
-KV_KEYS = ("ctx_k", "ctx_v", "gen_k", "gen_v")
+KV_KEYS = ("ctx_k", "ctx_v", "gen_k", "gen_v", "hist_k", "hist_v")
 # Batch ("slot") axis of every cache entry.
 CACHE_BATCH_AXES = {
     "tokens": 0, "hist_len": 0, "gen_len": 0, "done": 0, "ctx_valid": 0,
     "ctx_k": 2, "ctx_v": 2, "gen_k": 2, "gen_v": 2,
+    "hist_k": 1, "hist_v": 1,
 }
+# Cache-layout metadata (repro_torch.models.layouts): the fields with an
+# O(N) length axis a paged layout splits into pages (only TLinFormer's
+# history KV -- the tconst ctx/gen buffers are already O(1)), and the
+# float KV fields an int8 layout quantizes.
+LENGTH_AXES = {"hist_k": 2, "hist_v": 2}
+QUANT_FIELDS = KV_KEYS
 # resync rebuilds the ctx KV from these alone; a row-wise resync gathers
 # only them -- never the KV cache.
 RESYNC_INPUT_KEYS = ("tokens", "hist_len", "gen_len")
@@ -281,7 +313,9 @@ def init_tconst_cache(cfg: ModelConfig, batch: int, max_len: int,
                       device: Optional[torch.device] = None
                       ) -> Dict[str, torch.Tensor]:
     """The paper's Eq. (7) constant-size cache (+ the raw token id buffer,
-    int32, which is not KV cache and is the only O(N) residue)."""
+    int32, which is not KV cache and is the only O(N) residue of tconst).
+    mode="tlin" adds the O(N) per-block history KV ``hist_k`` /
+    ``hist_v`` (nb, B, max_len, KV, hd)."""
     _check_mode(mode)
     tc = cfg.tconst
     nb = cfg.tconst_blocks
@@ -291,7 +325,7 @@ def init_tconst_cache(cfg: ModelConfig, batch: int, max_len: int,
     def z(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    return {
+    cache = {
         "tokens": z((batch, max_len), torch.int32),
         "hist_len": z((batch,), torch.int32),
         "gen_len": z((batch,), torch.int32),
@@ -302,6 +336,10 @@ def init_tconst_cache(cfg: ModelConfig, batch: int, max_len: int,
         "gen_k": z((nb, tc.h + 2, batch, tc.w_og, kv, hd), dt),
         "gen_v": z((nb, tc.h + 2, batch, tc.w_og, kv, hd), dt),
     }
+    if mode == "tlin":
+        cache["hist_k"] = z((nb, batch, max_len, kv, hd), dt)
+        cache["hist_v"] = z((nb, batch, max_len, kv, hd), dt)
+    return cache
 
 
 def kv_cache_bytes(cache: Dict[str, torch.Tensor]) -> int:
@@ -327,10 +365,12 @@ def pending_resync_rows(cache: Dict[str, torch.Tensor], cfg: ModelConfig
 def resync(params: Params, cache: Dict[str, torch.Tensor], cfg: ModelConfig,
            mode: str = "tconst") -> Dict[str, torch.Tensor]:
     """Cache-miss path (paper Eq. 4): fold the generation window into
-    history and recompute the compressed-context KV from the token ids.
+    history and recompute the compressed-context KV (tlin: and the history
+    KV, a projection of each block's input history) from the token ids.
     Cost O(N).  Needs only ``RESYNC_INPUT_KEYS``; returns a new dict with
-    ``ctx_k``/``ctx_v``/``ctx_valid`` rebuilt, ``hist_len`` advanced and
-    ``gen_len`` zeroed (other entries passed through)."""
+    ``ctx_k``/``ctx_v``/``ctx_valid`` (tlin: ``hist_k``/``hist_v``)
+    rebuilt, ``hist_len`` advanced and ``gen_len`` zeroed (other entries
+    passed through)."""
     _check_mode(mode)
     tc = cfg.tconst
     eps = cfg.norm_eps
@@ -344,9 +384,12 @@ def resync(params: Params, cache: Dict[str, torch.Tensor], cfg: ModelConfig,
         torch.arange(tc.w_oh, device=dev)[None]
     tail_valid = tail_pos >= 0
     cos_t, sin_t = _rope(tail_pos.clamp(min=0), cfg)
+    use_tlin = mode == "tlin"
+    if use_tlin:
+        cos_h, sin_h = _rope(pos, cfg)
 
     nb = len(params["blocks"])
-    cks, cvs = [], []
+    cks, cvs, hks, hvs = [], [], [], []
     hist = X
     for ib, block in enumerate(params["blocks"]):
         c_states, restored = context_path(block, hist, pos, hist_valid,
@@ -361,10 +404,19 @@ def resync(params: Params, cache: Dict[str, torch.Tensor], cfg: ModelConfig,
             vs.append(cv)
         cks.append(torch.stack(ks))
         cvs.append(torch.stack(vs))
+        if use_tlin:
+            l0 = block["layers"][0]
+            hk, hv = A.project_kv(l0["attn"], rmsnorm(l0["ln1"], hist, eps),
+                                  cos_h, sin_h)
+            hks.append(hk)
+            hvs.append(hv)
         hist = restored
     out = dict(cache)
     out["ctx_k"] = torch.stack(cks)
     out["ctx_v"] = torch.stack(cvs)
+    if use_tlin:
+        out["hist_k"] = torch.stack(hks)
+        out["hist_v"] = torch.stack(hvs)
     out["ctx_valid"] = tail_valid
     out["hist_len"] = hist_len.to(torch.int32)
     out["gen_len"] = torch.zeros_like(cache["gen_len"])
@@ -372,13 +424,20 @@ def resync(params: Params, cache: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 
 @torch.no_grad()
-def decode_step(params: Params, cache: Dict[str, torch.Tensor],
-                token: torch.Tensor, cfg: ModelConfig, mode: str = "tconst",
-                live: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Cache-hit step (paper Eq. 5): O(1) compute and reads.  token (B,).
+def decode_step_views(params: Params, cache: Dict[str, Any],
+                      token: torch.Tensor, cfg: ModelConfig,
+                      mode: str = "tconst",
+                      live: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Layout-native cache-hit step (paper Eq. 5): O(1) compute and reads
+    for mode="tconst"; mode="tlin" also reads the O(N) history KV.
+    ``cache`` maps bookkeeping names to tensors and KV names to
+    :mod:`repro_torch.models.layouts` FieldViews: the attention consumes
+    the PHYSICAL representation (K3 walks the paged history's page table,
+    K1's int8 variant dequantises int8 fields) and the new token's K/V is
+    written through the views.  token (B,).
 
-    Updates ``cache`` IN PLACE and returns (logits (B, V), cache).  Rows
+    Updates the cache IN PLACE and returns (logits (B, V), cache).  Rows
     where ``live`` (B,) bool is False keep every cache entry bit-identical
     (their K/V, id and counter writes are masked).  The caller must run
     :func:`resync` on a live row once its ``gen_len`` reaches ``W_og``.
@@ -403,18 +462,27 @@ def decode_step(params: Params, cache: Dict[str, torch.Tensor],
     # the valid context slots are a suffix: ctx_valid = tail_pos >= 0
     ctx_lo = (tc.w_oh - cache["ctx_valid"].sum(dim=-1)).to(torch.int32)
     ctx_hi = torch.full_like(gen_len, tc.w_oh)
+    use_tlin = mode == "tlin"
 
     for ib, block in enumerate(params["blocks"]):
+        gkb, gvb = cache["gen_k"].layer(ib), cache["gen_v"].layer(ib)
+        ckb, cvb = cache["ctx_k"].layer(ib), cache["ctx_v"].layer(ib)
         for i in range(tc.h + 2):
             li = block["layers"][i]
             xn = rmsnorm(li["ln1"], x, eps)
-            out, q = A.decode_attend(li["attn"], xn, cache["gen_k"][ib, i],
-                                     cache["gen_v"][ib, i], slot, write,
-                                     self_lo, self_hi, cos_q, sin_q, cap)
+            out, q = A.decode_attend_view(li["attn"], xn, gkb.layer(i),
+                                          gvb.layer(i), slot, write, self_lo,
+                                          self_hi, cos_q, sin_q, cap)
             if i >= 1:
-                out = out + A.cross_attend_cached(
-                    li["attn"], q, cache["ctx_k"][ib, i - 1],
-                    cache["ctx_v"][ib, i - 1], ctx_lo, ctx_hi, cap)
+                out = out + A.cross_attend_view(
+                    li["attn"], q, ckb.layer(i - 1), cvb.layer(i - 1),
+                    ctx_lo, ctx_hi, cap)
+            elif use_tlin:
+                # TLinFormer's O(N) history KV, slots [0, hist_len): the
+                # one paged field of this family, attended in its layout
+                out = out + A.cross_attend_view(
+                    li["attn"], q, cache["hist_k"].layer(ib),
+                    cache["hist_v"].layer(ib), None, cache["hist_len"], cap)
             x = x + out
             x = x + swiglu(li["ffn"], rmsnorm(li["ln2"], x, eps))
 
@@ -432,13 +500,33 @@ def decode_step(params: Params, cache: Dict[str, torch.Tensor],
     return logits, cache
 
 
+def _dense_views(cache: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """Wrap a dense cache dict's KV fields in DenseViews (aliasing)."""
+    return {k: LT.DenseView(v, CACHE_BATCH_AXES[k]) if k in KV_KEYS else v
+            for k, v in cache.items()}
+
+
+@torch.no_grad()
+def decode_step(params: Params, cache: Dict[str, torch.Tensor],
+                token: torch.Tensor, cfg: ModelConfig, mode: str = "tconst",
+                live: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Dense-dict cache-hit step: :func:`decode_step_views` over DenseViews
+    of ``cache`` (updated IN PLACE) -- the oracle the layout-native step
+    is tested against.  Returns (logits (B, V), cache)."""
+    logits, _ = decode_step_views(params, _dense_views(cache), token, cfg,
+                                  mode, live)
+    return logits, cache
+
+
 def _prefill_window_pass(params: Params, cache: Dict[str, torch.Tensor],
                          win: torch.Tensor, gen_pos: torch.Tensor,
-                         cfg: ModelConfig
+                         cfg: ModelConfig, mode: str = "tconst"
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Teacher-forced pass over the prompt's trailing window (B, W):
     causal self-attention over the window plus cross-attention to the
-    valid context slots.  Returns (hg (B, W, D), gen_k, gen_v stacked
+    valid context slots (tlin, layer 0: to the history KV slots
+    ``[0, hist_len)``).  Returns (hg (B, W, D), gen_k, gen_v stacked
     (nb, h+2, B, W, KV, hd))."""
     tc = cfg.tconst
     eps = cfg.norm_eps
@@ -449,6 +537,12 @@ def _prefill_window_pass(params: Params, cache: Dict[str, torch.Tensor],
     # cross-attention to the context is masked by validity only
     ctx_kp = _key_pos(torch.zeros_like(cache["ctx_valid"], dtype=torch.int32),
                       cache["ctx_valid"])
+    use_tlin = mode == "tlin"
+    if use_tlin:
+        slots = torch.arange(cache["tokens"].shape[1], device=win.device)
+        hist_valid = slots[None] < cache["hist_len"][:, None]
+        hist_kp = _key_pos(torch.zeros_like(hist_valid, dtype=torch.int32),
+                           hist_valid)
     gks, gvs = [], []
     for ib, block in enumerate(params["blocks"]):
         ks, vs = [], []
@@ -465,6 +559,11 @@ def _prefill_window_pass(params: Params, cache: Dict[str, torch.Tensor],
                 out = out + A.out_proj(li["attn"], ops.flash_attention(
                     q, cache["ctx_k"][ib, i - 1].to(dtype),
                     cache["ctx_v"][ib, i - 1].to(dtype), gen_pos, ctx_kp,
+                    causal=False, softcap=cap), dtype)
+            elif use_tlin:
+                out = out + A.out_proj(li["attn"], ops.flash_attention(
+                    q, cache["hist_k"][ib].to(dtype),
+                    cache["hist_v"][ib].to(dtype), gen_pos, hist_kp,
                     causal=False, softcap=cap), dtype)
             hg = hg + out
             hg = hg + swiglu(li["ffn"], rmsnorm(li["ln2"], hg, eps))
@@ -494,7 +593,8 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
 
     win = tokens[:, n0 - g0:]
     gen_pos = (n0 - g0 + torch.arange(g0, device=dev)).expand(B, g0)
-    hg, gk, gv = _prefill_window_pass(params, cache, win, gen_pos, cfg)
+    hg, gk, gv = _prefill_window_pass(params, cache, win, gen_pos, cfg,
+                                      mode)
     hg = rmsnorm(params["final_norm"], hg, cfg.norm_eps)
     logits = E.lm_head(params["embed"], hg[:, -1:], cfg.logit_softcap)[:, 0]
     cache["gen_k"][:, :, :, :g0] = gk
@@ -506,7 +606,8 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
 def prefill_bucketed(*args, **kwargs):
     raise NotImplementedError(
         "prefill_bucketed (one fixed-shape admission for every prompt "
-        "length) is not ported yet: ROADMAP Queue 1 item 3")
+        "length, the TConst form of chunked admission) is not ported yet: "
+        "ROADMAP Queue 1 item 8")
 
 
 def verify_chunk_views(*args, **kwargs):

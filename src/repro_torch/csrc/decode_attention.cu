@@ -14,13 +14,21 @@
 // Layouts: q (B, H, D); k, v (B, S, KV, D), all contiguous; lo, hi (B,)
 // int32; out (B, H, D) in q's type.  f32 and bf16 inputs, f32 arithmetic.
 //
+// int8 variant (decode_attention_int8_fwd): k, v are int8 with (B, S, KV, 1)
+// float32 per-vector scales, dequantised inside the QK and PV loops
+// (k * scale, element by element, as the Pallas kernel does), so the
+// kernel reads one byte per element; the output is computed in f32 and
+// written in q's type.  It serves the int8 cache layouts.
+//
 // Design: one block per (KV head, row) computes the G = H / KV query heads
 // of the group.  Pass 1: each warp takes slots in turn, lanes split the
 // head dim (element loads: a bf16 row of head_dim 36 is 72 bytes, so
 // 16-byte vector loads would be misaligned), a warp shuffle sums the dot
 // product, and the scores go to shared memory.  Pass 2: one warp per
-// query head takes the max and the exponentials (two-pass softmax; the
-// wrapper raises if the scores do not fit in 48 KB of shared memory).
+// query head takes the max and the exponentials (two-pass softmax).  The
+// scores live in dynamic shared memory: above 48 KB the launch raises the
+// kernel's limit with cudaFuncSetAttribute, up to the 227 KB a block can
+// have (S up to ~57k slots at G = 1, D = 36); the wrapper raises beyond.
 // Pass 3: warps split the slots again, accumulate p * V in registers and
 // reduce across warps through shared memory.
 //
@@ -31,6 +39,8 @@
 // is ~0.13 us at 3.35 TB/s; at such sizes launch latency dominates.  This
 // kernel is the simple correct version: making it fast (several rows or
 // layers per launch, vector loads over a padded layout) is later work.
+#include <cstdint>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -45,6 +55,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
@@ -67,13 +78,17 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// DPL: head-dim elements per lane (head_dim <= 32 * DPL).
-// grid (KV, B), block kThreads.  Shared memory (floats):
-//   q_s[G * D] | p_s[G * S] | red_s[kWarps * G * D] | l_s[G]
-template <typename T, int DPL>
+// T: q / out type; KT: k / v type (T, or int8_t with scales ks / vs of
+// shape (B, S, KV, 1); nullptr scales mean 1).  DPL: head-dim elements per
+// lane (head_dim <= 32 * DPL).  grid (KV, B), block kThreads.  Shared
+// memory (floats):  q_s[G * D] | p_s[G * S] | red_s[kWarps * G * D] | l_s[G]
+template <typename T, typename KT, int DPL>
 __global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const int* __restrict__ lo_p,
+decode_attention_kernel(const T* __restrict__ q, const KT* __restrict__ k,
+                        const KT* __restrict__ v,
+                        const float* __restrict__ ks,
+                        const float* __restrict__ vs,
+                        const int* __restrict__ lo_p,
                         const int* __restrict__ hi_p, T* __restrict__ out,
                         int S, int H, int KV, int D, float scale,
                         float softcap) {
@@ -99,17 +114,20 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
 
   const size_t row_stride = (size_t)KV * D;
-  const T* kb = k + ((size_t)b * S * KV + kvh) * D + (size_t)lo * row_stride;
-  const T* vb = v + ((size_t)b * S * KV + kvh) * D + (size_t)lo * row_stride;
+  // (b, lo, kvh) as a row of the (B * S * KV) vectors
+  const size_t row0 = ((size_t)b * S + lo) * KV + kvh;
+  const KT* kb = k + row0 * D;
+  const KT* vb = v + row0 * D;
 
   // pass 1: scores of the slots in [lo, hi)
   for (int j = warp; j < n; j += kWarps) {
-    const T* kr = kb + (size_t)j * row_stride;
+    const KT* kr = kb + (size_t)j * row_stride;
+    const float sk = ks ? ks[row0 + (size_t)j * KV] : 1.f;
     float kd[DPL];
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
       const int d = lane + 32 * i;
-      kd[i] = d < D ? to_f32(kr[d]) : 0.f;
+      kd[i] = d < D ? to_f32(kr[d]) * sk : 0.f;
     }
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) {
@@ -151,12 +169,13 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < DPL; ++i) acc[g][i] = 0.f;
   for (int j = warp; j < n; j += kWarps) {
-    const T* vr = vb + (size_t)j * row_stride;
+    const KT* vr = vb + (size_t)j * row_stride;
+    const float sv = vs ? vs[row0 + (size_t)j * KV] : 1.f;
     float vd[DPL];
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
       const int d = lane + 32 * i;
-      vd[i] = d < D ? to_f32(vr[d]) : 0.f;
+      vd[i] = d < D ? to_f32(vr[d]) * sv : 0.f;
     }
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) {
@@ -184,34 +203,52 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DPL>
-void launch(const void* q, const void* k, const void* v, const void* lo,
-            const void* hi, void* out, int B, int S, int H, int KV, int D,
-            float scale, float softcap, size_t smem, cudaStream_t stream) {
-  decode_attention_kernel<T, DPL><<<dim3(KV, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(lo),
+// Launch one instantiation; above 48 KB of dynamic shared memory the
+// kernel's limit is raised first (once per instantiation and size).
+template <typename T, typename KT, int DPL>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const float* ks, const float* vs, const void* lo,
+                   const void* hi, void* out, int B, int S, int H, int KV,
+                   int D, float scale, float softcap, size_t smem,
+                   cudaStream_t stream) {
+  static size_t configured = 48 * 1024;
+  auto kernel = decode_attention_kernel<T, KT, DPL>;
+  if (smem > configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    configured = smem;
+  }
+  kernel<<<dim3(KV, B), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KT*>(k),
+      static_cast<const KT*>(v), ks, vs, static_cast<const int*>(lo),
       static_cast<const int*>(hi), static_cast<T*>(out), S, H, KV, D, scale,
       softcap);
+  return cudaGetLastError();
 }
 
-template <typename T>
-void launch_dpl(const void* q, const void* k, const void* v, const void* lo,
-                const void* hi, void* out, int B, int S, int H, int KV, int D,
-                float scale, float softcap, size_t smem, cudaStream_t st) {
+template <typename T, typename KT>
+cudaError_t launch_dpl(const void* q, const void* k, const void* v,
+                       const float* ks, const float* vs, const void* lo,
+                       const void* hi, void* out, int B, int S, int H, int KV,
+                       int D, float scale, float softcap, size_t smem,
+                       cudaStream_t st) {
   const int dpl = (D + 31) / 32;
   if (dpl <= 1)
-    launch<T, 1>(q, k, v, lo, hi, out, B, S, H, KV, D, scale, softcap, smem, st);
-  else if (dpl <= 2)
-    launch<T, 2>(q, k, v, lo, hi, out, B, S, H, KV, D, scale, softcap, smem, st);
-  else if (dpl <= 4)
-    launch<T, 4>(q, k, v, lo, hi, out, B, S, H, KV, D, scale, softcap, smem, st);
-  else
-    launch<T, 8>(q, k, v, lo, hi, out, B, S, H, KV, D, scale, softcap, smem, st);
+    return launch<T, KT, 1>(q, k, v, ks, vs, lo, hi, out, B, S, H, KV, D,
+                            scale, softcap, smem, st);
+  if (dpl <= 2)
+    return launch<T, KT, 2>(q, k, v, ks, vs, lo, hi, out, B, S, H, KV, D,
+                            scale, softcap, smem, st);
+  if (dpl <= 4)
+    return launch<T, KT, 4>(q, k, v, ks, vs, lo, hi, out, B, S, H, KV, D,
+                            scale, softcap, smem, st);
+  return launch<T, KT, 8>(q, k, v, ks, vs, lo, hi, out, B, S, H, KV, D,
+                          scale, softcap, smem, st);
 }
 
 // Shared-memory bytes one launch needs (the Python wrapper computes the
-// same number and raises above 48 KB).
+// same number and raises above the 227 KB a block can have).
 size_t smem_bytes(int S, int H, int KV, int D) {
   const int G = H / KV;
   return sizeof(float) * (size_t)(G * D + G * S + kWarps * G * D + G);
@@ -221,8 +258,9 @@ size_t smem_bytes(int S, int H, int KV, int D) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t.
-// The caller validates shapes (G <= 8, D <= 256, smem <= 48 KB).
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out).  Returns the
+// launch's cudaError_t.  The caller validates shapes (G <= 8, D <= 256,
+// shared memory <= 227 KB).
 int decode_attention_fwd(const void* q, const void* k, const void* v,
                          const void* lo, const void* hi, void* out, int B,
                          int S, int H, int KV, int D, float scale,
@@ -231,12 +269,33 @@ int decode_attention_fwd(const void* q, const void* k, const void* v,
   const size_t smem = smem_bytes(S, H, KV, D);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    launch_dpl<float>(q, k, v, lo, hi, out, B, S, H, KV, D, scale, softcap,
-                      smem, st);
-  else
-    launch_dpl<__nv_bfloat16>(q, k, v, lo, hi, out, B, S, H, KV, D, scale,
-                              softcap, smem, st);
-  return (int)cudaGetLastError();
+    return (int)launch_dpl<float, float>(q, k, v, nullptr, nullptr, lo, hi,
+                                         out, B, S, H, KV, D, scale, softcap,
+                                         smem, st);
+  return (int)launch_dpl<__nv_bfloat16, __nv_bfloat16>(
+      q, k, v, nullptr, nullptr, lo, hi, out, B, S, H, KV, D, scale, softcap,
+      smem, st);
+}
+
+// int8 K / V with (B, S, KV, 1) float32 scales; dtype is q's and out's
+// (0 = float32, 1 = bfloat16).  Same contract as decode_attention_fwd.
+int decode_attention_int8_fwd(const void* q, const void* kq, const void* vq,
+                              const void* ks, const void* vs, const void* lo,
+                              const void* hi, void* out, int B, int S, int H,
+                              int KV, int D, float scale, float softcap,
+                              int dtype, void* stream) {
+  if (B == 0 || KV == 0) return (int)cudaGetLastError();
+  const size_t smem = smem_bytes(S, H, KV, D);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* ksf = static_cast<const float*>(ks);
+  const float* vsf = static_cast<const float*>(vs);
+  if (dtype == 0)
+    return (int)launch_dpl<float, int8_t>(q, kq, vq, ksf, vsf, lo, hi, out, B,
+                                          S, H, KV, D, scale, softcap, smem,
+                                          st);
+  return (int)launch_dpl<__nv_bfloat16, int8_t>(q, kq, vq, ksf, vsf, lo, hi,
+                                                out, B, S, H, KV, D, scale,
+                                                softcap, smem, st);
 }
 
 }  // extern "C"

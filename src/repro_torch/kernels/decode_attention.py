@@ -8,12 +8,19 @@ serves the generation-window self-attention (``[0, gen_len + 1)``) and the
 compressed-context cross-attention (the valid context slots are a suffix
 ``[W_oh - n_valid, W_oh)``).
 
-Beside the kernel's wrapper sits its plain PyTorch version; only CPU
-tensors reach it (the dispatch is :func:`repro_torch.kernels.ops.decode_attention`).
+The int8 variant (``decode_attention_int8_cuda``, a second entry of the
+same source) reads int8 K/V with ``(B, S, KV, 1)`` float32 per-vector
+scales and dequantises inside the QK and PV loops -- the counterpart of
+``decode_attention_pallas(k_scale=..., v_scale=...)`` for the int8 cache
+layouts.  Its launches are counted apart (``decode_attention_int8``).
+
+Beside the kernel's wrappers sits its plain PyTorch version; only CPU
+tensors reach it (the dispatch is :mod:`repro_torch.kernels.ops`).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -23,25 +30,38 @@ from repro_torch.kernels import _build
 NEG_INF = -2.3819763e38
 MAX_GROUP = 8            # query heads per KV head the kernel holds
 MAX_HEAD_DIM = 256
-SMEM_LIMIT = 48 * 1024   # bytes of shared memory one launch may use
+# bytes of dynamic shared memory a block may use on Hopper (the kernel
+# raises its own limit above the default 48 KB)
+SMEM_LIMIT = 232448
 COUNTER = runtime.counter("decode_attention")
+COUNTER_INT8 = runtime.counter("decode_attention_int8")
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 +
              [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_ARGTYPES_INT8 = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 +
+                  [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                   ctypes.c_void_p])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            lo: torch.Tensor, hi: torch.Tensor,
-                           softcap: float = 0.0) -> torch.Tensor:
+                           softcap: float = 0.0,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """q (B, H, D); k/v (B, S, KV, D); lo/hi (B,) int.  Slots
-    ``lo <= s < hi`` are attended; an empty range gives zeros.  f32
+    ``lo <= s < hi`` are attended; an empty range gives zeros.  int8 k/v
+    come with (B, S, KV, 1) float32 scales (dequantised in f32).  f32
     arithmetic, output in q's dtype.  Returns (B, H, D)."""
     B, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
+    kf, vf = k.float(), v.float()
+    if k_scale is not None:
+        kf, vf = kf * k_scale, vf * v_scale
     qg = q.reshape(B, KV, G, D).float() * (D ** -0.5)
-    s = torch.einsum("bkgd,bskd->bkgs", qg, k.float())
+    s = torch.einsum("bkgd,bskd->bkgs", qg, kf)
     if softcap > 0.0:
         s = torch.tanh(s / softcap) * softcap
     slot = torch.arange(S, device=q.device)[None]
@@ -51,7 +71,7 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mx = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - mx) * mm
     p = e / (e.sum(dim=-1, keepdim=True) + 1e-30)
-    o = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    o = torch.einsum("bkgs,bskd->bkgd", p, vf)
     return o.reshape(B, H, D).to(q.dtype)
 
 
@@ -62,17 +82,14 @@ def smem_bytes(S: int, H: int, KV: int, D: int) -> int:
     return 4 * (G * D + G * S + 4 * G * D + G)
 
 
-def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          lo: torch.Tensor, hi: torch.Tensor,
-                          softcap: float = 0.0) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream.  Raises on an
-    input the kernel does not take and on a failed launch."""
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           lo: torch.Tensor, hi: torch.Tensor, what: str) -> None:
     if not (q.is_cuda and k.is_cuda and v.is_cuda and lo.is_cuda
             and hi.is_cuda):
-        raise ValueError("decode_attention_cuda takes CUDA tensors only")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"decode attention takes matching float32/bfloat16 "
-                        f"q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
+        raise ValueError(f"{what} takes CUDA tensors only")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{what}: q must be float32 or bfloat16, got "
+                        f"{q.dtype}")
     B, H, D = q.shape
     if k.ndim != 4 or k.shape[0] != B or k.shape[3] != D or \
             v.shape != k.shape:
@@ -87,21 +104,71 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"decode kernel keeps the scores in shared memory: "
                          f"S={S} with H/KV={H // KV}, D={D} needs "
                          f"{smem_bytes(S, H, KV, D)} B > {SMEM_LIMIT} B")
+    if lo.shape != (B,) or hi.shape != (B,):
+        raise ValueError("lo/hi must be (B,)")
+
+
+def _launch(symbol: str, argtypes, ptrs, q: torch.Tensor, S: int, KV: int,
+            softcap: float) -> torch.Tensor:
+    B, H, D = q.shape
+    out = torch.empty_like(q)
+    fn = _build.function("decode_attention", symbol, argtypes)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = fn(*ptrs, out.data_ptr(), B, S, H, KV, D, float(D ** -0.5),
+                 float(softcap), _DTYPES[q.dtype], stream)
+    if err:
+        raise RuntimeError(f"{symbol} kernel launch failed: CUDA error "
+                           f"{err}")
+    return out
+
+
+def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          lo: torch.Tensor, hi: torch.Tensor,
+                          softcap: float = 0.0) -> torch.Tensor:
+    """Launch the CUDA kernel on PyTorch's current stream.  Raises on an
+    input the kernel does not take and on a failed launch."""
+    _check(q, k, v, lo, hi, "decode_attention_cuda")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"decode attention takes matching float32/bfloat16 "
+                        f"q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     lo = lo.to(torch.int32).contiguous()
     hi = hi.to(torch.int32).contiguous()
-    if lo.shape != (B,) or hi.shape != (B,):
-        raise ValueError("lo/hi must be (B,)")
-    out = torch.empty_like(q)
-    fn = _build.function("decode_attention", "decode_attention_fwd",
-                         _ARGTYPES)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lo.data_ptr(),
-                 hi.data_ptr(), out.data_ptr(), B, S, H, KV, D,
-                 float(D ** -0.5), float(softcap), _DTYPES[q.dtype], stream)
-    if err:
-        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
-                           f"error {err}")
+    out = _launch("decode_attention_fwd", _ARGTYPES,
+                  (q.data_ptr(), k.data_ptr(), v.data_ptr(), lo.data_ptr(),
+                   hi.data_ptr()), q, k.shape[1], k.shape[2], softcap)
     COUNTER.kernel += 1
+    return out
+
+
+def decode_attention_int8_cuda(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, k_scale: torch.Tensor,
+                               v_scale: torch.Tensor, lo: torch.Tensor,
+                               hi: torch.Tensor, softcap: float = 0.0
+                               ) -> torch.Tensor:
+    """Launch the int8 variant: k/v int8 (B, S, KV, D) with (B, S, KV, 1)
+    float32 scales.  Raises on an input it does not take and on a failed
+    launch."""
+    _check(q, k, v, lo, hi, "decode_attention_int8_cuda")
+    if k.dtype != torch.int8 or v.dtype != torch.int8:
+        raise TypeError(f"the int8 variant takes int8 k/v, got "
+                        f"{k.dtype}/{v.dtype}")
+    scale_shape = k.shape[:3] + (1,)
+    if not (k_scale.is_cuda and v_scale.is_cuda) or \
+            k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32 \
+            or k_scale.shape != scale_shape or v_scale.shape != scale_shape:
+        raise ValueError(f"scales must be float32 CUDA tensors of shape "
+                         f"{tuple(scale_shape)}, got {tuple(k_scale.shape)} "
+                         f"{k_scale.dtype} / {tuple(v_scale.shape)} "
+                         f"{v_scale.dtype}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
+    lo = lo.to(torch.int32).contiguous()
+    hi = hi.to(torch.int32).contiguous()
+    out = _launch("decode_attention_int8_fwd", _ARGTYPES_INT8,
+                  (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   k_scale.data_ptr(), v_scale.data_ptr(), lo.data_ptr(),
+                   hi.data_ptr()), q, k.shape[1], k.shape[2], softcap)
+    COUNTER_INT8.kernel += 1
     return out

@@ -3,14 +3,18 @@
 A CUDA tensor launches the hand-written kernel (or the wrapper raises);
 a CPU tensor takes the kernel's plain PyTorch version.  There is no
 switch that sends CUDA tensors to the plain versions and no fallback
-from a failed launch.
+from a failed launch.  Every kernel counts its launches, the int8
+variants apart from the float ones (``repro_torch.runtime``).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import paged_decode_attention as PD
 from repro_torch.kernels.flash_attention import INVALID_POS  # noqa: F401
 
 
@@ -29,6 +33,43 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _plain_device(q, "decode_attention")
     DA.COUNTER.plain += 1
     return DA.decode_attention_plain(q, k, v, lo, hi, softcap)
+
+
+def decode_attention_int8(q: torch.Tensor, kq: torch.Tensor,
+                          vq: torch.Tensor, k_scale: torch.Tensor,
+                          v_scale: torch.Tensor, lo: torch.Tensor,
+                          hi: torch.Tensor, softcap: float = 0.0
+                          ) -> torch.Tensor:
+    """K1's int8 variant.  kq/vq int8 (B, S, KV, D) with (B, S, KV, 1)
+    float32 scales, dequantised inside the kernel; slots ``[lo, hi)``.
+    Returns (B, H, D) in q's dtype."""
+    if q.is_cuda:
+        return DA.decode_attention_int8_cuda(q, kq, vq, k_scale, v_scale,
+                                             lo, hi, softcap)
+    _plain_device(q, "decode_attention_int8")
+    DA.COUNTER_INT8.plain += 1
+    return DA.decode_attention_plain(q, kq, vq, lo, hi, softcap, k_scale,
+                                     v_scale)
+
+
+def paged_decode(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
+                 page_table: torch.Tensor, valid_len: torch.Tensor, *,
+                 softcap: float = 0.0, window: int = 0,
+                 k_scale: Optional[torch.Tensor] = None,
+                 v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3.  q (B, H, D); pools (P + 1, page, KV, D) (int8 with
+    (P + 1, page, KV, 1) float32 scale pools); page_table (B, pps);
+    slots ``[0, valid_len)``, the last ``window`` of them when
+    ``window > 0``.  Returns (B, H, D) in q's dtype."""
+    if q.is_cuda:
+        return PD.paged_decode_attention_cuda(q, pool_k, pool_v, page_table,
+                                              valid_len, softcap, window,
+                                              k_scale, v_scale)
+    _plain_device(q, "paged_decode")
+    (PD.COUNTER if k_scale is None else PD.COUNTER_INT8).plain += 1
+    return PD.paged_decode_attention_plain(q, pool_k, pool_v, page_table,
+                                           valid_len, softcap, window,
+                                           k_scale, v_scale)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -4,6 +4,11 @@ cache-hit step and its resync.
   PYTHONPATH=src python -m repro_torch.launch.profile_step \\
       --arch tconst-41m --batch 4 --prompt-len 1024 --steps 20
 
+It takes ``serve``'s flags (``--layout``, ``--page-size``, ... with the
+full pool) and ``--mode tlin`` for the TLinFormer baseline on the same
+weights, whose hit step also reads the O(N) history KV (K3 on the paged
+layouts).
+
 Prefills a uniform batch, warms up, then profiles ``--steps`` cache-hit
 steps (one batched token each, ended by ``cuda.synchronize``) and one
 resync of every row.  For each it prints the host wall time per call, the
@@ -75,9 +80,13 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--top", type=int, default=8)
     ap.add_argument("--out", default="")
+    ap.add_argument("--mode", default="tconst", choices=["tconst", "tlin"],
+                    help="attention mode of the config (tlin: the "
+                         "TLinFormer baseline on the same weights)")
     args = serve.parse_args(argv, ap)
-    cfg, api, params = serve.load(args)
-    eng = Engine(api, params, max_len=args.prompt_len + args.steps + 64)
+    cfg, api, params = serve.load(args, attention_mode=args.mode)
+    eng = Engine(api, params, max_len=args.prompt_len + args.steps + 64,
+                 layout=serve.layout_spec(args, full_pool=True))
     dec, params, dev = eng.decode, eng.params, eng.device
     rng = np.random.RandomState(args.seed + 1)
     prompts = rng.randint(0, cfg.vocab_size,
@@ -90,16 +99,21 @@ def main(argv=None) -> int:
         logits, _ = dec.raw_step(params, state, token)
         token.copy_(logits.argmax(dim=-1).to(torch.int32))
 
+    hist0 = state.bookkeeping["hist_len"].clone()
+
     def miss():
-        # the fold of a full window; rebuilding from the same ids each time
+        # the fold of a full window onto the prefilled history: the same
+        # ids and lengths each time (a resync advances hist_len by W_og)
         state.host["gen_len"][:] = cfg.tconst.w_og
         state.bookkeeping["gen_len"].fill_(cfg.tconst.w_og)
+        state.bookkeeping["hist_len"].copy_(hist0)
         dec.sync_rows(params, state, rows)
 
     miss()                                   # warm up (kernel build, ...)
     for _ in range(3):
         hit()
-    report = {"arch": cfg.name, "dtype": cfg.dtype, "device": str(dev),
+    report = {"arch": cfg.name, "mode": cfg.attention_mode,
+              "layout": args.layout, "dtype": cfg.dtype, "device": str(dev),
               "kind": torch.cuda.get_device_name(dev)
               if dev.type == "cuda" else "cpu", "batch": args.batch,
               "max_len": eng.max_len,

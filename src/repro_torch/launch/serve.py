@@ -11,10 +11,18 @@ Uniform batch (prints the mean cache-hit step and resync times)::
       --reduced --prompt-len 64 --gen 64 --batch 4 --device cpu
 
 Streaming sessions (staggered admission, per-session prompt lengths;
-each greedy stream is checked against its own solo run)::
+each greedy stream is checked against its own solo run on the same
+layout)::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tconst-41m \\
       --reduced --sessions 3 --slots 2 --gen 24 --device cpu
+
+``--layout dense|int8|paged|paged_int8`` picks the cache layout
+(``--page-size``, ``--pool-pages``: a pool below ``slots x pages_per_slot``
+needs ``--sessions``, whose scheduler allocates pages).  The configs of
+the registry run in tconst mode, whose O(1) cache has nothing to page;
+the paged layouts page TLinFormer's history KV (``attention_mode="tlin"``,
+built by the caller of :func:`load`).
 
 Flags of features not ported yet are kept and refused with the ROADMAP
 item that ports them.
@@ -28,18 +36,15 @@ from typing import Any, Dict, List
 import numpy as np
 
 from repro_torch.config import get_config, reduced
-from repro_torch.models.api import build_model
+from repro_torch.models.api import build_decode, build_model
+from repro_torch.models.layouts import LayoutSpec
 from repro_torch.serving.engine import Engine, device_sync
 from repro_torch.serving.scheduler import SlotScheduler
 from repro_torch.serving.session import Session
 
-_LAYOUTS = "ROADMAP Queue 1 item 6 (cache layouts)"
 _FEATURES = "ROADMAP Queue 1 item 8 (serving features)"
 # flag dest -> (default, where it is ported)
 UNPORTED = {
-    "layout": ("dense", _LAYOUTS),
-    "page_size": (64, _LAYOUTS),
-    "pool_pages": (0, _LAYOUTS),
     "prefix_sharing": (False, _FEATURES + ": prefix sharing"),
     "prefill_chunk": (0, _FEATURES + ": chunked admission"),
     "spill_capacity_mb": (0.0, _FEATURES + ": session tiering"),
@@ -69,13 +74,75 @@ def sessions_max_len(args) -> int:
     return args.max_len or (max(session_prompt_lens(args)) + args.gen + 64)
 
 
+def batch_max_len(args) -> int:
+    return args.max_len or (args.prompt_len + args.gen + 64)
+
+
+def layout_spec(args, full_pool: bool = False) -> LayoutSpec:
+    """The ``--layout`` / ``--page-size`` / ``--pool-pages`` choice
+    (``full_pool``: the same kind with the full pool, as a solo run or a
+    uniform batch needs)."""
+    return LayoutSpec(kind=args.layout, page_size=args.page_size,
+                      pool_pages=None if full_pool else
+                      (args.pool_pages or None))
+
+
+def validate_layout_args(ap, args, max_len: int) -> None:
+    """Startup validation of the paged-layout knobs against the launch
+    geometry, so a mis-sized pool fails with a clear message instead of a
+    shape error (or a scheduler rejection) at the first admission."""
+    if args.layout not in ("paged", "paged_int8") or not args.pool_pages:
+        return                       # full pool: always valid, no allocator
+    if args.page_size < 1 or args.pool_pages < 0:
+        ap.error("--page-size and --pool-pages must be positive")
+    pages_per_slot = -(-max_len // args.page_size)
+    slots = args.slots if args.sessions else args.batch
+    full_pool = slots * pages_per_slot
+    if args.pool_pages > full_pool:
+        ap.error(
+            f"--pool-pages {args.pool_pages} exceeds the full pool: "
+            f"{slots} slots x {pages_per_slot} pages/slot "
+            f"(max_len {max_len} / page {args.page_size}) = {full_pool} "
+            f"pages -- lower it or drop it for the full pool")
+    if not args.sessions and args.pool_pages < full_pool:
+        ap.error(
+            f"--pool-pages {args.pool_pages} < full pool {full_pool} needs "
+            f"the sessions-mode page allocator (uniform-batch prefill "
+            f"cannot place rows in an under-sized pool); add --sessions N "
+            f"or drop --pool-pages")
+    # the largest session this launcher submits must be admissible
+    worst_prompt = max(session_prompt_lens(args)) if args.sessions \
+        else args.prompt_len
+    worst_need = -(-(worst_prompt + args.gen + args.chunk)
+                   // args.page_size)
+    if worst_need > args.pool_pages:
+        ap.error(
+            f"--pool-pages {args.pool_pages} cannot admit the largest "
+            f"session: prompt {worst_prompt} + gen {args.gen} + headroom "
+            f"{args.chunk} needs {worst_need} pages of {args.page_size} "
+            f"tokens -- raise --pool-pages to >= {worst_need} or shrink "
+            f"the sessions")
+
+
+def paged_layout_note(cfg, args) -> None:
+    """Pure tconst KV is O(1): nothing has a length axis, so a paged
+    layout stores nothing in pages for it (tlin does page)."""
+    if args.layout in ("paged", "paged_int8") and \
+            cfg.attention_mode == "tconst":
+        print("[serve] note: pure tconst KV is O(1); the paged layout "
+              "stores nothing in pages for this config (--page-size/"
+              "--pool-pages are inert)")
+
+
 def serve_sessions(cfg, api, params, args) -> Dict[str, Any]:
     """Continuous-batching demo: N sessions with different prompt lengths
     admitted at staggered times into a fixed-slot batch.  Returns a
     report: ``prompts``, the served ``Session``s, the scheduler and the
     seconds it took.  Runs nothing but the scheduler's own path."""
     prompts = session_prompts(cfg, args)
-    sched = SlotScheduler(api.decode, params, slots=args.slots,
+    paged_layout_note(cfg, args)
+    decode = build_decode(cfg, layout_spec(args), device=api.device)
+    sched = SlotScheduler(decode, params, slots=args.slots,
                           max_len=sessions_max_len(args),
                           chunk_size=args.chunk, seed=args.seed)
 
@@ -98,8 +165,9 @@ def serve_sessions(cfg, api, params, args) -> Dict[str, Any]:
     dt = time.time() - t0
 
     total = sum(len(s.tokens) for s in sessions)
-    print(f"[serve] arch={cfg.name} mode={cfg.attention_mode} layout=dense "
-          f"device={sched.device} dtype={cfg.dtype} served "
+    print(f"[serve] arch={cfg.name} mode={cfg.attention_mode} "
+          f"layout={sched.layout.name} device={sched.device} "
+          f"dtype={cfg.dtype} served "
           f"{len(sessions)} sessions ({total} tokens) on {args.slots} slots "
           f"in {dt:.2f}s ({total / dt:.1f} tok/s)")
     chunks = [s for s in sched.stats if s.kind == "chunk"]
@@ -112,8 +180,14 @@ def serve_sessions(cfg, api, params, args) -> Dict[str, Any]:
     if admits:
         print(f"[serve] admissions: n={len(sched.admit_stats)} "
               f"warm median={np.median(admits) * 1e3:.2f}ms")
-    print(f"[serve] KV-cache bytes ({args.slots} slots, dense layout): "
-          f"{sched.kv_bytes()}")
+    print(f"[serve] KV-cache bytes ({args.slots} slots, "
+          f"{sched.layout.name} layout): {sched.kv_bytes()}")
+    if sched._paged:
+        print(f"[serve] paged pool: {sched.layout.pool_pages} pages of "
+              f"{sched.layout.page} tokens (+1 trash) for {args.slots} slots"
+              f" x {sched.layout.pages_per_slot} pages/slot; "
+              f"{sched.page_waits} admission round(s) waited for pages; "
+              f"up to {sched.peak_active} sessions decoded at once")
     return {"prompts": prompts, "sessions": sessions, "sched": sched,
             "seconds": dt}
 
@@ -127,7 +201,9 @@ def check_sessions(api, params, served, args) -> Dict[str, Any]:
     ok = True
     records = []
     check = args.temperature <= 0.0 and args.eos < 0
-    eng = Engine(api, params, max_len=sched.max_len) if check else None
+    eng = Engine(api, params, max_len=sched.max_len,
+                 layout=layout_spec(args, full_pool=True)) \
+        if check else None
     for s, p in zip(served["sessions"], served["prompts"]):
         rec = {"sid": s.sid, "prompt_len": len(p), "tokens": list(s.tokens),
                "resyncs": sched.resyncs.get(s.sid, 0), "matches": None}
@@ -147,9 +223,10 @@ def check_sessions(api, params, served, args) -> Dict[str, Any]:
 def run_batch(cfg, api, params, args) -> Dict[str, Any]:
     """Uniform batch through the instrumented Engine path: each cache-hit
     step and each resync is timed on its own."""
-    max_len = args.max_len or (args.prompt_len + args.gen + 64)
-    eng = Engine(api, params, max_len=max_len,
-                 sample_temperature=args.temperature, seed=args.seed)
+    paged_layout_note(cfg, args)
+    eng = Engine(api, params, max_len=batch_max_len(args),
+                 sample_temperature=args.temperature, seed=args.seed,
+                 layout=layout_spec(args))
     rng = np.random.RandomState(args.seed + 1)
     batch = {"tokens": rng.randint(0, cfg.vocab_size,
                                    size=(args.batch, args.prompt_len))}
@@ -160,8 +237,9 @@ def run_batch(cfg, api, params, args) -> Dict[str, Any]:
             not s.compiled]
     misses = [s.seconds for s in eng.stats if s.kind == "miss" and
               not s.compiled]
-    print(f"[serve] arch={cfg.name} mode={cfg.attention_mode} layout=dense "
-          f"device={eng.device} dtype={cfg.dtype} generated {out.shape} in "
+    print(f"[serve] arch={cfg.name} mode={cfg.attention_mode} "
+          f"layout={args.layout} device={eng.device} dtype={cfg.dtype} "
+          f"generated {out.shape} in "
           f"{dt:.2f}s ({args.batch * args.gen / dt:.1f} tok/s)")
     if hits:
         print(f"[serve] cache-hit steps: n={len(hits)} "
@@ -169,7 +247,7 @@ def run_batch(cfg, api, params, args) -> Dict[str, Any]:
     if misses:
         print(f"[serve] cache-miss resyncs (compacted row-wise): "
               f"n={len(misses)} mean={np.mean(misses) * 1e3:.3f}ms")
-    print(f"[serve] KV-cache bytes @max_len (dense layout): "
+    print(f"[serve] KV-cache bytes @max_len ({args.layout} layout): "
           f"{eng.cache_bytes(args.batch)}")
     return {"rc": 0, "tokens": out, "hit_ms": 1e3 * float(np.mean(hits))
             if hits else None, "miss_ms": 1e3 * float(np.mean(misses))
@@ -204,11 +282,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="decode tokens per chunk (sessions mode)")
     ap.add_argument("--verbose", action="store_true",
                     help="print every streamed token (sessions mode)")
-    # features of the JAX launcher that are not ported yet
     ap.add_argument("--layout", default="dense",
-                    choices=["dense", "paged", "int8", "paged_int8"])
-    ap.add_argument("--page-size", type=int, default=64)
-    ap.add_argument("--pool-pages", type=int, default=0)
+                    choices=["dense", "paged", "int8", "paged_int8"],
+                    help="physical cache layout of the decode state")
+    ap.add_argument("--page-size", type=int, default=64,
+                    help="tokens per page (paged layouts)")
+    ap.add_argument("--pool-pages", type=int, default=0,
+                    help="pages in the shared pool (paged layouts; 0: the "
+                         "full slots x pages_per_slot pool; fewer needs "
+                         "--sessions)")
+    # features of the JAX launcher that are not ported yet
     ap.add_argument("--prefix-sharing", action="store_true")
     ap.add_argument("--prefill-chunk", type=int, default=0)
     ap.add_argument("--spill-capacity-mb", type=float, default=0.0)
@@ -226,7 +309,8 @@ def build_parser() -> argparse.ArgumentParser:
 def parse_args(argv=None, ap: argparse.ArgumentParser = None
                ) -> argparse.Namespace:
     """Parse ``argv`` with ``ap`` (default: ``build_parser()``; another
-    launcher passes the parser it extended) and refuse unported flags."""
+    launcher passes the parser it extended), refuse unported flags and
+    validate the layout flags."""
     ap = ap or build_parser()
     args = ap.parse_args(argv)
     for dest, (default, item) in UNPORTED.items():
@@ -234,16 +318,22 @@ def parse_args(argv=None, ap: argparse.ArgumentParser = None
             flag = "--" + dest.replace("_", "-")
             ap.error(f"{flag} is not ported to the PyTorch port yet: "
                      f"{item}")
+    validate_layout_args(ap, args, sessions_max_len(args) if args.sessions
+                         else batch_max_len(args))
     return args
 
 
-def load(args):
-    """(cfg, api, params) for parsed ``args``: the port's seeded init."""
+def load(args, **overrides):
+    """(cfg, api, params) for parsed ``args``: the port's seeded init.
+    ``overrides`` replace config fields (e.g. ``attention_mode="tlin"``,
+    the TLinFormer baseline on the same weights)."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
     if args.dtype:
         cfg = cfg.replace(dtype=args.dtype)
+    if overrides:
+        cfg = cfg.replace(**overrides)
     api = build_model(cfg, device=args.device)
     return cfg, api, api.init(args.seed)
 

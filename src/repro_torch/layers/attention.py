@@ -1,10 +1,11 @@
 """Grouped-query attention for the TConst paths.
 
 Port of ``src/repro/layers/attention.py`` (projections, ``make_mask``,
-the masked-safe ``sdpa`` and the dense decode/cross attends).  Every
+the masked-safe ``sdpa`` and the KVView decode / cross attends).  Every
 attention the model runs goes through :mod:`repro_torch.kernels.ops`:
-multi-query attention is K2 (flash, positional masks), one-query decode
-attention is K1 (a per-row ``[lo, hi)`` slot range).  ``sdpa`` with a
+multi-query attention is K2 (flash, positional masks); one-query decode
+attention is K1 over a per-row ``[lo, hi)`` slot range on dense views,
+K1's int8 variant on int8 views and K3 on paged views.  ``sdpa`` with a
 boolean mask is kept as the plain reference of the JAX function and
 takes CPU tensors only.
 
@@ -21,6 +22,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import masked_attention
 from repro_torch.layers.common import Params
 from repro_torch.layers.rope import apply_rope
+from repro_torch.models import layouts as LT
 
 NEG_INF = -2.3819763e38
 
@@ -110,40 +112,75 @@ def attention_block(params: Params, xq: torch.Tensor, xkv: torch.Tensor,
     return out_proj(params, o, dtype)
 
 
-def decode_attend(params: Params, x: torch.Tensor, k_cache: torch.Tensor,
-                  v_cache: torch.Tensor, slot: torch.Tensor,
-                  write: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
-                  cos_q: torch.Tensor, sin_q: torch.Tensor,
-                  logit_softcap: float = 0.0
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One-token decode self-attention over a dense (B, S, KV, D) cache
-    (K1).  Projects q/k/v for the new token and writes k/v IN PLACE at
-    ``slot`` for rows where ``write`` is True -- the other rows' cache
-    entries are rewritten with their own values, so they come through
+def _attend_views(q: torch.Tensor, k_view, v_view,
+                  lo: Optional[torch.Tensor], hi: torch.Tensor,
+                  logit_softcap: float = 0.0) -> torch.Tensor:
+    """One-query attention over a per-layer KVView pair
+    (``repro_torch.models.layouts``), in its PHYSICAL representation:
+
+    * :class:`~repro_torch.models.layouts.PagedView` -- K3 walks the page
+      table (int8 pools: its int8 entry).  Needs a prefix range
+      (``lo`` None, slots ``[0, hi)``).
+    * :class:`~repro_torch.models.layouts.QuantView` -- K1's int8 variant
+      over ``[lo, hi)``.  (The JAX package sends a ``kv_valid``-masked
+      cross-attention to dequantise-then-``sdpa``; here the valid context
+      slots are a suffix, so the ``[lo, hi)`` range is exact.)
+    * :class:`~repro_torch.models.layouts.DenseView` -- K1 over
+      ``[lo, hi)``.
+
+    q (B, H, D) RoPE'd; lo/hi (B,) int (``lo`` None means 0).  Returns
+    (B, H, D)."""
+    dtype = q.dtype
+    if isinstance(k_view, LT.PagedView):
+        if lo is not None:
+            raise ValueError("paged attention takes a prefix range [0, hi)")
+        if k_view.quant:
+            return ops.paged_decode(
+                q, k_view.storage.q, v_view.storage.q, k_view.page_table, hi,
+                softcap=logit_softcap, k_scale=k_view.storage.scale,
+                v_scale=v_view.storage.scale)
+        return ops.paged_decode(
+            q, k_view.storage.data.to(dtype), v_view.storage.data.to(dtype),
+            k_view.page_table, hi, softcap=logit_softcap)
+    if lo is None:
+        lo = torch.zeros_like(hi)
+    if isinstance(k_view, LT.QuantView):
+        return ops.decode_attention_int8(q, k_view.q, v_view.q, k_view.scale,
+                                         v_view.scale, lo, hi, logit_softcap)
+    return ops.decode_attention(q, k_view.data.to(dtype),
+                                v_view.data.to(dtype), lo, hi, logit_softcap)
+
+
+def decode_attend_view(params: Params, x: torch.Tensor, k_view, v_view,
+                       slot: torch.Tensor, write: torch.Tensor,
+                       lo: Optional[torch.Tensor], hi: torch.Tensor,
+                       cos_q: torch.Tensor, sin_q: torch.Tensor,
+                       logit_softcap: float = 0.0
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-token decode self-attention over a per-layer KVView pair.
+    Projects q/k/v for the new token and writes k/v THROUGH THE VIEWS at
+    ``slot`` (IN PLACE; int8: quantized; paged: only the owning page) in
+    rows where ``write`` is True -- before attending, so the new token is
+    attended in its stored representation, as in the JAX package.  Other
+    rows' entries are rewritten with their own values and come through
     bit-identical.  Attends slots ``[lo, hi)``.  Returns (out (B, 1, d),
     the RoPE'd query (B, 1, H, D) for the cross-attention)."""
     dtype = x.dtype
     q, k_new, v_new = qkv_proj(params, x, x, dtype)
     q = apply_rope(q, cos_q, sin_q)
     k_new = apply_rope(k_new, cos_q, sin_q)
-    rows = torch.arange(x.shape[0], device=x.device)
-    w = write[:, None, None]
-    k_cache[rows, slot] = torch.where(w, k_new[:, 0].to(k_cache.dtype),
-                                      k_cache[rows, slot])
-    v_cache[rows, slot] = torch.where(w, v_new[:, 0].to(v_cache.dtype),
-                                      v_cache[rows, slot])
-    o = ops.decode_attention(q[:, 0], k_cache.to(dtype), v_cache.to(dtype),
-                             lo, hi, logit_softcap)
+    k_view.write_token(slot, k_new[:, 0], write)
+    v_view.write_token(slot, v_new[:, 0], write)
+    o = _attend_views(q[:, 0], k_view, v_view, lo, hi, logit_softcap)
     return out_proj(params, o[:, None], dtype), q
 
 
-def cross_attend_cached(params: Params, q: torch.Tensor,
-                        k_cache: torch.Tensor, v_cache: torch.Tensor,
-                        lo: torch.Tensor, hi: torch.Tensor,
-                        logit_softcap: float = 0.0) -> torch.Tensor:
+def cross_attend_view(params: Params, q: torch.Tensor, k_view, v_view,
+                      lo: Optional[torch.Tensor], hi: torch.Tensor,
+                      logit_softcap: float = 0.0) -> torch.Tensor:
     """One-token cross-attention of RoPE'd queries q (B, 1, H, D) to
-    cached, already RoPE'd K/V (B, S, KV, D), slots ``[lo, hi)`` (K1)."""
+    cached, already RoPE'd K/V read through a KVView pair, slots
+    ``[lo, hi)`` (``lo`` None: ``[0, hi)``, required for paged views)."""
     dtype = q.dtype
-    o = ops.decode_attention(q[:, 0], k_cache.to(dtype), v_cache.to(dtype),
-                             lo, hi, logit_softcap)
+    o = _attend_views(q[:, 0], k_view, v_view, lo, hi, logit_softcap)
     return out_proj(params, o[:, None], dtype)

@@ -1,10 +1,13 @@
-"""Model facade and the decode-side serving protocol (TConst, dense layout).
+"""Model facade and the decode-side serving protocol (the TConst family).
 
-Port of the dense parts of ``src/repro/models/api.py``: the typed
-:class:`DecodeState` (explicit kv / bookkeeping partition, slot surgery),
+Port of ``src/repro/models/api.py`` for the TConst family (tconst and
+tlin modes): the typed :class:`DecodeState` (explicit kv / bookkeeping
+partition, a pluggable physical layout from
+:mod:`repro_torch.models.layouts`, slot surgery through the layout),
 per-slot sampling, :func:`decode_chunk`, :class:`TConstDecode`,
-``build_decode`` and ``build_model``.  The cache layouts (paged / int8)
-and KVViews are not ported (ROADMAP Queue 1 item 6).
+``build_decode`` and ``build_model``.  The hit step reads the cache
+through KVViews (``DecodeState.decode_views``); ``merged`` (the dense
+logical dict) is the oracle and the admission path's currency.
 
 Where the JAX package scans a decode chunk on device and decides each
 resync there, the port runs eagerly: the resync is decided from a
@@ -25,6 +28,7 @@ from repro_torch import runtime
 from repro_torch.config import ModelConfig
 from repro_torch.core import tconst as TC
 from repro_torch.layers.common import put_rows, take_rows, where_rows
+from repro_torch.models import layouts as LT
 
 
 def _is_tconst(cfg: ModelConfig) -> bool:
@@ -39,11 +43,15 @@ def _is_tconst(cfg: ModelConfig) -> bool:
 
 @dataclasses.dataclass
 class DecodeState:
-    """Decode cache with an explicit kv / bookkeeping partition.
+    """Decode cache with an explicit kv / bookkeeping partition and a
+    pluggable physical layout.
 
-    ``kv`` holds the true KV buffers; ``bookkeeping`` the token-id buffer,
-    lengths, phase counters and the EOS ``done`` mask (not KV cache).
-    ``axes`` maps every field to its batch ("slot") axis.  ``host`` holds
+    ``kv`` holds the true KV buffers in the PHYSICAL representation of
+    ``layout`` (dense tensors, paged pools, int8 + scales), so
+    ``kv_bytes`` reflects the layout; ``bookkeeping`` the token-id
+    buffer, lengths, phase counters, the EOS ``done`` mask and the
+    layout's own fields (``layout__*``, e.g. the page table).  ``axes``
+    maps every dense field to its batch ("slot") axis.  ``host`` holds
     host-side mirrors of the counters the decode loop branches on (here
     ``gen_len``), kept in step with the device without reading it.
     """
@@ -52,33 +60,80 @@ class DecodeState:
     bookkeeping: Dict[str, torch.Tensor]
     axes: Dict[str, int]
     host: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
+    layout: Any = dataclasses.field(default_factory=LT.DenseLayout)
 
     @classmethod
     def from_dense(cls, cache: Dict[str, torch.Tensor],
-                   kv_keys: Sequence[str], axes: Dict[str, int]
-                   ) -> "DecodeState":
+                   kv_keys: Sequence[str], axes: Dict[str, int],
+                   layout: Any = None) -> "DecodeState":
+        """Wrap a dense logical cache dict, packing kv into ``layout``'s
+        physical representation (with the layout's own bookkeeping, e.g.
+        a fresh page table)."""
+        layout = LT.DenseLayout() if layout is None else layout
         kv = {k: v for k, v in cache.items() if k in kv_keys}
         bk = {k: v for k, v in cache.items() if k not in kv_keys}
-        return cls(kv, bk, {k: axes[k] for k in cache})
+        name = next(iter(sorted(bk)))
+        bk.update(layout.init_bookkeeping(bk[name].shape[axes[name]],
+                                          device=bk[name].device))
+        all_axes = {**{k: axes[k] for k in cache},
+                    **layout.bookkeeping_axes()}
+        return cls(layout.pack(kv, bk, all_axes), bk, all_axes,
+                   layout=layout)
+
+    def kv_views(self) -> Dict[str, Any]:
+        """Per-field FieldViews over the PHYSICAL kv buffers (aliasing:
+        no copy, no densification)."""
+        return self.layout.view(self.kv, self.bookkeeping, self.axes)
+
+    def decode_views(self) -> Dict[str, Any]:
+        """What the layout-native step takes: non-layout bookkeeping as
+        tensors + kv fields as FieldViews."""
+        bk = {k: v for k, v in self.bookkeeping.items()
+              if not k.startswith(LT.LAYOUT_BK_PREFIX)}
+        return {**bk, **self.kv_views()}
+
+    def absorb(self, views: Dict[str, Any]) -> "DecodeState":
+        """Take back an updated ``decode_views`` dict.  The views alias
+        the physical buffers and the step writes them in place, so this
+        only re-reads which tensors the fields hold."""
+        self.kv = LT.absorb_views({k: v for k, v in views.items()
+                                   if isinstance(v, LT.FieldView)})
+        self.bookkeeping.update({k: v for k, v in views.items()
+                                 if not isinstance(v, LT.FieldView)})
+        return self
 
     def merged(self) -> Dict[str, torch.Tensor]:
-        """The dense logical cache dict (tensors alias the state's)."""
-        return {**self.bookkeeping, **self.kv}
-
-    def field(self, name: str) -> torch.Tensor:
-        return self.kv[name] if name in self.kv else self.bookkeeping[name]
+        """The dense LOGICAL cache dict (layout bookkeeping filtered out,
+        kv unpacked).  On the dense layout its tensors alias the state's;
+        on the others they are copies.  The oracle of the tests."""
+        bk = {k: v for k, v in self.bookkeeping.items()
+              if not k.startswith(LT.LAYOUT_BK_PREFIX)}
+        return {**bk, **self.layout.unpack(self.kv, self.bookkeeping,
+                                           self.axes)}
 
     def kv_bytes(self) -> int:
+        """KV bytes of the PHYSICAL representation (paged pools and int8
+        + scales report their true size)."""
         return sum(t.numel() * t.element_size() for t in self.kv.values())
+
+    def assigned_kv_bytes(self) -> int:
+        """KV bytes the live page tables reference (paged fields: the
+        assigned pages; the others: their physical buffers).  Host-side:
+        reads the page table."""
+        return LT.assigned_kv_bytes(self.kv_views())
 
     def with_slot(self, slot: int, row: "DecodeState") -> "DecodeState":
         """Write a single-row state (batch size 1) into slot ``slot``, IN
-        PLACE; returns self."""
-        for part, src in ((self.kv, row.kv), (self.bookkeeping,
-                                                row.bookkeeping)):
-            for name, val in src.items():
-                ax = self.axes[name]
-                part[name].select(ax, slot).copy_(val.select(ax, 0))
+        PLACE; returns self.  Bookkeeping is a per-field row write; kv
+        goes through the layout (paged: only the slot's own pages)."""
+        for name, val in row.bookkeeping.items():
+            if name.startswith(LT.LAYOUT_BK_PREFIX):
+                continue
+            ax = self.axes[name]
+            self.bookkeeping[name].select(ax, slot).copy_(val.select(ax, 0))
+        dense_row = row.layout.unpack(row.kv, row.bookkeeping, row.axes)
+        self.layout.write_slot(self.kv, self.bookkeeping, slot, dense_row,
+                               self.axes)
         for name, val in row.host.items():
             self.host[name][slot] = val[0]
         return self
@@ -88,14 +143,14 @@ class DecodeState:
         """Per-slot select (a new state): self where ``rows`` (B,) is True,
         else ``other`` -- the JAX package's way to freeze rows.  The decode
         loop masks its writes instead; the tests hold the two equal."""
-        kv = {n: where_rows(rows, t, other.kv[n], self.axes[n])
-              for n, t in self.kv.items()}
         bk = {n: where_rows(rows, t, other.bookkeeping[n], self.axes[n])
               for n, t in self.bookkeeping.items()}
+        kv = self.layout.where_rows(rows, self.kv, other.kv,
+                                    self.bookkeeping, self.axes)
         host_rows = rows.cpu().numpy()
         host = {n: np.where(host_rows, v, other.host[n])
                 for n, v in self.host.items()}
-        return DecodeState(kv, bk, self.axes, host)
+        return DecodeState(kv, bk, self.axes, host, self.layout)
 
 
 # ---------------------------------------------------------------------------
@@ -180,11 +235,20 @@ def decode_chunk(decode: "TConstDecode", params: Any, state: DecodeState,
 
 @dataclasses.dataclass(frozen=True)
 class TConstDecode:
-    """Paper §4 serving on the dense layout: O(1) cache-hit steps and a
-    periodic O(N) resync of exactly the rows whose window is full."""
+    """Paper §4 serving on any cache layout: O(1) cache-hit steps (tlin:
+    plus the O(N) history read) and a periodic O(N) resync of exactly the
+    rows whose window is full.
+
+    Layout-native: ``raw_step`` hands the step ``state.decode_views()`` --
+    the physical buffers plus page-table / scale metadata -- so the hit
+    step never densifies the cache.  ``sync_rows`` reruns the resync of
+    the listed rows at their compacted batch size and writes the fresh
+    ctx (tlin: and history) KV back THROUGH the layout (paged: the rows'
+    own pages; int8: quantized on write)."""
 
     cfg: ModelConfig
     device: torch.device
+    layout: LT.LayoutSpec = LT.DENSE_SPEC
 
     def __post_init__(self):
         TC._check_mode(self.cfg.attention_mode)
@@ -202,46 +266,80 @@ class TConstDecode:
         activation dtype (what every layer would cast them to per call)."""
         return TC.to_device(params, self.device, self.dtype)
 
-    def _wrap(self, cache: Dict[str, torch.Tensor], gen_len: np.ndarray
-              ) -> DecodeState:
-        st = DecodeState.from_dense(cache, TC.KV_KEYS, TC.CACHE_BATCH_AXES)
-        st.host["gen_len"] = np.asarray(gen_len, np.int64)
+    def bind(self, slots: int, max_len: int) -> Any:
+        """The bound layout of a ``slots`` x ``max_len`` state."""
+        return LT.bind_layout(self.layout, slots=slots, max_len=max_len,
+                              length_axes=TC.LENGTH_AXES,
+                              quant_fields=TC.QUANT_FIELDS,
+                              dtype=self.cfg.dtype)
+
+    def _wrap(self, cache: Dict[str, torch.Tensor], gen_len: np.ndarray,
+              layout: Any = None) -> DecodeState:
+        st = DecodeState.from_dense(cache, TC.KV_KEYS, TC.CACHE_BATCH_AXES,
+                                    layout)
+        st.host["gen_len"] = np.array(gen_len, np.int64)
         return st
+
+    def _check_prefill_layout(self, layout: Any,
+                              cache: Dict[str, torch.Tensor]) -> None:
+        """A full-batch prefill cannot place rows in an under-sized paged
+        pool -- but only when the cache has paged fields."""
+        if isinstance(layout, LT.PagedLayout) and not layout.preallocated \
+                and layout.pages_anything(cache):
+            raise ValueError(
+                "full-batch prefill cannot place rows in an under-sized "
+                "paged pool (pool_pages < slots * pages_per_slot); use "
+                "the scheduler's page allocator via prefill_into_slot, "
+                "or leave pool_pages=None")
 
     def init_state(self, slots: int, max_len: int) -> DecodeState:
         cache = TC.init_tconst_cache(self.cfg, slots, max_len, self.mode,
                                      device=self.device)
-        return self._wrap(cache, np.zeros((slots,), np.int64))
+        return self._wrap(cache, np.zeros((slots,), np.int64),
+                          self.bind(slots, max_len))
 
-    def prefill(self, params, batch: Dict[str, Any], max_len: int
-                ) -> Tuple[torch.Tensor, DecodeState]:
-        """Full-batch prefill (same-length prompts)."""
-        tokens = torch.as_tensor(np.asarray(batch["tokens"]),
+    def _prefill(self, params, tokens: Any, max_len: int
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], int]:
+        tokens = torch.as_tensor(np.asarray(tokens),
                                  device=self.device).to(torch.int32)
         logits, cache = TC.prefill(params, tokens, self.cfg, max_len,
                                    mode=self.mode)
         g0 = ((tokens.shape[1] - 1) % self.cfg.tconst.w_og) + 1
-        return logits, self._wrap(cache, np.full((tokens.shape[0],), g0))
+        return logits, cache, g0
+
+    def prefill(self, params, batch: Dict[str, Any], max_len: int
+                ) -> Tuple[torch.Tensor, DecodeState]:
+        """Full-batch prefill (same-length prompts) into this decode's
+        layout (a paged layout needs its full pool)."""
+        logits, cache, g0 = self._prefill(params, batch["tokens"], max_len)
+        B = cache["done"].shape[0]
+        layout = self.bind(B, max_len)
+        self._check_prefill_layout(layout, cache)
+        return logits, self._wrap(cache, np.full((B,), g0), layout)
 
     def prefill_into_slot(self, params, state: DecodeState, slot: int,
                           tokens: Any) -> Tuple[torch.Tensor, DecodeState]:
-        """Admit one request: prefill prompt ``tokens`` (L,) at batch 1 and
-        write the row into ``slot`` (in place).  Returns (logits (V,),
-        state)."""
+        """Admit one request: prefill prompt ``tokens`` (L,) as a dense
+        batch-1 row and write it into ``slot`` through the state's layout
+        (in place; paged: the slot's own pages, which the scheduler has
+        assigned).  Returns (logits (V,), state)."""
         max_len = state.bookkeeping["tokens"].shape[1]
-        logits, row = self.prefill(params, {"tokens": np.asarray(
-            tokens, np.int32).reshape(1, -1)}, max_len)
-        return logits[0], state.with_slot(slot, row)
+        logits, cache, g0 = self._prefill(
+            params, np.asarray(tokens, np.int32).reshape(1, -1), max_len)
+        return logits[0], state.with_slot(slot, self._wrap(cache, [g0]))
 
     def raw_step(self, params, state: DecodeState, token: torch.Tensor,
                  live: Optional[torch.Tensor] = None,
                  active: Optional[np.ndarray] = None
                  ) -> Tuple[torch.Tensor, DecodeState]:
-        """One cache-hit step, no sync check, IN PLACE.  ``live`` (B,)
-        device bool masks the writes; ``active`` (B,) host bool says which
-        rows the host mirror advances (default: all)."""
-        logits, _ = TC.decode_step(params, state.merged(), token, self.cfg,
-                                   mode=self.mode, live=live)
+        """One cache-hit step over the state's KVViews, no sync check, IN
+        PLACE.  ``live`` (B,) device bool masks the writes; ``active``
+        (B,) host bool says which rows the host mirror advances (default:
+        all)."""
+        logits, views = TC.decode_step_views(params, state.decode_views(),
+                                             token, self.cfg, mode=self.mode,
+                                             live=live)
+        state.absorb(views)
         if active is None:
             state.host["gen_len"] += 1
         else:
@@ -266,9 +364,11 @@ class TConstDecode:
                   ) -> DecodeState:
         """Compacted row-wise resync: gather only the listed rows'
         ``RESYNC_INPUT_KEYS`` bookkeeping, run one O(N) resync at that
-        batch size, and write the results back IN PLACE.  Rows not listed
-        are never computed; listed rows that are not pending on device
-        (EOS-finished) get their own values back, bit-identical."""
+        batch size, and write the results back IN PLACE -- the KV through
+        the layout's views (``scatter_rows``), the rest per field.  Rows
+        not listed are never computed; listed rows that are not pending
+        on device (EOS-finished) get their own values back,
+        bit-identical."""
         idx_np = np.nonzero(np.asarray(rows, bool))[0]
         if not len(idx_np):
             return state
@@ -280,8 +380,12 @@ class TConstDecode:
         sel = (row_in["gen_len"] >= self.cfg.tconst.w_og) & \
             ~take_rows(bk["done"], idx, axes["done"])
         new = TC.resync(params, row_in, self.cfg, self.mode)
+        views = state.kv_views()
         for f, val in new.items():
-            dst = state.field(f)
+            if f in views:
+                views[f].scatter_rows(idx, sel, val)
+                continue
+            dst = bk[f]
             old = take_rows(dst, idx, axes[f])
             put_rows(dst, idx, where_rows(sel, val.to(dst.dtype), old,
                                           axes[f]), axes[f])
@@ -291,17 +395,16 @@ class TConstDecode:
 
 def build_decode(cfg: ModelConfig, layout: Any = None,
                  device: Any = None) -> TConstDecode:
-    """The decode protocol for ``cfg`` on ``device`` (default ``cuda``).
-    Only the TConst family on the dense layout is ported."""
-    if layout not in (None, "dense"):
-        raise NotImplementedError(
-            f"cache layout {layout!r} is not ported yet (ROADMAP Queue 1 "
-            f"item 6); the port serves the dense layout")
+    """The decode protocol for ``cfg`` on ``device`` (default ``cuda``)
+    with cache layout ``layout`` ("dense" | "paged" | "int8" |
+    "paged_int8" | LayoutSpec | None).  The TConst family (tconst and
+    tlin modes) is ported."""
+    spec = LT.as_spec(layout)
     if not _is_tconst(cfg):
         raise NotImplementedError(
             f"{cfg.name}: only the TConst family is ported (the dense-LM "
             f"and enc-dec families are ROADMAP Queue 1 items 7 and 9)")
-    return TConstDecode(cfg, runtime.resolve_device(device))
+    return TConstDecode(cfg, runtime.resolve_device(device), spec)
 
 
 @dataclasses.dataclass
@@ -316,6 +419,7 @@ class ModelAPI:
 
     @property
     def decode(self) -> TConstDecode:
+        """The dense-layout decode (``build_decode`` takes a layout)."""
         return build_decode(self.cfg, device=self.device)
 
 

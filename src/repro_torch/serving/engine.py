@@ -7,7 +7,9 @@ decode_chunk`); ``record_stats=True`` the instrumented path that times
 each cache hit and each resync (miss) separately -- the amortized O(1)
 schedule of paper §4 (``W_og - 1`` constant-time hits, then one
 linear-time miss) for the Fig 8 latency split.  On CUDA every timed
-entry ends in ``torch.cuda.synchronize``.
+entry ends in ``torch.cuda.synchronize``.  ``layout`` picks the cache
+layout (``repro_torch.models.layouts``); a uniform batch is prefilled in
+one piece, so a paged layout needs its full pool.
 """
 from __future__ import annotations
 
@@ -18,7 +20,6 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import tconst as TC
 from repro_torch.models.api import (ModelAPI, build_decode, decode_chunk,
                                     sample_tokens)
 
@@ -50,9 +51,10 @@ def device_sync(device: torch.device) -> None:
 class Engine:
     def __init__(self, api: ModelAPI, params: Any, max_len: int,
                  sample_temperature: float = 0.0, seed: int = 0,
-                 device: Any = None):
+                 device: Any = None, layout: Any = None):
         self.api = api
-        self.decode = build_decode(api.cfg, device=device or api.device)
+        self.decode = build_decode(api.cfg, layout,
+                                   device=device or api.device)
         self.device = self.decode.device
         self.params = self.decode.prepare_params(params)
         self.max_len = max_len
@@ -118,7 +120,8 @@ class Engine:
         return torch.stack(out, dim=1).cpu().numpy()
 
     def cache_bytes(self, batch_size: int) -> int:
-        """KV-cache footprint at max_len (paper Fig 8g), from the shapes
-        alone (meta tensors: no allocation)."""
-        return TC.kv_cache_bytes(TC.init_tconst_cache(
-            self.api.cfg, batch_size, self.max_len, device="meta"))
+        """KV-cache footprint at max_len (paper Fig 8g) in the engine's
+        physical layout, from the shapes alone (meta tensors: no
+        allocation)."""
+        meta = dataclasses.replace(self.decode, device=torch.device("meta"))
+        return meta.init_state(batch_size, self.max_len).kv_bytes()

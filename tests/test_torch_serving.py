@@ -183,7 +183,6 @@ def test_serve_batch_cli_times_hits_and_misses(capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--layout", "paged"], ["--page-size", "16"], ["--pool-pages", "4"],
     ["--prefix-sharing"], ["--prefill-chunk", "16"],
     ["--spill-capacity-mb", "8"], ["--spill-dir", "x"],
     ["--workload", "bursty"], ["--policy", "slo"],
@@ -194,6 +193,40 @@ def test_unported_flags_error(flag, capsys):
         serve.parse_args(["--sessions", "2"] + flag)
     assert e.value.code == 2
     assert "ROADMAP Queue 1 item" in capsys.readouterr().err
+
+
+# sessions 2 x (prompt 64 / 69 + gen 64 + 64) -> max_len 197 -> 13 pages of
+# 16 per slot, 26 in the full pool of 2 slots; the uniform batch (4 rows,
+# max_len 192) needs 48
+@pytest.mark.parametrize("flags,accepted", [
+    (["--sessions", "2", "--pool-pages", "26"], True),     # the full pool
+    (["--sessions", "2", "--pool-pages", "27"], False),    # over-full
+    (["--pool-pages", "10"], False)])                      # no --sessions
+def test_layout_flags_validated_like_jax(flags, accepted, capsys):
+    """The port's paged-layout flag validation gives the JAX launcher's
+    verdict (``repro.launch.serve.validate_layout_args``) on the same
+    arguments."""
+    from repro.config import get_config as jax_get_config
+    from repro.launch import serve as jax_serve
+    argv = ["--layout", "paged", "--page-size", "16"] + flags
+
+    def verdict(fn):
+        try:
+            fn()
+        except SystemExit as e:
+            assert e.code == 2
+            return False
+        return True
+
+    ap = serve.build_parser()
+    args = ap.parse_args(argv)
+    max_len = serve.sessions_max_len(args) if args.sessions \
+        else serve.batch_max_len(args)
+    jax_ok = verdict(lambda: jax_serve.validate_layout_args(
+        ap, jax_get_config(args.arch), args, max_len))
+    assert verdict(lambda: serve.parse_args(argv)) == jax_ok == accepted
+    if not accepted:
+        assert "--pool-pages" in capsys.readouterr().err
 
 
 def test_serve_without_gpu_raises_unless_cpu_is_asked():

@@ -8,8 +8,6 @@ does: layers, the bridge, ``tconst_forward`` / ``prefill`` / ``resync`` /
 invariants (decode + resync == training forward with exactly 3 misses
 over 27 steps; Eq. 7 cache bytes constant in N).
 """
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +21,6 @@ from repro.layers import common as JCOM
 from repro.layers import embed as JE
 from repro.layers import mlp as JM
 from repro.layers import rope as JR
-from repro_torch import bridge
 from repro_torch import config as PC
 from repro_torch.core import tconst as PT
 from repro_torch.layers import attention as PA
@@ -32,40 +29,11 @@ from repro_torch.layers import embed as PE
 from repro_torch.layers import mlp as PM
 from repro_torch.layers import rope as PR
 from repro_torch.models.api import build_model
+from torch_parity import build_pair, jax_tiny_cfg, port_cfg
+from torch_parity import t as _t
 
 torch.set_num_threads(1)
 ATOL = 1e-4
-
-
-def jax_tiny_cfg(**kw):
-    """``tiny_cfg`` of tests/test_tconst_core.py (GQA group of 2)."""
-    base = dict(name="tiny", d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
-                vocab_size=97, n_layers=8, dtype="float32",
-                attention_mode="tconst",
-                tconst=JC.TConstConfig(w_oh=8, w_og=8, h=2))
-    base.update(kw)
-    return JC.ModelConfig(**base)
-
-
-def port_cfg(jcfg):
-    """The same configuration as the port's ModelConfig."""
-    kw = {f.name: getattr(jcfg, f.name)
-          for f in dataclasses.fields(JC.ModelConfig)}
-    kw["tconst"] = PC.TConstConfig(**dataclasses.asdict(jcfg.tconst))
-    return PC.ModelConfig(**kw)
-
-
-def jax_to_numpy(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
-
-
-def build_pair(jcfg, seed=0):
-    jparams = JT.init_tconst_lm(jax.random.PRNGKey(seed), jcfg)
-    return jparams, bridge.params_from_jax(jax_to_numpy(jparams))
-
-
-def _t(a):
-    return torch.from_numpy(np.array(a))
 
 
 @pytest.fixture(scope="module")
@@ -343,15 +311,9 @@ def test_init_is_seeded_and_shaped(reduced41):
 def test_unported_paths_raise_and_name_the_roadmap(tiny):
     _, cfg, _, pparams, tokens, _ = tiny
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PT.tconst_forward(pparams, _t(tokens), cfg, mode="tlin")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PT.init_tconst_cache(cfg, 1, 16, mode="tlin")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         PT.prefill_bucketed(pparams, _t(tokens), None, cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PT.verify_chunk_views(pparams, {}, _t(tokens), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg.replace(attention_mode="tlin"), device="cpu")
 
 
 def test_default_device_is_cuda(tiny):

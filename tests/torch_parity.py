@@ -1,0 +1,74 @@
+"""Shared helpers of the port's parity suites (``tests/test_torch_*.py``):
+the JAX configuration mirrored as the port's, the JAX init carried over by
+``repro_torch.bridge``, and the port's scheduler runner.  The JAX side of
+the serving comparisons is ``tests/parity.py``.
+
+A plain importable module, not a conftest (pytest's prepend import mode
+puts ``tests/`` on ``sys.path``).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import numpy as np
+import torch
+
+from repro import config as JC
+from repro.core import tconst as JT
+from repro_torch import bridge
+from repro_torch import config as PC
+from repro_torch.models.api import build_decode
+from repro_torch.serving.scheduler import SlotScheduler
+from repro_torch.serving.session import Session
+
+
+def jax_tiny_cfg(**kw):
+    """``tiny_cfg`` of tests/test_tconst_core.py (GQA group of 2)."""
+    base = dict(name="tiny", d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+                vocab_size=97, n_layers=8, dtype="float32",
+                attention_mode="tconst",
+                tconst=JC.TConstConfig(w_oh=8, w_og=8, h=2))
+    base.update(kw)
+    return JC.ModelConfig(**base)
+
+
+def port_cfg(jcfg):
+    """The same configuration as the port's ModelConfig."""
+    kw = {f.name: getattr(jcfg, f.name)
+          for f in dataclasses.fields(JC.ModelConfig)}
+    kw["tconst"] = PC.TConstConfig(**dataclasses.asdict(jcfg.tconst))
+    return PC.ModelConfig(**kw)
+
+
+def jax_to_numpy(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def build_pair(jcfg, seed=0):
+    """(JAX params, the port's params bridged from them)."""
+    jparams = JT.init_tconst_lm(jax.random.PRNGKey(seed), jcfg)
+    return jparams, bridge.params_from_jax(jax_to_numpy(jparams))
+
+
+def t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def port_streams(cfg, params, prompts, layout=None, *, gen, slots=2,
+                 max_len=128, chunk_size=4, stagger=True, device="cpu",
+                 **session_kw):
+    """The port's scheduler runner, the twin of ``parity.serve_streams``:
+    submit every prompt (one chunk between submissions when
+    ``stagger``), run to completion.  Returns (streams, scheduler)."""
+    sched = SlotScheduler(build_decode(cfg, layout, device=device), params,
+                          slots=slots, max_len=max_len,
+                          chunk_size=chunk_size)
+    sessions = []
+    for p in prompts:
+        sessions.append(sched.submit(Session(p, max_new_tokens=gen,
+                                             **session_kw)))
+        if stagger:
+            sched.step()
+    sched.run()
+    return [s.tokens for s in sessions], sched
