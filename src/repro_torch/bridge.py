@@ -1,4 +1,4 @@
-"""Weight bridge: the JAX package's parameter pytree -> the port's params.
+"""Weight bridge: the JAX package's parameter pytrees -> the port's params.
 
 The JAX TConst model stacks its blocks on a leading ``n_blocks`` axis
 (``jax.vmap`` over the block init), with ``blocks["layers"]`` a list of
@@ -7,6 +7,13 @@ blocks, each ``{"layers": [...]}`` with unstacked leaves.  Weight layouts
 are the same on both sides: ``wq``/``wk``/``wv`` (d, H|KV, hd), ``wo``
 (H, hd, d), SwiGLU ``w_gate``/``w_up`` (d, ff) and ``w_down`` (ff, d),
 norms ``{"scale": (d,)}``, and the tied head reads ``embed.tok``.
+
+The JAX decoder-only LM (``models/lm.py::init_lm``) stacks its layers on
+a leading ``n_layers`` axis the same way; the port keeps a list of
+per-layer dicts (``ln1`` and, for the SSM family, the mixer's
+``in_proj``/``conv_w``/``conv_b``/``dt_bias``/``a_log``/``d_skip``/
+``norm_scale``/``out_proj`` in the JAX layouts) beside ``embed.tok`` /
+``embed.head`` and ``final_norm``.
 
 The caller turns the JAX leaves into numpy arrays first; this module
 never imports JAX.
@@ -43,6 +50,24 @@ def params_from_jax(tree: Any, device: Any = None) -> Any:
                                                                    device))
                                for layer in blocks["layers"]]}
                    for ib in range(nb)],
+        "final_norm": _map(tree["final_norm"],
+                           lambda a: _tensor(a, device)),
+    }
+
+
+def lm_params_from_jax(tree: Any, device: Any = None) -> Any:
+    """``tree``: the JAX ``init_lm`` pytree with numpy leaves (layers
+    stacked on a leading ``n_layers`` axis).  Returns the port's LM params
+    (float32 tensors as stored) on ``device`` (default: CPU)."""
+    if "dense_layers" in tree:
+        raise NotImplementedError("MoE leading dense layers are not ported "
+                                  "(ROADMAP Queue 1 item 7)")
+    layers = tree["layers"]
+    n = int(np.shape(layers["ln1"]["scale"])[0])
+    return {
+        "embed": _map(tree["embed"], lambda a: _tensor(a, device)),
+        "layers": [_map(layers, lambda a, i=i: _tensor(a[i], device))
+                   for i in range(n)],
         "final_norm": _map(tree["final_norm"],
                            lambda a: _tensor(a, device)),
     }

@@ -202,9 +202,9 @@ def register_arch(name: str) -> Callable:
     return deco
 
 
-# Only the paper's own model is ported so far; the other families are
-# ROADMAP Queue 1 items 7 and 9.
-_ARCH_MODULES = ["tconst_41m"]
+# The paper's own model and the SSM family are ported so far; the other
+# families are ROADMAP Queue 1 items 7 and 9.
+_ARCH_MODULES = ["tconst_41m", "mamba2_130m"]
 
 
 def _load_all() -> None:

@@ -30,7 +30,6 @@ decoding).
 """
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -41,7 +40,8 @@ from repro_torch.kernels.flash_attention import INVALID_POS
 from repro_torch.layers import attention as A
 from repro_torch.layers import embed as E
 from repro_torch.layers import rope as R
-from repro_torch.layers.common import Params, rmsnorm
+from repro_torch.layers.common import (Params, dense_init, rmsnorm,
+                                       to_device)
 from repro_torch.layers.mlp import swiglu
 from repro_torch.models import layouts as LT
 
@@ -61,28 +61,20 @@ def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def _dense_init(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:
-    """Truncated normal in [-2, 2] scaled by 1/sqrt(fan_in) (LeCun normal,
-    as the JAX package's ``dense_init``)."""
-    t = torch.empty(shape, dtype=torch.float32)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return t * (1.0 / math.sqrt(max(1, fan_in)))
-
-
 def _init_layer(cfg: ModelConfig, gen: torch.Generator) -> Params:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     H, KV, ff = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
     return {
         "attn": {
-            "wq": _dense_init((d, H, hd), d, gen),
-            "wk": _dense_init((d, KV, hd), d, gen),
-            "wv": _dense_init((d, KV, hd), d, gen),
-            "wo": _dense_init((H, hd, d), H * hd, gen),
+            "wq": dense_init((d, H, hd), d, gen),
+            "wk": dense_init((d, KV, hd), d, gen),
+            "wv": dense_init((d, KV, hd), d, gen),
+            "wo": dense_init((H, hd, d), H * hd, gen),
         },
         "ffn": {
-            "w_gate": _dense_init((d, ff), d, gen),
-            "w_up": _dense_init((d, ff), d, gen),
-            "w_down": _dense_init((ff, d), ff, gen),
+            "w_gate": dense_init((d, ff), d, gen),
+            "w_up": dense_init((d, ff), d, gen),
+            "w_down": dense_init((ff, d), ff, gen),
         },
         "ln1": {"scale": torch.ones(d)},
         "ln2": {"scale": torch.ones(d)},
@@ -99,33 +91,13 @@ def init_tconst_lm(cfg: ModelConfig, seed: int = 0,
         raise NotImplementedError("MoE FFNs are not ported (ROADMAP Queue 1 "
                                   "item 7)")
     gen = torch.Generator().manual_seed(seed)
-    embed = {"tok": torch.randn((cfg.vocab_size, cfg.d_model),
-                                generator=gen) * 0.02}
-    if not cfg.tie_embeddings:
-        embed["head"] = _dense_init((cfg.d_model, cfg.vocab_size),
-                                    cfg.d_model, gen)
+    embed = E.init_embed(cfg, gen)
     blocks = [{"layers": [_init_layer(cfg, gen)
                           for _ in range(cfg.tconst.block_depth)]}
               for _ in range(cfg.tconst_blocks)]
     params = {"embed": embed, "blocks": blocks,
               "final_norm": {"scale": torch.ones(cfg.d_model)}}
     return to_device(params, device)
-
-
-def to_device(params: Any, device: Optional[torch.device],
-              dtype: Optional[torch.dtype] = None) -> Any:
-    """Map a nested dict/list of tensors onto ``device`` (and, when
-    ``dtype`` is given, cast the weight matrices -- every tensor but the
-    norm scales, which stay float32 as ``rmsnorm`` reads them)."""
-    def go(x, key=""):
-        if isinstance(x, dict):
-            return {k: go(v, k) for k, v in x.items()}
-        if isinstance(x, list):
-            return [go(v, key) for v in x]
-        if dtype is not None and key != "scale":
-            x = x.to(dtype)
-        return x if device is None else x.to(device)
-    return go(params)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Attention dispatch: every attention of the port goes through here.
+"""Kernel dispatch: every attention and SSD scan of the port goes through
+here.
 
 A CUDA tensor launches the hand-written kernel (or the wrapper raises);
 a CPU tensor takes the kernel's plain PyTorch version.  There is no
@@ -8,13 +9,14 @@ variants apart from the float ones (``repro_torch.runtime``).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import paged_decode_attention as PD
+from repro_torch.kernels import ssd_scan as SS
 from repro_torch.kernels.flash_attention import INVALID_POS  # noqa: F401
 
 
@@ -86,3 +88,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     FA.COUNTER.plain += 1
     return FA.flash_attention_plain(q, k, v, q_pos, k_pos, causal, window,
                                     softcap)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, chunk: int,
+             init_state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 (both entries: the intra-chunk block and the chunk scan).  x
+    (Bt, L, H, P); dt (Bt, L, H); a (H,); b/c (Bt, L, N); init_state
+    (Bt, H, P, N) or None.  Returns (y (Bt, L, H, P), final state (Bt, H,
+    P, N) f32) -- ``ssd_chunked``'s result."""
+    return SS.ssd_scan(x, dt, a, b, c, chunk, init_state)

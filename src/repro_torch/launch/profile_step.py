@@ -1,17 +1,21 @@
 """Where a serving step's time goes: ``torch.profiler`` over the port's
-cache-hit step and its resync.
+cache-hit step, its resync and an admission.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_step \\
       --arch tconst-41m --batch 4 --prompt-len 1024 --steps 20
 
-It takes ``serve``'s flags (``--layout``, ``--page-size``, ... with the
-full pool) and ``--mode tlin`` for the TLinFormer baseline on the same
-weights, whose hit step also reads the O(N) history KV (K3 on the paged
-layouts).
+It takes ``serve``'s flags (``--arch``, ``--layout``, ``--page-size``, ...
+with the full pool) and ``--mode tlin`` for the TLinFormer baseline on
+the same weights, whose hit step also reads the O(N) history KV (K3 on
+the paged layouts).  ``--arch mamba2_130m`` profiles the SSM family: its
+step and its admission (K4 at chunk ``min(64, prompt_len)`` halved until
+it divides the prompt); it has no resync.
 
 Prefills a uniform batch, warms up, then profiles ``--steps`` cache-hit
-steps (one batched token each, ended by ``cuda.synchronize``) and one
-resync of every row.  For each it prints the host wall time per call, the
+steps (one batched token each, ended by ``cuda.synchronize``), one
+resync of every row (families with a periodic resync) and 3 admissions
+of one ``--prompt-len`` prompt into slot 0 (``prefill_into_slot``).  For
+each it prints the host wall time per call, the
 summed device-kernel time per call, the device busy share (kernel time
 over wall time; kernels run on one stream, so they do not overlap) and
 the kernels that take the most device time.  ``--out`` writes the numbers
@@ -29,6 +33,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.launch import serve
+from repro_torch.models.api import TConstDecode
 from repro_torch.serving.engine import Engine, device_sync
 
 
@@ -80,11 +85,13 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--top", type=int, default=8)
     ap.add_argument("--out", default="")
-    ap.add_argument("--mode", default="tconst", choices=["tconst", "tlin"],
-                    help="attention mode of the config (tlin: the "
-                         "TLinFormer baseline on the same weights)")
+    ap.add_argument("--mode", default="", choices=["", "tconst", "tlin"],
+                    help="attention mode of a TConst config (default: the "
+                         "config's; tlin: the TLinFormer baseline on the "
+                         "same weights)")
     args = serve.parse_args(argv, ap)
-    cfg, api, params = serve.load(args, attention_mode=args.mode)
+    cfg, api, params = serve.load(
+        args, **({"attention_mode": args.mode} if args.mode else {}))
     eng = Engine(api, params, max_len=args.prompt_len + args.steps + 64,
                  layout=serve.layout_spec(args, full_pool=True))
     dec, params, dev = eng.decode, eng.params, eng.device
@@ -99,7 +106,9 @@ def main(argv=None) -> int:
         logits, _ = dec.raw_step(params, state, token)
         token.copy_(logits.argmax(dim=-1).to(torch.int32))
 
-    hist0 = state.bookkeeping["hist_len"].clone()
+    resyncs = isinstance(dec, TConstDecode)     # a periodic resync
+    if resyncs:
+        hist0 = state.bookkeeping["hist_len"].clone()
 
     def miss():
         # the fold of a full window onto the prefilled history: the same
@@ -109,17 +118,26 @@ def main(argv=None) -> int:
         state.bookkeeping["hist_len"].copy_(hist0)
         dec.sync_rows(params, state, rows)
 
-    miss()                                   # warm up (kernel build, ...)
+    def admit():
+        dec.prefill_into_slot(params, state, 0, prompts[0])
+
+    if resyncs:
+        miss()                               # warm up (kernel build, ...)
+    admit()
     for _ in range(3):
         hit()
     report = {"arch": cfg.name, "mode": cfg.attention_mode,
               "layout": args.layout, "dtype": cfg.dtype, "device": str(dev),
               "kind": torch.cuda.get_device_name(dev)
               if dev.type == "cuda" else "cpu", "batch": args.batch,
-              "max_len": eng.max_len,
-              "hit": profile_calls(hit, args.steps, dev, args.top),
-              "resync": profile_calls(miss, 3, dev, args.top)}
-    for what in ("hit", "resync"):
+              "prompt_len": args.prompt_len, "max_len": eng.max_len,
+              "hit": profile_calls(hit, args.steps, dev, args.top)}
+    if resyncs:
+        report["resync"] = profile_calls(miss, 3, dev, args.top)
+    report["admit"] = profile_calls(admit, 3, dev, args.top)
+    for what in ("hit", "resync", "admit"):
+        if what not in report:
+            continue
         r = report[what]
         line = f"[profile] {what}: wall {r['wall_ms']:.3f} ms/call"
         if "device_ms" in r:

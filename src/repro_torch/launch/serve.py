@@ -2,8 +2,8 @@
 session-based streaming (SlotScheduler) with continuous batching.
 
 Runs on ``cuda`` unless ``--device cpu`` is given (no GPU and no
-``--device cpu``: it raises).  On CUDA every attention runs on the
-hand-written kernels; on the CPU on their plain versions.
+``--device cpu``: it raises).  On CUDA every attention and SSD scan runs
+on the hand-written kernels; on the CPU on their plain versions.
 
 Uniform batch (prints the mean cache-hit step and resync times)::
 
@@ -17,12 +17,20 @@ layout)::
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tconst-41m \\
       --reduced --sessions 3 --slots 2 --gen 24 --device cpu
 
+``--arch mamba2_130m`` serves the SSM family (K4 at admission, the O(1)
+recurrent step after it; no resync)::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_130m \\
+      --reduced --sessions 3 --slots 2 --gen 24 --device cpu
+
 ``--layout dense|int8|paged|paged_int8`` picks the cache layout
 (``--page-size``, ``--pool-pages``: a pool below ``slots x pages_per_slot``
-needs ``--sessions``, whose scheduler allocates pages).  The configs of
-the registry run in tconst mode, whose O(1) cache has nothing to page;
-the paged layouts page TLinFormer's history KV (``attention_mode="tlin"``,
-built by the caller of :func:`load`).
+needs ``--sessions``, whose scheduler allocates pages).  The tconst
+configs of the registry run in tconst mode, whose O(1) cache has nothing
+to page; the paged layouts page TLinFormer's history KV
+(``attention_mode="tlin"``, built by the caller of :func:`load`).  The SSM
+state has no length axis and is never quantized: every layout holds it
+dense, as in the JAX package.
 
 Flags of features not ported yet are kept and refused with the ROADMAP
 item that ports them.
@@ -233,6 +241,8 @@ def run_batch(cfg, api, params, args) -> Dict[str, Any]:
     t0 = time.time()
     out = eng.generate(batch, args.gen, record_stats=True)
     dt = time.time() - t0
+    prefill_ms = 1e3 * next(s.seconds for s in eng.stats
+                            if s.kind == "prefill")
     hits = [s.seconds for s in eng.stats if s.kind == "hit" and
             not s.compiled]
     misses = [s.seconds for s in eng.stats if s.kind == "miss" and
@@ -241,6 +251,7 @@ def run_batch(cfg, api, params, args) -> Dict[str, Any]:
           f"layout={args.layout} device={eng.device} dtype={cfg.dtype} "
           f"generated {out.shape} in "
           f"{dt:.2f}s ({args.batch * args.gen / dt:.1f} tok/s)")
+    print(f"[serve] prefill (admission of the batch): {prefill_ms:.3f}ms")
     if hits:
         print(f"[serve] cache-hit steps: n={len(hits)} "
               f"mean={np.mean(hits) * 1e3:.3f}ms")
@@ -249,7 +260,8 @@ def run_batch(cfg, api, params, args) -> Dict[str, Any]:
               f"n={len(misses)} mean={np.mean(misses) * 1e3:.3f}ms")
     print(f"[serve] KV-cache bytes @max_len ({args.layout} layout): "
           f"{eng.cache_bytes(args.batch)}")
-    return {"rc": 0, "tokens": out, "hit_ms": 1e3 * float(np.mean(hits))
+    return {"rc": 0, "tokens": out, "prefill_ms": prefill_ms,
+            "hit_ms": 1e3 * float(np.mean(hits))
             if hits else None, "miss_ms": 1e3 * float(np.mean(misses))
             if misses else None, "n_hits": len(hits),
             "n_misses": len(misses),

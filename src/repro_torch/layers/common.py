@@ -1,15 +1,45 @@
-"""Shared building blocks: RMSNorm and per-row batch-axis helpers.
+"""Shared building blocks: the seeded dense init, parameter placement,
+RMSNorm and per-row batch-axis helpers.
 
-Port of ``src/repro/layers/common.py:60-65,99-120``.  Parameters are plain
-nested dicts of tensors, as in the JAX package.
+Port of ``src/repro/layers/common.py:28-35,60-65,99-120``.  Parameters are
+plain nested dicts of tensors, as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import math
+from typing import Any, Dict, Iterable, Optional
 
 import torch
 
 Params = Dict[str, Any]
+
+
+def dense_init(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:
+    """Truncated normal in [-2, 2] scaled by 1/sqrt(fan_in) (LeCun normal,
+    as the JAX package's ``dense_init``), float32, drawn from ``gen``."""
+    t = torch.empty(shape, dtype=torch.float32)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return t * (1.0 / math.sqrt(max(1, fan_in)))
+
+
+def to_device(params: Any, device: Optional[torch.device],
+              dtype: Optional[torch.dtype] = None,
+              keep: Iterable[str] = ("scale",)) -> Any:
+    """Map a nested dict/list of tensors onto ``device`` (and, when
+    ``dtype`` is given, cast every tensor to it but those under a key in
+    ``keep``, which stay float32 as the layers read them: the norm
+    scales by default)."""
+    keep = frozenset(keep)
+
+    def go(x, key=""):
+        if isinstance(x, dict):
+            return {k: go(v, k) for k, v in x.items()}
+        if isinstance(x, list):
+            return [go(v, key) for v in x]
+        if dtype is not None and key not in keep:
+            x = x.to(dtype)
+        return x if device is None else x.to(device)
+    return go(params)
 
 
 def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5

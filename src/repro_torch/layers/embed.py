@@ -1,13 +1,26 @@
-"""Token embedding and the tied output head.
+"""Token embedding and the (tied or separate) output head.
 
-Port of ``src/repro/layers/embed.py:35-55``: the head multiplies in the
+Port of ``src/repro/layers/embed.py:19-55``: the head multiplies in the
 activation dtype, then returns float32 logits (optional tanh softcap).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.layers.common import Params
+from repro_torch.config import ModelConfig
+from repro_torch.layers.common import Params, dense_init
+
+
+def init_embed(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    """``tok`` (V, d) ~ N(0, 0.02^2), then, for untied embeddings, the
+    head (d, V) from :func:`dense_init` -- drawn from ``gen`` in that
+    order (the port's own init; no frontend is ported)."""
+    params = {"tok": torch.randn((cfg.vocab_size, cfg.d_model),
+                                 generator=gen) * 0.02}
+    if not cfg.tie_embeddings:
+        params["head"] = dense_init((cfg.d_model, cfg.vocab_size),
+                                    cfg.d_model, gen)
+    return params
 
 
 def embed_tokens(params: Params, tokens: torch.Tensor,

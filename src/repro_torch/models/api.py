@@ -1,10 +1,12 @@
-"""Model facade and the decode-side serving protocol (the TConst family).
+"""Model facade and the decode-side serving protocol.
 
 Port of ``src/repro/models/api.py`` for the TConst family (tconst and
-tlin modes): the typed :class:`DecodeState` (explicit kv / bookkeeping
-partition, a pluggable physical layout from
-:mod:`repro_torch.models.layouts`, slot surgery through the layout),
-per-slot sampling, :func:`decode_chunk`, :class:`TConstDecode`,
+tlin modes) and the SSM family of the decoder-only LM: the typed
+:class:`DecodeState` (explicit kv / bookkeeping partition, a pluggable
+physical layout from :mod:`repro_torch.models.layouts`, slot surgery
+through the layout), per-slot sampling, the :class:`DecodeAPI` protocol,
+:func:`decode_chunk`, :class:`TConstDecode`, :class:`DenseDecode` (the
+SSM family: an O(1) recurrent state and no periodic resync),
 ``build_decode`` and ``build_model``.  The hit step reads the cache
 through KVViews (``DecodeState.decode_views``); ``merged`` (the dense
 logical dict) is the oracle and the admission path's currency.
@@ -19,7 +21,7 @@ every entry bit-identical because their writes are masked.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Protocol, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,8 +29,10 @@ import torch
 from repro_torch import runtime
 from repro_torch.config import ModelConfig
 from repro_torch.core import tconst as TC
-from repro_torch.layers.common import put_rows, take_rows, where_rows
+from repro_torch.layers.common import (put_rows, take_rows, to_device,
+                                       where_rows)
 from repro_torch.models import layouts as LT
+from repro_torch.models import lm as LM
 
 
 def _is_tconst(cfg: ModelConfig) -> bool:
@@ -179,7 +183,42 @@ def sample_tokens(logits: torch.Tensor, temperature: np.ndarray,
     return out
 
 
-def decode_chunk(decode: "TConstDecode", params: Any, state: DecodeState,
+class DecodeAPI(Protocol):
+    """The serving protocol the scheduler and the engine drive (the JAX
+    package's ``DecodeAPI``, eager): :class:`TConstDecode` and
+    :class:`DenseDecode` implement it."""
+
+    cfg: ModelConfig
+    device: torch.device
+    layout: LT.LayoutSpec
+
+    def prepare_params(self, params: Any) -> Any: ...
+
+    def init_state(self, slots: int, max_len: int) -> DecodeState: ...
+
+    def prefill(self, params, batch: Dict[str, Any], max_len: int
+                ) -> Tuple[torch.Tensor, DecodeState]: ...
+
+    def prefill_into_slot(self, params, state: DecodeState, slot: int,
+                          tokens: Any) -> Tuple[torch.Tensor,
+                                                DecodeState]: ...
+
+    def raw_step(self, params, state: DecodeState, token: torch.Tensor,
+                 live: Optional[torch.Tensor] = None,
+                 active: Optional[np.ndarray] = None
+                 ) -> Tuple[torch.Tensor, DecodeState]: ...
+
+    def sync_candidates(self, state: DecodeState,
+                        active: Optional[np.ndarray] = None
+                        ) -> np.ndarray: ...
+
+    def sync_rows(self, params, state: DecodeState, rows: np.ndarray
+                  ) -> DecodeState: ...
+
+    def refresh_host(self, state: DecodeState) -> None: ...
+
+
+def decode_chunk(decode: DecodeAPI, params: Any, state: DecodeState,
                  token: torch.Tensor,
                  generators: Sequence[Optional[torch.Generator]],
                  temperature: np.ndarray, active: np.ndarray, n_steps: int,
@@ -218,11 +257,9 @@ def decode_chunk(decode: "TConstDecode", params: Any, state: DecodeState,
         toks.append(nxt)
         token = nxt
     if eos_t is not None:
-        # EOS-frozen rows stop advancing on device: one read per chunk
-        # re-aligns the host mirror (a copy: on the CPU, .numpy() would
-        # alias the device tensor)
-        state.host["gen_len"] = \
-            state.bookkeeping["gen_len"].cpu().numpy().astype(np.int64)
+        # EOS-frozen rows stop advancing on device: the decode re-aligns
+        # its host mirrors (one read per chunk)
+        decode.refresh_host(state)
     out = torch.stack(toks, dim=1) if toks else \
         torch.zeros((token.shape[0], 0), dtype=torch.int32, device=dev)
     return out, state, resyncs
@@ -264,7 +301,7 @@ class TConstDecode:
     def prepare_params(self, params: Any) -> Any:
         """Weights on this decode's device, matrices cast once to the
         activation dtype (what every layer would cast them to per call)."""
-        return TC.to_device(params, self.device, self.dtype)
+        return to_device(params, self.device, self.dtype)
 
     def bind(self, slots: int, max_len: int) -> Any:
         """The bound layout of a ``slots`` x ``max_len`` state."""
@@ -392,19 +429,124 @@ class TConstDecode:
         state.host["gen_len"][idx_np] = 0
         return state
 
+    def refresh_host(self, state: DecodeState) -> None:
+        """Re-align the host mirror of ``gen_len`` with the device after
+        EOS froze rows (a copy: on the CPU, .numpy() would alias the
+        device tensor)."""
+        state.host["gen_len"] = \
+            state.bookkeeping["gen_len"].cpu().numpy().astype(np.int64)
+
+
+# ---------------------------------------------------------------------------
+# DenseDecode: the decoder-only LM family (so far: SSM)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseDecode:
+    """Decoder-only LM family, served through the same protocol.  Ported
+    so far: the SSM family (mamba2), whose cache is an O(1) recurrent
+    state (``ssm`` / ``conv`` per layer) with no periodic sync.  The state
+    has no length axis and is never quantized, so every layout holds it
+    dense (the paged and int8 layouts bind, and page or quantize
+    nothing).  ``raw_step`` updates the state IN PLACE; rows that are not
+    ``live`` keep it bit-identical."""
+
+    cfg: ModelConfig
+    device: torch.device
+    layout: LT.LayoutSpec = LT.DENSE_SPEC
+
+    def __post_init__(self):
+        LM.check_family(self.cfg)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return getattr(torch, self.cfg.dtype)
+
+    def prepare_params(self, params: Any) -> Any:
+        return LM.prepare_params(params, self.device, self.dtype)
+
+    def bind(self, slots: int, max_len: int) -> Any:
+        return LT.bind_layout(self.layout, slots=slots, max_len=max_len,
+                              length_axes=LM.LENGTH_AXES,
+                              quant_fields=LM.QUANT_FIELDS,
+                              dtype=self.cfg.dtype)
+
+    def _wrap(self, cache: Dict[str, torch.Tensor], layout: Any = None
+              ) -> DecodeState:
+        return DecodeState.from_dense(cache, LM.KV_KEYS,
+                                      LM.CACHE_BATCH_AXES, layout)
+
+    def init_state(self, slots: int, max_len: int) -> DecodeState:
+        cache = LM.init_kv_cache(self.cfg, slots, max_len,
+                                 device=self.device)
+        return self._wrap(cache, self.bind(slots, max_len))
+
+    def _tokens(self, tokens: Any) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(tokens),
+                               device=self.device).to(torch.int32)
+
+    def prefill(self, params, batch: Dict[str, Any], max_len: int
+                ) -> Tuple[torch.Tensor, DecodeState]:
+        """Full-batch prefill (same-length prompts) into this decode's
+        layout."""
+        logits, cache = LM.lm_prefill(params, self._tokens(batch["tokens"]),
+                                      self.cfg, max_len)
+        B = cache["done"].shape[0]
+        return logits, self._wrap(cache, self.bind(B, max_len))
+
+    def prefill_into_slot(self, params, state: DecodeState, slot: int,
+                          tokens: Any) -> Tuple[torch.Tensor, DecodeState]:
+        """Admit one request: prefill prompt ``tokens`` (L,) as a batch-1
+        row and write it into ``slot`` through the state's layout (in
+        place).  Returns (logits (V,), state)."""
+        toks = self._tokens(tokens).reshape(1, -1)
+        # pure SSM: the state has no positional buffer, so no max_len
+        logits, cache = LM.lm_prefill(params, toks, self.cfg, toks.shape[1])
+        return logits[0], state.with_slot(slot, self._wrap(cache))
+
+    def raw_step(self, params, state: DecodeState, token: torch.Tensor,
+                 live: Optional[torch.Tensor] = None,
+                 active: Optional[np.ndarray] = None
+                 ) -> Tuple[torch.Tensor, DecodeState]:
+        """One decode step over the state's KVViews, IN PLACE.  ``live``
+        (B,) device bool masks the writes; ``active`` is not needed (no
+        host mirror)."""
+        logits, views = LM.lm_decode_step_views(
+            params, state.decode_views(), token, self.cfg, live=live)
+        return logits, state.absorb(views)
+
+    def sync_candidates(self, state: DecodeState,
+                        active: Optional[np.ndarray] = None) -> np.ndarray:
+        """No periodic sync: no row is ever a candidate."""
+        return np.zeros((state.bookkeeping["done"].shape[0],), bool)
+
+    def sync_rows(self, params, state: DecodeState, rows: np.ndarray
+                  ) -> DecodeState:
+        return state
+
+    def refresh_host(self, state: DecodeState) -> None:
+        """No host mirror to re-align."""
+
+    def supports_speculative(self) -> bool:
+        """False for SSM (speculative decoding itself is ROADMAP Queue 1
+        item 8): the recurrent ssm/conv state advances through verified-
+        but-rejected tokens and cannot be rolled back by a length
+        decrement."""
+        return self.cfg.arch_type != "ssm" and not self.cfg.hybrid_parallel
+
 
 def build_decode(cfg: ModelConfig, layout: Any = None,
-                 device: Any = None) -> TConstDecode:
+                 device: Any = None) -> DecodeAPI:
     """The decode protocol for ``cfg`` on ``device`` (default ``cuda``)
     with cache layout ``layout`` ("dense" | "paged" | "int8" |
-    "paged_int8" | LayoutSpec | None).  The TConst family (tconst and
-    tlin modes) is ported."""
+    "paged_int8" | LayoutSpec | None).  Ported: the TConst family
+    (tconst and tlin modes) and the SSM family."""
     spec = LT.as_spec(layout)
-    if not _is_tconst(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: only the TConst family is ported (the dense-LM "
-            f"and enc-dec families are ROADMAP Queue 1 items 7 and 9)")
-    return TConstDecode(cfg, runtime.resolve_device(device), spec)
+    if _is_tconst(cfg):
+        return TConstDecode(cfg, runtime.resolve_device(device), spec)
+    # DenseDecode raises for the families not ported yet
+    return DenseDecode(cfg, runtime.resolve_device(device), spec)
 
 
 @dataclasses.dataclass
@@ -415,10 +557,12 @@ class ModelAPI:
     device: torch.device
 
     def init(self, seed: int = 0) -> Any:
-        return TC.init_tconst_lm(self.cfg, seed, self.device)
+        if _is_tconst(self.cfg):
+            return TC.init_tconst_lm(self.cfg, seed, self.device)
+        return LM.init_lm(self.cfg, seed, self.device)
 
     @property
-    def decode(self) -> TConstDecode:
+    def decode(self) -> DecodeAPI:
         """The dense-layout decode (``build_decode`` takes a layout)."""
         return build_decode(self.cfg, device=self.device)
 

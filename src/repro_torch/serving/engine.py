@@ -6,7 +6,8 @@ False)`` runs the eager chunked path (:func:`repro_torch.models.api.
 decode_chunk`); ``record_stats=True`` the instrumented path that times
 each cache hit and each resync (miss) separately -- the amortized O(1)
 schedule of paper §4 (``W_og - 1`` constant-time hits, then one
-linear-time miss) for the Fig 8 latency split.  On CUDA every timed
+linear-time miss) for the Fig 8 latency split; a family without a
+periodic sync (SSM) records hit steps only.  On CUDA every timed
 entry ends in ``torch.cuda.synchronize``.  ``layout`` picks the cache
 layout (``repro_torch.models.layouts``); a uniform batch is prefilled in
 one piece, so a paged layout needs its full pool.

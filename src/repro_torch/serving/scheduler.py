@@ -8,10 +8,13 @@ The scheduler owns one fixed-shape multi-slot ``DecodeState`` and admits
   session's prompt is prefilled as a batch-1 row and written into the
   slot; running slots are untouched.
 * **decode** -- all slots advance together in chunks of ``chunk_size``
-  tokens (:func:`~repro_torch.models.api.decode_chunk`).  The TConst
-  resync of a slot whose window is full runs inside the chunk on exactly
-  the rows that need it, decided from the host mirror of ``gen_len``; the
-  sampled ids come to the host once per chunk.
+  tokens (:func:`~repro_torch.models.api.decode_chunk`), through any
+  decode of the :class:`~repro_torch.models.api.DecodeAPI` protocol.  The
+  TConst resync of a slot whose window is full runs inside the chunk on
+  exactly the rows that need it, decided from the host mirror of
+  ``gen_len`` (a family without a periodic sync, the SSM one, never
+  resyncs: ``resyncs`` stays 0); the sampled ids come to the host once
+  per chunk.
 * **retire** -- a session that exhausts its budget or hits EOS frees its
   slot at the chunk boundary (the slot is cleared, so a stale counter
   can never fire a resync of an empty row).
@@ -42,18 +45,18 @@ import numpy as np
 import torch
 
 from repro_torch.models import layouts as LT
-from repro_torch.models.api import TConstDecode, decode_chunk, sample_tokens
+from repro_torch.models.api import (DecodeAPI, ModelAPI, decode_chunk,
+                                    sample_tokens)
 from repro_torch.serving.engine import StepStats, device_sync, tag_compiled
 from repro_torch.serving.session import Session
 
 
 class SlotScheduler:
-    def __init__(self, decode: TConstDecode, params: Any, slots: int,
+    def __init__(self, decode: DecodeAPI, params: Any, slots: int,
                  max_len: int, chunk_size: int = 8, seed: int = 0,
                  max_head_skips: Optional[int] = None):
-        # accept a ModelAPI facade too (duck-typed .decode)
-        if not isinstance(decode, TConstDecode) and hasattr(decode,
-                                                            "decode"):
+        # accept a ModelAPI facade too (its dense-layout decode)
+        if isinstance(decode, ModelAPI):
             decode = decode.decode
         if slots < 1:
             raise ValueError("scheduler needs at least one decode slot")
@@ -75,8 +78,8 @@ class SlotScheduler:
 
         # paged layout: the scheduler owns page assignment.  Start from an
         # all-TRASH table with every pool page free.  Only when the cache
-        # HAS paged fields: pure tconst stores nothing in pages, and its
-        # admission must not gate on the pool.
+        # HAS paged fields: pure tconst and the SSM state store nothing in
+        # pages, and their admission must not gate on the pool.
         self._paged = isinstance(self.layout, LT.PagedLayout) and \
             self.layout.pages_anything(self.state.kv)
         self.free_pages: List[int] = []

@@ -59,11 +59,12 @@ def reduced41():
 
 
 def test_config_copy_matches_jax():
-    j = JC.get_config("tconst-41m")
-    p = PC.get_config("tconst-41m")
-    assert port_cfg(j) == p
-    assert port_cfg(JC.reduced(j)) == PC.reduced(p)
-    assert PC.list_archs() == ["tconst_41m"]
+    for arch in ("tconst-41m", "mamba2_130m"):
+        j = JC.get_config(arch)
+        p = PC.get_config(arch)
+        assert port_cfg(j) == p
+        assert port_cfg(JC.reduced(j)) == PC.reduced(p)
+    assert PC.list_archs() == ["mamba2_130m", "tconst_41m"]
 
 
 def test_norm_rope_mlp_embed_match_jax():

@@ -9,6 +9,7 @@ puts ``tests/`` on ``sys.path``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import jax
 import numpy as np
@@ -16,6 +17,7 @@ import torch
 
 from repro import config as JC
 from repro.core import tconst as JT
+from repro.models import lm as JLM
 from repro_torch import bridge
 from repro_torch import config as PC
 from repro_torch.models.api import build_decode
@@ -49,6 +51,21 @@ def build_pair(jcfg, seed=0):
     """(JAX params, the port's params bridged from them)."""
     jparams = JT.init_tconst_lm(jax.random.PRNGKey(seed), jcfg)
     return jparams, bridge.params_from_jax(jax_to_numpy(jparams))
+
+
+@functools.lru_cache(maxsize=None)
+def ssm_pair(tiny: bool = False):
+    """(JAX cfg, JAX params, the port's cfg, its params bridged from
+    them) for the SSM family in f32: ``reduced(mamba2_130m)`` or, with
+    ``tiny``, a smaller config (d 32, 4 heads of 8, state 8, chunk 4).
+    Built once per process."""
+    jcfg = JC.reduced(JC.get_config("mamba2_130m"), dtype="float32")
+    if tiny:
+        jcfg = jcfg.replace(name="tiny-ssm", d_model=32, ssm_head_dim=8,
+                            ssm_state=8, ssm_chunk=4, vocab_size=61)
+    jparams = JLM.init_lm(jax.random.PRNGKey(0), jcfg)
+    params = bridge.lm_params_from_jax(jax_to_numpy(jparams))
+    return jcfg, jparams, port_cfg(jcfg), params
 
 
 def t(a):
