@@ -9,7 +9,8 @@ Phases (any failure raises, so the exit code is non-zero):
    power limit as ``nvidia-smi`` reports them.
 2. Build: compiles every kernel source from ``src/repro_torch/csrc/*.cu``
    with ``nvcc`` for ``sm_90a`` (one process per source, in parallel) and
-   times it.
+   times it; ``cuobjdump -sass`` must show tensor-core instructions (HMMA
+   or HGMMA) in every bf16 entry of the flash_attention library.
 3. Kernels: each kernel against its plain PyTorch version on the same
    CUDA tensors, in bf16 and f32, at the shapes ``tconst-41m`` serving
    gives it.  K1 (decode): the step's self and cross attention with full,
@@ -18,10 +19,13 @@ Phases (any failure raises, so the exit code is non-zero):
    raises its shared-memory limit).  K1-int8: int8 K/V with per-vector
    scales at the gen-self, ctx-cross and hist-cross shapes.  K2 (flash):
    the resync's compress / context self / restore and the admission's
-   window passes, with dead keys and negative query positions.  K3 (paged
-   decode) and K3-int8: the history over a page pool of 64-token pages,
-   ragged valid lengths (0, a partial last page), window 0 and 256, trash
-   entries in the table.  K4 (the SSD chunk kernels, f32 only: their
+   window passes, with dead keys and negative query positions, a compress
+   over a 16384-slot history (histories 12000 and 300: most key tiles
+   dead) and a window pass of Lq 93 (no multiple of a query tile).  K3
+   (paged decode) and K3-int8: the history over a page pool of 64-token
+   pages, ragged valid lengths (0, a partial last page), window 0 and 256,
+   trash entries in the table, and a row of 16000 slots (250 pages, many
+   splits) beside an empty row.  K4 (the SSD chunk kernels, f32 only: their
    inputs are f32 on every path): the intra-chunk block and the chunk scan
    at the shapes ``mamba2-130m`` admission gives them -- chunk Q = 64
    (batch 4, 1024 tokens), 8, 2 and 1 (one prompt of 600, 610, 605
@@ -29,7 +33,8 @@ Phases (any failure raises, so the exit code is non-zero):
    the plain version's and ``F.scaled_dot_product_attention``'s times (a
    yardstick only, with the gather or dequantisation it needs; the port
    never calls it; no one PyTorch call computes K4) and the least time
-   the card could take.
+   the card could take.  Then the device launches one call of K2, K3 and
+   K3-int8 makes (torch.profiler).
 4. Serve ``tconst-41m`` at full width with the port's seeded init
    (``--sessions 4 --prompt-len 600 --gen 320 --chunk 32``), each run's
    launch counters reset before the scheduler and read right after it:
@@ -58,6 +63,7 @@ meaningful next to the card name and power limit printed with it.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -230,27 +236,40 @@ def k1_int8_cases(torch, cfg, dev, max_len: int):
 
 
 def k3_cases(max_len: int):
-    """(label, valid_len per slot, window): the paged history of 3 slots
-    at max_len, pages of 64: an empty row, a partial last page, a long
-    row; window 0 (tlin) and 256."""
-    return [("hist_ragged", [0, 613, min(960, max_len)], 0),
-            ("hist_window", [0, 613, min(960, max_len)], 256)]
+    """(label, valid_len per slot, window, row capacity in slots): the
+    paged history of 3 slots at max_len, pages of 64: an empty row, a
+    partial last page, a long row; window 0 (tlin) and 256.  Then a row of
+    16000 slots (250 pages: many splits) beside an empty row."""
+    return [("hist_ragged", [0, 613, min(960, max_len)], 0, max_len),
+            ("hist_window", [0, 613, min(960, max_len)], 256, max_len),
+            ("hist_long", [16000, 0], 0, 16000),
+            ("hist_long_window", [16000, 0], 256, 16000)]
 
 
 def k2_cases(torch, cfg, dev, max_len: int):
     """(label, q_pos, k_pos, causal) at the resync / admission shapes."""
     from repro_torch.kernels.flash_attention import INVALID_POS
     W = cfg.tconst.w_oh
-    hist_len = torch.tensor([512, 100], dtype=torch.int32, device=dev)
-    pos = torch.arange(max_len, dtype=torch.int32, device=dev)[None]
-    pos = pos.expand(2, max_len)
-    hist_kp = torch.where(pos < hist_len[:, None], pos,
-                          torch.full_like(pos, INVALID_POS))
-    tail = hist_len[:, None] - W + torch.arange(W, dtype=torch.int32,
-                                                device=dev)[None]
+
+    def history(lens, n):
+        """Key positions of a history buffer of n slots holding lens[b]
+        tokens (the rest dead), and the compress queries' tail positions
+        (negative for a short history)."""
+        hist_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        pos = torch.arange(n, dtype=torch.int32, device=dev)[None]
+        pos = pos.expand(len(lens), n)
+        kp = torch.where(pos < hist_len[:, None], pos,
+                         torch.full_like(pos, INVALID_POS))
+        tail = hist_len[:, None] - W + torch.arange(W, dtype=torch.int32,
+                                                    device=dev)[None]
+        return pos, kp, tail
+
+    pos, hist_kp, tail = history([512, 100], max_len)
     tail_kp = torch.where(tail >= 0, tail, torch.full_like(tail, INVALID_POS))
+    _, long_kp, long_tail = history([12000, 300], 16384)
     g0 = 88
     gen = 512 + torch.arange(g0, dtype=torch.int32, device=dev)[None]
+    gen93 = 512 + torch.arange(93, dtype=torch.int32, device=dev)[None]
     ctx_kp = torch.zeros((1, W), dtype=torch.int32, device=dev)
     return [
         # resync of two rows (one with a short history: negative tail
@@ -261,6 +280,11 @@ def k2_cases(torch, cfg, dev, max_len: int):
         # admission window pass of a 600-token prompt (g0 = 88)
         ("window_self", gen, gen, True),
         ("window_cross", gen, ctx_kp, False),
+        # a compress over a long history buffer (histories 12000 and 300
+        # of 16384 slots: most key tiles dead)
+        ("compress_long", long_tail, long_kp, True),
+        # a 605-token prompt's window pass: Lq 93, no multiple of a tile
+        ("window_self_93", gen93, gen93, True),
     ]
 
 
@@ -425,10 +449,145 @@ def ssd_phase(torch, rows, dev, gen):
         torch.cuda.empty_cache()
 
 
-def kernel_phase(torch, cfg, dev, max_len: int):
-    from repro_torch.kernels import decode_attention as DA
+def k3_rows(torch, rows, cfg, dev, randn, gen, dname: str, max_len: int):
+    """K3 and K3-int8 (pages of 64) against their plain versions."""
+    from repro_torch.kernels import paged_decode_attention as PD
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    dt = getattr(torch, dname)
+    page = 64
+    for quant in (False, True):
+        for label, vlist, window, cap in k3_cases(max_len):
+            B, pps = len(vlist), -(-cap // page)
+            pk, pv, ks, vs, pt, vl = paged_pool(
+                torch, randn, gen, B, KV, D, page, pps, vlist,
+                None if quant else dt, dev)
+            q = randn((B, H, D), dt)
+            lo, hi = PD.attended_range(vl, window, pps * page)
+            n = int((hi - lo).sum())
+            per_slot = KV * (D + 4) if quant else KV * D * pk.element_size()
+            pages_read = sum(-(-int(h) // page) - int(lv) // page
+                             for lv, h in zip(lo, hi) if h > lv)
+            args = (q, pk, pv, pt, vl, 0.0, window, ks, vs)
+            out = PD.paged_decode_attention_cuda(*args)
+            kernel_row(
+                rows, K3_INT8 if quant else K3, label, dname,
+                f"B={B} H={H} KV={KV} D={D} page={page} pps={pps}"
+                f"{' int8' if quant else ''} window={window}", out,
+                PD.paged_decode_attention_plain(*args),
+                lambda: PD.paged_decode_attention_cuda(*args),
+                lambda: PD.paged_decode_attention_plain(*args),
+                sdpa_k3(torch, q, pk, pv, pt, lo, hi, ks, vs),
+                nbytes(q, vl, out) + 4 * pages_read + 2 * n * per_slot,
+                4 * H * D * n)
+            del pk, pv, ks, vs, args, out
+            torch.cuda.empty_cache()
+
+
+def k2_rows(torch, rows, cfg, dev, randn, dname: str, max_len: int):
+    """K2 against its plain version at the resync / admission shapes."""
+    from repro_torch.kernels import flash_attention as FA
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    dt = getattr(torch, dname)
+    for label, qp, kp, causal in k2_cases(torch, cfg, dev, max_len):
+        B, Lq, Lk = qp.shape[0], qp.shape[1], kp.shape[1]
+        if kp.shape[0] != B:
+            kp = kp.expand(B, Lk).contiguous()
+        q = randn((B, Lq, H, D), dt)
+        k = randn((B, Lk, KV, D), dt)
+        v = randn((B, Lk, KV, D), dt)
+        mask = FA.position_mask(qp, kp, causal, 0)
+        pairs = int(mask.sum())
+        # K/V bytes only of the keys some query attends (dead keys and
+        # keys past every query's position need not be read)
+        keys = int(mask.any(dim=1).sum())
+        used = keys * KV * D * k.element_size()
+        out = FA.flash_attention_cuda(q, k, v, qp, kp, causal)
+        kernel_row(rows, K2, label, dname,
+                   f"B={B} Lq={Lq} Lk={Lk} H={H} KV={KV} D={D}", out,
+                   FA.flash_attention_plain(q, k, v, qp, kp, causal),
+                   lambda: FA.flash_attention_cuda(q, k, v, qp, kp, causal),
+                   lambda: FA.flash_attention_plain(q, k, v, qp, kp,
+                                                    causal),
+                   sdpa_k2(torch, q, k, v, mask),
+                   nbytes(q, qp, kp, out) + 2 * used, 4 * H * D * pairs,
+                   plain_reps=5 if Lk > 4096 else 20)
+        del q, k, v, mask, out
+        torch.cuda.empty_cache()
+
+
+def sass_check(_build) -> dict:
+    """Tensor-core instructions in the SASS of the built flash_attention
+    library: every bf16 entry (``flash_bf16_kernel<DP>``) must hold HMMA
+    or HGMMA instructions.  Returns {function: count}."""
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    res = subprocess.run([str(tool), "-sass",
+                          str(_build.target("flash_attention"))],
+                         capture_output=True, text=True, timeout=120)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr.strip()}")
+    counts, fn = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[fn] += 1
+    bf16 = {}
+    for f, n in counts.items():
+        m = re.search(r"flash_bf16_kernelILi(\d+)E", f)
+        if m:
+            bf16[f"flash_bf16_kernel<{m.group(1)}>"] = n
+    check(len(bf16) > 0, "no bf16 flash entry in the library's SASS")
+    check(all(n > 0 for n in bf16.values()), f"a bf16 flash entry has no "
+          f"HMMA/HGMMA instruction: {bf16}")
+    return bf16
+
+
+def launches_per_call(torch, fn) -> int:
+    """Device kernels (and memsets / copies) one warm call of ``fn`` puts
+    on the card, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def launch_counts(torch, cfg, dev, max_len: int) -> dict:
+    """Launches per call of K2 and K3 (float and int8 pools) at the
+    served shapes (the compress pass; the paged history of 3 rows)."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_decode_attention as PD
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    _, qp, kp, _ = k2_cases(torch, cfg, dev, max_len)[0]
+    bf = torch.bfloat16
+    q = randn((2, qp.shape[1], H, D), bf)
+    k, v = randn((2, kp.shape[1], KV, D), bf), randn((2, kp.shape[1], KV, D),
+                                                     bf)
+    out = {K2: launches_per_call(
+        torch, lambda: FA.flash_attention_cuda(q, k, v, qp, kp, True))}
+    for name, pool in ((K3, bf), (K3_INT8, None)):
+        pk, pv, ks, vs, pt, vl = paged_pool(torch, randn, gen, 3, KV, D, 64,
+                                            -(-max_len // 64),
+                                            [0, 613, min(960, max_len)], pool,
+                                            dev)
+        qd = randn((3, H, D), bf)
+        out[name] = launches_per_call(
+            torch, lambda: PD.paged_decode_attention_cuda(
+                qd, pk, pv, pt, vl, 0.0, 0, ks, vs))
+    return out
+
+
+def kernel_phase(torch, cfg, dev, max_len: int):
+    from repro_torch.kernels import decode_attention as DA
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
@@ -473,57 +632,8 @@ def kernel_phase(torch, cfg, dev, max_len: int):
                                                   vs),
                 sdpa_k1(torch, q, k, v, lo, hi, ks, vs),
                 nbytes(q, lo, hi, out) + 2 * used, 4 * H * D * int(n.sum()))
-        page = 64
-        pps = -(-max_len // page)
-        for quant in (False, True):
-            for label, vlist, window in k3_cases(max_len):
-                B = len(vlist)
-                pk, pv, ks, vs, pt, vl = paged_pool(
-                    torch, randn, gen, B, KV, D, page, pps, vlist,
-                    None if quant else dt, dev)
-                q = randn((B, H, D), dt)
-                lo, hi = PD.attended_range(vl, window, pps * page)
-                n = int((hi - lo).sum())
-                per_slot = KV * (D + 4) if quant else \
-                    KV * D * pk.element_size()
-                pages_read = sum(-(-int(h) // page) - int(lv) // page
-                                 for lv, h in zip(lo, hi) if h > lv)
-                args = (q, pk, pv, pt, vl, 0.0, window, ks, vs)
-                out = PD.paged_decode_attention_cuda(*args)
-                kernel_row(
-                    rows, K3_INT8 if quant else K3, label, dname,
-                    f"B={B} H={H} KV={KV} D={D} page={page} pps={pps}"
-                    f"{' int8' if quant else ''} window={window}", out,
-                    PD.paged_decode_attention_plain(*args),
-                    lambda: PD.paged_decode_attention_cuda(*args),
-                    lambda: PD.paged_decode_attention_plain(*args),
-                    sdpa_k3(torch, q, pk, pv, pt, lo, hi, ks, vs),
-                    nbytes(q, vl, out) + 4 * pages_read + 2 * n * per_slot,
-                    4 * H * D * n)
-        for label, qp, kp, causal in k2_cases(torch, cfg, dev, max_len):
-            B, Lq, Lk = qp.shape[0], qp.shape[1], kp.shape[1]
-            if kp.shape[0] != B:
-                kp = kp.expand(B, Lk).contiguous()
-            q = randn((B, Lq, H, D), dt)
-            k = randn((B, Lk, KV, D), dt)
-            v = randn((B, Lk, KV, D), dt)
-            mask = FA.position_mask(qp, kp, causal, 0)
-            pairs = int(mask.sum())
-            # K/V bytes only of the keys some query attends (dead keys and
-            # keys past every query's position need not be read)
-            keys = int(mask.any(dim=1).sum())
-            used = keys * KV * D * k.element_size()
-            out = FA.flash_attention_cuda(q, k, v, qp, kp, causal)
-            kernel_row(rows, K2, label, dname,
-                       f"B={B} Lq={Lq} Lk={Lk} H={H} KV={KV} D={D}", out,
-                       FA.flash_attention_plain(q, k, v, qp, kp, causal),
-                       lambda: FA.flash_attention_cuda(q, k, v, qp, kp,
-                                                       causal),
-                       lambda: FA.flash_attention_plain(q, k, v, qp, kp,
-                                                        causal),
-                       sdpa_k2(torch, q, k, v, mask),
-                       nbytes(q, qp, kp, out) + 2 * used,
-                       4 * H * D * pairs)
+        k3_rows(torch, rows, cfg, dev, randn, gen, dname, max_len)
+        k2_rows(torch, rows, cfg, dev, randn, dname, max_len)
     ssd_phase(torch, rows, dev, gen)
     for r in rows:
         lib = "none" if r["library_ms"] is None else \
@@ -681,6 +791,9 @@ def main() -> int:
     print(f"[build] nvcc -gencode arch=compute_90a,code=sm_90a: "
           f"{ {k: round(v, 2) for k, v in built.items()} } "
           f"(wall {build_s:.2f}s)")
+    sass = sass_check(_build)
+    print(f"[sass] flash_attention bf16 entries, HMMA/HGMMA instructions: "
+          f"{sass}")
 
     from repro_torch.config import get_config
     from repro_torch.launch import serve
@@ -691,6 +804,10 @@ def main() -> int:
     # 3. kernels vs plain
     t_phase = time.time()
     rows = kernel_phase(torch, cfg41, dev, max_len)
+    per_call = launch_counts(torch, cfg41, dev, max_len)
+    print(f"[launches] device launches per call: {per_call}")
+    check(all(n == 1 for n in per_call.values()), f"K2 / K3 must take one "
+          f"device launch a call: {per_call}")
     phase_s = {"kernels": time.time() - t_phase}
 
     # 4. serve at full width: every run is a main path, counted alone
@@ -782,7 +899,8 @@ def main() -> int:
     detail = {
         "card": card, "kind": kind, "torch": torch.__version__,
         "cuda": torch.version.cuda, "build_s": built,
-        "kernel_rows": rows, "sessions": runs, "engines": engines,
+        "kernel_rows": rows, "sass_tensor_core_ops": sass,
+        "launches_per_call": per_call, "sessions": runs, "engines": engines,
         "phase_s": phase_s, "total_s": time.time() - t_start,
     }
     (OUT / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

@@ -14,31 +14,42 @@
 // being the trash page that unassigned table entries point at; page_table
 // (B, pps) int32; valid_len (B,) int32; out (B, H, D) in q's type.  Float
 // pools have q's type (f32 or bf16).  int8 pools (paged_decode_int8_fwd)
-// come with (P + 1, page, KV, 1) float32 scale pools, dequantised inside
-// the QK and PV loops (k * scale, element by element).  f32 arithmetic.
+// come with (P + 1, page, KV, 1) float32 scale pools, each code times its
+// vector's scale once as it is staged.  f32 arithmetic.
 //
-// Design: one block per (KV head, row) computes the G = H / KV query heads
-// of the group.  Where the TPU kernel gets each page id by scalar prefetch
-// and carries the online softmax across a sequential grid dimension, the
-// block here loads its own page ids from the table and loops over its
-// pages, from floor(lo / page) to ceil(valid_len / page) only (the Pallas
-// grid walks all pps pages; pages outside the range hold no attended slot,
-// so the values are the same).  Per page: warps take slots in turn, lanes
-// split the head dim (element loads: a bf16 row of head_dim 36 is 72
-// bytes, an int8 row 36, so 16-byte vector loads would be misaligned), a
-// warp shuffle sums each dot product and the page's scores go to shared
-// memory; one warp per query head updates the running max and denominator
-// (online softmax); then warps accumulate p * V into per-warp registers,
-// rescaled by exp(m_old - m_new), and a last cross-warp reduction through
-// shared memory writes the output.  Shared memory holds one page of
-// scores, so it does not grow with the context.
+// What bounds it on an H100: bytes.  A row reads (valid_len - lo) x KV x D
+// keys and values once (plus the scales) and does 4 x H x D flops per
+// slot -- a few flops per byte, far below the ~295 flop/byte ridge: the
+// bound is ~1 us at the history shape.  What held the first version back
+// was parallelism and latency, not bandwidth: one block per (KV head, row)
+// walked a whole row's pages in order (36 blocks on 132 SMs at B 3), a
+// 5-level warp shuffle summed every slot's dot product, and loads were
+// 2-byte elements.
 //
-// What bounds it on an H100: bytes.  A row reads valid_len x KV x D keys
-// and values once (plus the scales) and does 4 x H x D flops per slot --
-// a few flops per byte, far below the ~295 flop/byte ridge.  This is the
-// simple correct version: splitting the pages of a long row across blocks
-// with a combine pass (flash-decoding), vector loads and TMA are later
-// work.
+// Design (split-KV, "flash-decoding"): the grid is (KV, B, n_split).  The
+// host plans n_split from pps and page alone (paged_decode_attention.py,
+// split_plan: runs of pages_per_split pages, at most 64 runs, at least 64
+// slots a run) -- never from valid_len, which lives on the device.  Block
+// (kvh, b, s) takes pages [s * pages_per_split, (s + 1) * pages_per_split)
+// intersected with the row's floor(lo / page) .. ceil(valid_len / page); a
+// block whose run holds no attended slot writes an empty partial (l = 0)
+// and does nothing else.  Otherwise, per tile of up to 64 slots of a page:
+// the block stages the tile's K and V rows in shared memory as f32 with
+// vector loads (16, 8 or 4 bytes: a bf16 row of head_dim 36 is 72 bytes =
+// 9 x 8, an int8 row 36 = 9 x 4; the widest width that divides the row and
+// the pools' alignment), consecutive threads on consecutive words of a
+// row; each thread then computes whole (query head, slot) dot products from
+// shared memory (rows padded to D + 1 floats: no bank conflicts, no
+// shuffle); one warp per query head updates the running max and sum; the
+// threads, each owning (head, dim, slot-group) outputs, add p x V.  The
+// block's partial (m, l, acc for the G = H / KV query heads of the group)
+// goes in f32 to a workspace the wrapper allocates; the last block of a
+// (row, KV head) to finish -- an atomic ticket per (row, KV head) in a
+// small int32 buffer the wrapper zeroes once and keeps -- merges the
+// partials with the usual rescaling, writes the output and resets its
+// ticket to 0.  One launch per call.  Shared memory holds one tile (64
+// slots), so it does not grow with the page or the context, and pps has
+// no limit beyond the table's shape.
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -49,7 +60,8 @@ namespace {
 constexpr float kNegInf = -2.3819763e38f;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxG = 8;  // query heads per KV head
+constexpr int kTile = 64;      // slots staged at a time
+constexpr int kMaxSplit = 64;  // runs of pages per row (split_plan)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -78,209 +90,267 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// Stage n rows of a tile (row r at element offset (row0 + r * rstride) * D)
+// into dst[r * (D + 1) + d] as f32, times the row's scale when sc is given.
+// LT is the load unit (uint4, uint2, uint32_t or KT itself).
+template <typename KT, typename LT>
+__device__ __forceinline__ void stage_rows(float* dst, const KT* __restrict__ src,
+                                           const float* __restrict__ sc,
+                                           size_t row0, size_t rstride, int n,
+                                           int D, int tid) {
+  constexpr int kPer = sizeof(LT) / sizeof(KT);
+  const int cpr = D / kPer;  // load units per row
+  for (int i = tid; i < n * cpr; i += kThreads) {
+    const int r = i / cpr;
+    const int c = i - r * cpr;
+    const size_t row = row0 + (size_t)r * rstride;
+    const LT raw = reinterpret_cast<const LT*>(src + row * D)[c];
+    const float s = sc ? sc[row] : 1.f;
+    const KT* e = reinterpret_cast<const KT*>(&raw);
+    float* o = dst + r * (D + 1) + c * kPer;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) o[j] = to_f32(e[j]) * s;
+  }
+}
+
 // T: q / out type; KT: pool element type (T, or int8_t with scale pools
-// ks / vs; nullptr scales mean 1).  DPL: head-dim elements per lane.
-// grid (KV, B), block kThreads.  Shared memory (floats):
-//   q_s[G * D] | s_s[G * page] | red_s[kWarps * G * D] | m_s[G] | l_s[G] |
-//   a_s[G]
-template <typename T, typename KT, int DPL>
+// ks / vs; nullptr scales mean 1); LT: the load unit.  grid (KV, B,
+// n_split), block kThreads.  part: (B, KV, n_split, G, D + 2) f32 partials
+// (m, l, acc); tickets: (B * KV) int32, 0 between calls.  Dynamic shared
+// memory (floats):
+//   q_s[G * D] | k_s[kTile * (D + 1)] | v_s[kTile * (D + 1)] |
+//   s_s[G * kTile] | acc_s[SG * G * D] | m_s[G] | l_s[G] | a_s[G] |
+//   w_s[kMaxSplit * G]
+template <typename T, typename KT, typename LT>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const KT* __restrict__ pk,
-                    const KT* __restrict__ pv, const float* __restrict__ ks,
-                    const float* __restrict__ vs,
-                    const int* __restrict__ page_table,
-                    const int* __restrict__ valid_len, T* __restrict__ out,
-                    int H, int KV, int D, int page, int pps, float scale,
-                    float softcap, int window) {
+paged_split_kernel(const T* __restrict__ q, const KT* __restrict__ pk,
+                   const KT* __restrict__ pv, const float* __restrict__ ks,
+                   const float* __restrict__ vs,
+                   const int* __restrict__ page_table,
+                   const int* __restrict__ valid_len, T* __restrict__ out,
+                   float* __restrict__ part, int* __restrict__ tickets, int H,
+                   int KV, int D, int page, int pps, int pages_per_split,
+                   int n_split, float scale, float softcap, int window) {
   extern __shared__ float smem[];
+  __shared__ int last_s;
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
+  const int sp = blockIdx.z;
   const int G = H / KV;
+  const int GD = G * D;
+  const int SG = max(1, kThreads / GD);  // slot groups of the p x V sums
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   float* q_s = smem;
-  float* s_s = q_s + G * D;
-  float* red_s = s_s + G * page;
-  float* m_s = red_s + kWarps * G * D;
+  float* k_s = q_s + GD;
+  float* v_s = k_s + kTile * (D + 1);
+  float* s_s = v_s + kTile * (D + 1);
+  float* acc_s = s_s + G * kTile;
+  float* m_s = acc_s + SG * GD;
   float* l_s = m_s + G;
   float* a_s = l_s + G;
+  float* w_s = a_s + G;
 
   const int hi = max(min(valid_len[b], pps * page), 0);
   const int lo = window > 0 ? max(hi - window, 0) : 0;
-
+  const int p_begin = max(sp * pages_per_split, lo / page);
+  const int p_end = min((sp + 1) * pages_per_split, (hi + page - 1) / page);
+  const int pstride = G * (D + 2);
+  float* my_part = part + ((size_t)(b * KV + kvh) * n_split + sp) * pstride;
   const size_t q_base = ((size_t)b * H + (size_t)kvh * G) * D;
-  for (int i = tid; i < G * D; i += kThreads)
-    q_s[i] = to_f32(q[q_base + i]) * scale;
-  if (tid < G) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
-  __syncthreads();
 
-  float acc[kMaxG][DPL];
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g)
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[g][i] = 0.f;
-
-  const int* pt = page_table + (size_t)b * pps;
-  const int p0 = lo / page;
-  const int p1 = (hi + page - 1) / page;
-  for (int pj = p0; pj < p1; ++pj) {
-    const int pid = pt[pj];
-    const int t0 = max(lo - pj * page, 0);    // attended offsets [t0, t1)
-    const int t1 = min(hi - pj * page, page);
-    // (pid, 0, kvh) as a row of the ((P + 1) * page * KV) vectors
-    const size_t row0 = (size_t)pid * page * KV + kvh;
-
-    // pass 1: this page's scores
-    for (int t = t0 + warp; t < t1; t += kWarps) {
-      const size_t row = row0 + (size_t)t * KV;
-      const KT* kr = pk + row * D;
-      const float sk = ks ? ks[row] : 1.f;
-      float kd[DPL];
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + 32 * i;
-        kd[i] = d < D ? to_f32(kr[d]) * sk : 0.f;
-      }
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g < G) {
-          float s = 0.f;
-#pragma unroll
-          for (int i = 0; i < DPL; ++i) {
-            const int d = lane + 32 * i;
-            if (d < D) s += q_s[g * D + d] * kd[i];
+  if (p_begin < p_end) {
+    for (int i = tid; i < GD; i += kThreads)
+      q_s[i] = to_f32(q[q_base + i]) * scale;
+    for (int i = tid; i < SG * GD; i += kThreads) acc_s[i] = 0.f;
+    if (tid < G) {
+      m_s[tid] = kNegInf;
+      l_s[tid] = 0.f;
+    }
+    const int* pt = page_table + (size_t)b * pps;
+    for (int pj = p_begin; pj < p_end; ++pj) {
+      const int pid = pt[pj];
+      const int ta = max(lo - pj * page, 0);  // attended offsets [ta, tb)
+      const int tb = min(hi - pj * page, page);
+      for (int t0 = ta; t0 < tb; t0 += kTile) {
+        const int n = min(kTile, tb - t0);
+        // (pid, t0, kvh) as a row of the ((P + 1) * page * KV) vectors
+        const size_t row0 = ((size_t)pid * page + t0) * KV + kvh;
+        __syncthreads();  // the previous tile's k_s / v_s / s_s are done
+        stage_rows<KT, LT>(k_s, pk, ks, row0, KV, n, D, tid);
+        stage_rows<KT, LT>(v_s, pv, vs, row0, KV, n, D, tid);
+        __syncthreads();
+        // scores: each thread owns whole (head, slot) dot products
+        for (int i = tid; i < G * n; i += kThreads) {
+          const int g = i / n;
+          const int r = i - g * n;
+          const float* qg = q_s + g * D;
+          const float* kr = k_s + r * (D + 1);
+          float x = 0.f;
+          for (int d = 0; d < D; ++d) x += qg[d] * kr[d];
+          if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+          s_s[g * kTile + r] = x;
+        }
+        __syncthreads();
+        // online-softmax update, one warp per query head
+        for (int g = warp; g < G; g += kWarps) {
+          float mx = kNegInf;
+          for (int r = lane; r < n; r += 32) mx = fmaxf(mx, s_s[g * kTile + r]);
+          mx = warp_max(mx);
+          const float m_old = m_s[g];
+          const float m_new = fmaxf(m_old, mx);
+          float sum = 0.f;
+          for (int r = lane; r < n; r += 32) {
+            const float e = expf(s_s[g * kTile + r] - m_new);
+            s_s[g * kTile + r] = e;
+            sum += e;
           }
-          s = warp_sum(s);
-          if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
-          if (lane == 0) s_s[g * page + t] = s;
+          sum = warp_sum(sum);
+          if (lane == 0) {
+            const float alpha = expf(m_old - m_new);
+            m_s[g] = m_new;
+            l_s[g] = l_s[g] * alpha + sum;
+            a_s[g] = alpha;
+          }
+        }
+        __syncthreads();
+        // p x V: thread owns (slot group, head, dim) entries of acc_s
+        for (int i = tid; i < SG * GD; i += kThreads) {
+          const int sg = i / GD;
+          const int o = i - sg * GD;
+          const int g = o / D;
+          const int d = o - g * D;
+          const float* pg = s_s + g * kTile;
+          float x = 0.f;
+          for (int r = sg; r < n; r += SG) x += pg[r] * v_s[r * (D + 1) + d];
+          acc_s[i] = acc_s[i] * a_s[g] + x;
         }
       }
     }
     __syncthreads();
-
-    // pass 2: online-softmax update, one warp per query head
-    for (int g = warp; g < G; g += kWarps) {
-      float mx = kNegInf;
-      for (int t = t0 + lane; t < t1; t += 32)
-        mx = fmaxf(mx, s_s[g * page + t]);
-      mx = warp_max(mx);
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int t = t0 + lane; t < t1; t += 32) {
-        const float e = expf(s_s[g * page + t] - m_new);
-        s_s[g * page + t] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        m_s[g] = m_new;
-        l_s[g] = l_s[g] * alpha + sum;
-        a_s[g] = alpha;
-      }
+    for (int o = tid; o < GD; o += kThreads) {
+      float x = 0.f;
+      for (int sg = 0; sg < SG; ++sg) x += acc_s[sg * GD + o];
+      const int g = o / D;
+      my_part[g * (D + 2) + 2 + (o - g * D)] = x;
     }
-    __syncthreads();
-
-    // pass 3: rescale the running p @ V, add this page's
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g < G) {
-        const float alpha = a_s[g];
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[g][i] *= alpha;
-      }
+    if (tid < G) {
+      my_part[tid * (D + 2)] = m_s[tid];
+      my_part[tid * (D + 2) + 1] = l_s[tid];
     }
-    for (int t = t0 + warp; t < t1; t += kWarps) {
-      const size_t row = row0 + (size_t)t * KV;
-      const KT* vr = pv + row * D;
-      const float sv = vs ? vs[row] : 1.f;
-      float vd[DPL];
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + 32 * i;
-        vd[i] = d < D ? to_f32(vr[d]) * sv : 0.f;
-      }
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g < G) {
-          const float p = s_s[g * page + t];
-#pragma unroll
-          for (int i = 0; i < DPL; ++i) acc[g][i] += p * vd[i];
-        }
-      }
-    }
-    __syncthreads();   // the next page reuses s_s and a_s
+  } else if (tid < G) {  // an empty partial: no attended slot in this run
+    my_part[tid * (D + 2)] = kNegInf;
+    my_part[tid * (D + 2) + 1] = 0.f;
   }
 
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = lane + 32 * i;
-      if (g < G && d < D) red_s[(warp * G + g) * D + d] = acc[g][i];
-    }
+  // the last block of this (row, KV head) to finish merges the partials
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int old = atomicAdd(&tickets[b * KV + kvh], 1);
+    last_s = old == n_split - 1;
   }
   __syncthreads();
-  for (int i = tid; i < G * D; i += kThreads) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red_s[w * G * D + i];
-    out[q_base + i] = from_f32<T>(s / (l_s[i / D] + 1e-30f));
+  if (!last_s) return;
+  __threadfence();
+  const float* row_part = part + (size_t)(b * KV + kvh) * n_split * pstride;
+  // M_g: the largest m of the nonempty partials (l > 0); w = exp(m - M_g)
+  if (tid < G) {
+    float M = kNegInf;
+    for (int s = 0; s < n_split; ++s) {
+      const float* ps = row_part + (size_t)s * pstride + tid * (D + 2);
+      if (__ldcg(ps + 1) > 0.f) M = fmaxf(M, __ldcg(ps));
+    }
+    m_s[tid] = M;
   }
+  __syncthreads();
+  for (int i = tid; i < n_split * G; i += kThreads) {
+    const int s = i / G;
+    const int g = i - s * G;
+    const float* ps = row_part + (size_t)s * pstride + g * (D + 2);
+    w_s[i] = __ldcg(ps + 1) > 0.f ? expf(__ldcg(ps) - m_s[g]) : 0.f;
+  }
+  __syncthreads();
+  if (tid < G) {
+    float L = 0.f;
+    for (int s = 0; s < n_split; ++s)
+      L += w_s[s * G + tid] * __ldcg(row_part + (size_t)s * pstride +
+                                     tid * (D + 2) + 1);
+    l_s[tid] = L;
+  }
+  __syncthreads();
+  for (int o = tid; o < GD; o += kThreads) {
+    const int g = o / D;
+    const int d = o - g * D;
+    float x = 0.f;
+    for (int s = 0; s < n_split; ++s) {
+      const float w = w_s[s * G + g];
+      if (w != 0.f)
+        x += w * __ldcg(row_part + (size_t)s * pstride + g * (D + 2) + 2 + d);
+    }
+    out[q_base + o] = from_f32<T>(x / (l_s[g] + 1e-30f));
+  }
+  if (tid == 0) tickets[b * KV + kvh] = 0;
 }
 
-template <typename T, typename KT, int DPL>
+// Shared-memory bytes one launch needs (the Python wrapper computes the
+// same number and raises above the 227 KB a block can have).
+size_t smem_bytes(int H, int KV, int D) {
+  const int G = H / KV;
+  const int SG = kThreads / (G * D) > 1 ? kThreads / (G * D) : 1;
+  return sizeof(float) * (size_t)(G * D + 2 * kTile * (D + 1) + G * kTile +
+                                  SG * G * D + 3 * G + kMaxSplit * G);
+}
+
+template <typename T, typename KT, typename LT>
 cudaError_t launch(const void* q, const void* pk, const void* pv,
                    const float* ks, const float* vs, const void* pt,
-                   const void* vl, void* out, int B, int H, int KV, int D,
-                   int page, int pps, float scale, float softcap, int window,
-                   size_t smem, cudaStream_t stream) {
+                   const void* vl, void* out, void* part, void* tickets,
+                   int B, int H, int KV, int D, int page, int pps,
+                   int pages_per_split, int n_split, float scale,
+                   float softcap, int window, cudaStream_t stream) {
   static size_t configured = 48 * 1024;
-  auto kernel = paged_decode_kernel<T, KT, DPL>;
+  const size_t smem = smem_bytes(H, KV, D);
+  auto kernel = paged_split_kernel<T, KT, LT>;
   if (smem > configured) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     configured = smem;
   }
-  kernel<<<dim3(KV, B), kThreads, smem, stream>>>(
+  kernel<<<dim3(KV, B, n_split), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KT*>(pk),
       static_cast<const KT*>(pv), ks, vs, static_cast<const int*>(pt),
-      static_cast<const int*>(vl), static_cast<T*>(out), H, KV, D, page, pps,
-      scale, softcap, window);
+      static_cast<const int*>(vl), static_cast<T*>(out),
+      static_cast<float*>(part), static_cast<int*>(tickets), H, KV, D, page,
+      pps, pages_per_split, n_split, scale, softcap, window);
   return cudaGetLastError();
 }
 
+// The widest load unit (16, 8 or 4 bytes) that divides a pool row and the
+// pools' (and scale pools') alignment; else element loads.
 template <typename T, typename KT>
-cudaError_t launch_dpl(const void* q, const void* pk, const void* pv,
+cudaError_t launch_vec(const void* q, const void* pk, const void* pv,
                        const float* ks, const float* vs, const void* pt,
-                       const void* vl, void* out, int B, int H, int KV, int D,
-                       int page, int pps, float scale, float softcap,
-                       int window, size_t smem, cudaStream_t st) {
-  const int dpl = (D + 31) / 32;
-  if (dpl <= 1)
-    return launch<T, KT, 1>(q, pk, pv, ks, vs, pt, vl, out, B, H, KV, D, page,
-                            pps, scale, softcap, window, smem, st);
-  if (dpl <= 2)
-    return launch<T, KT, 2>(q, pk, pv, ks, vs, pt, vl, out, B, H, KV, D, page,
-                            pps, scale, softcap, window, smem, st);
-  if (dpl <= 4)
-    return launch<T, KT, 4>(q, pk, pv, ks, vs, pt, vl, out, B, H, KV, D, page,
-                            pps, scale, softcap, window, smem, st);
-  return launch<T, KT, 8>(q, pk, pv, ks, vs, pt, vl, out, B, H, KV, D, page,
-                          pps, scale, softcap, window, smem, st);
-}
-
-// Shared-memory bytes one launch needs (the Python wrapper computes the
-// same number and raises above the 227 KB a block can have).
-size_t smem_bytes(int H, int KV, int D, int page) {
-  const int G = H / KV;
-  return sizeof(float) * (size_t)(G * D + G * page + kWarps * G * D + 3 * G);
+                       const void* vl, void* out, void* part, void* tickets,
+                       int B, int H, int KV, int D, int page, int pps,
+                       int pages_per_split, int n_split, float scale,
+                       float softcap, int window, cudaStream_t st) {
+  const size_t row = (size_t)D * sizeof(KT);
+  const uintptr_t al = reinterpret_cast<uintptr_t>(pk) |
+                       reinterpret_cast<uintptr_t>(pv);
+#define REPRO_PAGED_ARGS                                                    \
+  q, pk, pv, ks, vs, pt, vl, out, part, tickets, B, H, KV, D, page, pps, \
+      pages_per_split, n_split, scale, softcap, window, st
+  if (row % 16 == 0 && al % 16 == 0)
+    return launch<T, KT, uint4>(REPRO_PAGED_ARGS);
+  if (row % 8 == 0 && al % 8 == 0)
+    return launch<T, KT, uint2>(REPRO_PAGED_ARGS);
+  if (row % 4 == 0 && al % 4 == 0)
+    return launch<T, KT, uint32_t>(REPRO_PAGED_ARGS);
+  return launch<T, KT, KT>(REPRO_PAGED_ARGS);
+#undef REPRO_PAGED_ARGS
 }
 
 }  // namespace
@@ -288,25 +358,29 @@ size_t smem_bytes(int H, int KV, int D, int page) {
 extern "C" {
 
 // Float pools: dtype 0 = float32, 1 = bfloat16 (q, pools and out).
-// Returns the launch's cudaError_t.  The caller validates shapes (G <= 8,
+// part: a (B, KV, n_split, H / KV, D + 2) float32 workspace; tickets: a
+// (>= B * KV) int32 buffer of zeros, left zeroed.  The caller plans
+// pages_per_split / n_split (n_split <= 64) and validates shapes (G <= 8,
 // D <= 256, shared memory <= 227 KB); every table entry must be a page of
 // the pool (the layouts only ever write pages in [0, P], P being trash).
+// Returns the launch's cudaError_t.
 int paged_decode_fwd(const void* q, const void* pk, const void* pv,
                      const void* page_table, const void* valid_len, void* out,
-                     int B, int H, int KV, int D, int page, int pps,
+                     void* part, void* tickets, int B, int H, int KV, int D,
+                     int page, int pps, int pages_per_split, int n_split,
                      float scale, float softcap, int window, int dtype,
                      void* stream) {
   if (B == 0 || KV == 0) return (int)cudaGetLastError();
-  const size_t smem = smem_bytes(H, KV, D, page);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_dpl<float, float>(q, pk, pv, nullptr, nullptr,
-                                         page_table, valid_len, out, B, H, KV,
-                                         D, page, pps, scale, softcap, window,
-                                         smem, st);
-  return (int)launch_dpl<__nv_bfloat16, __nv_bfloat16>(
-      q, pk, pv, nullptr, nullptr, page_table, valid_len, out, B, H, KV, D,
-      page, pps, scale, softcap, window, smem, st);
+    return (int)launch_vec<float, float>(
+        q, pk, pv, nullptr, nullptr, page_table, valid_len, out, part,
+        tickets, B, H, KV, D, page, pps, pages_per_split, n_split, scale,
+        softcap, window, st);
+  return (int)launch_vec<__nv_bfloat16, __nv_bfloat16>(
+      q, pk, pv, nullptr, nullptr, page_table, valid_len, out, part, tickets,
+      B, H, KV, D, page, pps, pages_per_split, n_split, scale, softcap,
+      window, st);
 }
 
 // int8 pools with (P + 1, page, KV, 1) float32 scale pools; dtype is q's
@@ -315,22 +389,23 @@ int paged_decode_fwd(const void* q, const void* pk, const void* pv,
 int paged_decode_int8_fwd(const void* q, const void* pk, const void* pv,
                           const void* ks, const void* vs,
                           const void* page_table, const void* valid_len,
-                          void* out, int B, int H, int KV, int D, int page,
-                          int pps, float scale, float softcap, int window,
-                          int dtype, void* stream) {
+                          void* out, void* part, void* tickets, int B, int H,
+                          int KV, int D, int page, int pps,
+                          int pages_per_split, int n_split, float scale,
+                          float softcap, int window, int dtype,
+                          void* stream) {
   if (B == 0 || KV == 0) return (int)cudaGetLastError();
-  const size_t smem = smem_bytes(H, KV, D, page);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* ksf = static_cast<const float*>(ks);
   const float* vsf = static_cast<const float*>(vs);
   if (dtype == 0)
-    return (int)launch_dpl<float, int8_t>(q, pk, pv, ksf, vsf, page_table,
-                                          valid_len, out, B, H, KV, D, page,
-                                          pps, scale, softcap, window, smem,
-                                          st);
-  return (int)launch_dpl<__nv_bfloat16, int8_t>(
-      q, pk, pv, ksf, vsf, page_table, valid_len, out, B, H, KV, D, page, pps,
-      scale, softcap, window, smem, st);
+    return (int)launch_vec<float, int8_t>(
+        q, pk, pv, ksf, vsf, page_table, valid_len, out, part, tickets, B, H,
+        KV, D, page, pps, pages_per_split, n_split, scale, softcap, window,
+        st);
+  return (int)launch_vec<__nv_bfloat16, int8_t>(
+      q, pk, pv, ksf, vsf, page_table, valid_len, out, part, tickets, B, H,
+      KV, D, page, pps, pages_per_split, n_split, scale, softcap, window, st);
 }
 
 }  // extern "C"

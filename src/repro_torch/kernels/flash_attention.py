@@ -7,7 +7,10 @@ a key is attended iff ``k_pos != INVALID_POS`` and, when ``causal``,
 ``k_pos <= q_pos`` and, when ``window > 0``, ``k_pos > q_pos - window``.
 A query with no valid key gives zeros.  The port's kernel is CUDA C++
 (``csrc/flash_attention.cu``): ragged ``Lq``/``Lk``, a runtime window,
-and the KV head indexed as ``h // G``.
+and the KV head indexed as ``h // G``; bf16 on tensor cores (``mma.sync``),
+f32 in exact f32 on the CUDA cores; key tiles in which no pair of the
+block can be attended (:func:`tile_live`) are skipped.  One launch per
+call.
 
 Beside the kernel's wrapper sits its plain PyTorch version; only CPU
 tensors reach it (the dispatch is :func:`repro_torch.kernels.ops.flash_attention`).
@@ -42,6 +45,23 @@ def position_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
     if window > 0:
         mask = mask & (kp > qp - window)
     return mask
+
+
+def tile_live(k_pos: torch.Tensor, q_pos: torch.Tensor, causal: bool,
+              window: int) -> bool:
+    """The kernel's tile-skip predicate: whether a key tile with positions
+    ``k_pos`` (1-D) can hold a key that some query of a block with active
+    positions ``q_pos`` (1-D, nonempty) attends -- a key not
+    ``INVALID_POS``, at or before the block's largest query position
+    (causal), after its smallest minus the window (window).  It may keep a
+    tile in which no pair is attended; it never drops one in which a pair
+    is."""
+    live = k_pos != INVALID_POS
+    if causal:
+        live = live & (k_pos <= q_pos.max())
+    if window > 0:
+        live = live & (k_pos > q_pos.min() - window)
+    return bool(live.any())
 
 
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

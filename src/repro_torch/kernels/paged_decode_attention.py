@@ -9,12 +9,16 @@ the dense ``(B, max_len, KV, D)`` view on the decode path.  Slots
 ``[0, valid_len)`` are attended, only the last ``window`` of them when
 ``window > 0`` (a runtime value, 0 meaning none).  int8 pools come with
 ``(P + 1, page, KV, 1)`` float32 scale pools, dequantised inside the
-kernel's QK and PV loops.  Output in q's dtype.
+kernel as it stages each tile.  Output in q's dtype.
 
-The port's kernel is CUDA C++ (``csrc/paged_decode_attention.cu``: one
-block per (row, KV head), a loop over the row's own pages with an online
-softmax).  Float and int8 pools are two entries of the same source,
-counted apart (``paged_decode_attention`` / ``paged_decode_attention_int8``).
+The port's kernel is CUDA C++ (``csrc/paged_decode_attention.cu``): a
+split-KV decode whose grid is ``(KV, B, n_split)``.  Each block attends a
+run of a row's pages (:func:`split_plan`, from ``pps`` and ``page`` on
+the host) and writes an f32 partial (m, l, acc) to a workspace; the last
+block of each (row, KV head) merges them -- one launch per call, through
+an int32 ticket per (row, KV head) that the wrapper keeps per device.
+Float and int8 pools are two entries of the same source, counted apart
+(``paged_decode_attention`` / ``paged_decode_attention_int8``).
 
 Beside the kernel's wrapper sits its plain PyTorch version (gather the
 row's pages, then attend); only CPU tensors reach it (the dispatch is
@@ -36,14 +40,37 @@ from repro_torch.kernels.decode_attention import (MAX_GROUP, MAX_HEAD_DIM,
 COUNTER = runtime.counter("paged_decode_attention")
 COUNTER_INT8 = runtime.counter("paged_decode_attention_int8")
 
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 +
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 +
              [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
               ctypes.c_void_p])
-_ARGTYPES_INT8 = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 +
+_ARGTYPES_INT8 = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 +
                   [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_WARPS = 4               # the kernel's warps per block
+# the CUDA source's kThreads, kTile and kMaxSplit
+_THREADS = 128           # the kernel's threads per block
+_TILE = 64               # slots it stages at a time
+MAX_SPLIT = 64           # runs of pages per row (its merge holds 64 weights)
+_TICKETS = {}            # device -> int32 tickets, zero between calls
+
+
+def split_plan(pps: int, page: int) -> tuple:
+    """``(pages_per_split, n_split)``: how the kernel splits a row's ``pps``
+    pages across blocks.  A run holds at least 64 slots and a row at most
+    ``MAX_SPLIT`` runs; the plan reads shapes only, never ``valid_len``
+    (a device value), so no call synchronises."""
+    per = max(-(-_TILE // page), -(-pps // MAX_SPLIT), 1)
+    return per, max(-(-pps // per), 1)
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """The device's ticket buffer, at least ``n`` entries, zeroed once when
+    it is made (the kernel's merging block resets each ticket it used)."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = _TICKETS[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                           device=device)
+    return t
 
 
 def attended_range(valid_len: torch.Tensor, window: int, limit: int
@@ -86,12 +113,15 @@ def paged_decode_attention_plain(q: torch.Tensor, pool_k: torch.Tensor,
     return decode_attention_plain(q, k, v, lo, hi, softcap, ks, vs)
 
 
-def smem_bytes(H: int, KV: int, D: int, page: int) -> int:
+def smem_bytes(H: int, KV: int, D: int) -> int:
     """Shared memory of one launch (mirrors ``smem_bytes`` in the CUDA
-    source: q, one page of scores, the cross-warp reduction, m / l /
-    alpha)."""
+    source: q, one tile of K and V rows padded to D + 1, its scores, the
+    slot-group sums, m / l / alpha and the merge's weights).  It does not
+    depend on the page size or the context."""
     G = H // KV
-    return 4 * (G * D + G * page + _WARPS * G * D + 3 * G)
+    sg = max(1, _THREADS // (G * D))
+    return 4 * (G * D + 2 * _TILE * (D + 1) + G * _TILE + sg * G * D +
+                3 * G + MAX_SPLIT * G)
 
 
 def paged_decode_attention_cuda(q: torch.Tensor, pool_k: torch.Tensor,
@@ -128,10 +158,10 @@ def paged_decode_attention_cuda(q: torch.Tensor, pool_k: torch.Tensor,
         raise ValueError(f"paged kernel needs H % KV == 0, H/KV <= "
                          f"{MAX_GROUP}, head_dim <= {MAX_HEAD_DIM}; got "
                          f"H={H} KV={KV} D={D}")
-    if smem_bytes(H, KV, D, page) > SMEM_LIMIT:
-        raise ValueError(f"paged kernel keeps one page of scores in shared "
-                         f"memory: page={page}, H/KV={H // KV}, D={D} needs "
-                         f"{smem_bytes(H, KV, D, page)} B > {SMEM_LIMIT} B")
+    if smem_bytes(H, KV, D) > SMEM_LIMIT:
+        raise ValueError(f"paged kernel stages a tile of {_TILE} slots in "
+                         f"shared memory: H/KV={H // KV}, D={D} needs "
+                         f"{smem_bytes(H, KV, D)} B > {SMEM_LIMIT} B")
     if page_table.ndim != 2 or page_table.shape[0] != B or \
             valid_len.shape != (B,):
         raise ValueError(f"page_table must be (B, pps) and valid_len (B,), "
@@ -150,6 +180,10 @@ def paged_decode_attention_cuda(q: torch.Tensor, pool_k: torch.Tensor,
     pt = page_table.to(torch.int32).contiguous()
     vl = valid_len.to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    per, n_split = split_plan(pps, page)
+    part = torch.empty((B, KV, n_split, H // KV, D + 2), dtype=torch.float32,
+                       device=q.device)
+    tickets = _tickets(q.device, B * KV)
     ptrs = [q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr()]
     if quant:
         k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
@@ -159,9 +193,10 @@ def paged_decode_attention_cuda(q: torch.Tensor, pool_k: torch.Tensor,
                          _ARGTYPES_INT8 if quant else _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = fn(*ptrs, pt.data_ptr(), vl.data_ptr(), out.data_ptr(), B, H,
-                 KV, D, page, pps, float(D ** -0.5), float(softcap),
-                 int(window), _DTYPES[q.dtype], stream)
+        err = fn(*ptrs, pt.data_ptr(), vl.data_ptr(), out.data_ptr(),
+                 part.data_ptr(), tickets.data_ptr(), B, H, KV, D, page, pps,
+                 per, n_split, float(D ** -0.5), float(softcap), int(window),
+                 _DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError(f"{symbol} kernel launch failed: CUDA error "
                            f"{err}")

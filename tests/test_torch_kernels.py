@@ -239,6 +239,17 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 # ---------------------------------------------------------------------------
 
 
+# the tensor-core / tile-skipping kernel's own edges (GPU sweep only): a
+# long mostly dead history, Lq off every query tile, head dims 128 and 35
+# (odd: element copies), a window over a long row
+CUDA_FLASH_EXTRA = [
+    (2, 256, 4096, 4, 4, 36, True, 0),
+    (1, 93, 93, 12, 12, 36, True, 0),
+    (2, 61, 700, 8, 2, 128, True, 64),
+    (2, 40, 300, 4, 4, 35, False, 0),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
@@ -256,7 +267,7 @@ def test_cuda_kernels_vs_plain(dtype, tol):
         out = DA.decode_attention_cuda(q, k, v, lo, hi, cap)
         ref = DA.decode_attention_plain(q, k, v, lo, hi, cap)
         assert (out.float() - ref.float()).abs().max().item() <= tol
-    for B, Lq, Lk, H, KV, D, causal, win in RAGGED:
+    for B, Lq, Lk, H, KV, D, causal, win in RAGGED + CUDA_FLASH_EXTRA:
         q, k, v = (torch.from_numpy(a).to(dev, dtype)
                    for a in _qkv(B, Lq, Lk, H, KV, D, seed=33))
         qp, kp = (torch.from_numpy(a).to(dev)

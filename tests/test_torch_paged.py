@@ -190,12 +190,17 @@ def test_cuda_paged_and_int8_kernels_vs_plain(dtype, tol):
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no "
                     "CPU mode (their plain versions are tested above)")
     dev = torch.device("cuda")
-    for G, page, window, cap, quant in [(1, 64, 0, 0.0, False),
-                                        (2, 16, 40, 0.0, False),
-                                        (1, 64, 0, 0.0, True),
-                                        (4, 16, 33, 30.0, True)]:
-        q, pk, pv, ks, vs, pt, vl = paged_inputs(
-            4, 3, G, 36, page, 6, [0, page * 3 + 5, page, page * 6], quant)
+    for G, page, window, cap, quant, pps, vlist in [
+            (1, 64, 0, 0.0, False, 6, None), (2, 16, 40, 0.0, False, 6, None),
+            (1, 64, 0, 0.0, True, 6, None), (4, 16, 33, 30.0, True, 6, None),
+            # a 16000-slot row (250 pages: many splits) beside an empty
+            # row, with and without a window
+            (1, 64, 0, 0.0, False, 250, [16000, 0]),
+            (1, 64, 256, 0.0, True, 250, [16000, 0]),
+            (2, 16, 300, 0.0, False, 1000, [0, 15999])]:
+        vlist = vlist or [0, page * 3 + 5, page, page * 6]
+        q, pk, pv, ks, vs, pt, vl = paged_inputs(len(vlist), 3, G, 36, page,
+                                                 pps, vlist, quant)
         qt = _t(q).to(dev, dtype)
         if quant:
             pkt, pvt = _t(pk).to(dev), _t(pv).to(dev)

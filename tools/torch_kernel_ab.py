@@ -1,0 +1,100 @@
+#!/usr/bin/env python3
+"""Time the port's K2 and K3 kernels of two source trees on one GPU, in
+turns (A B B A), at the cases of this checkout's ``chip_smoke.py``.
+
+    python tools/torch_kernel_ab.py --parent DIR [--out FILE]
+
+``DIR`` is a checkout of an earlier commit (for example unpacked with
+``git archive``).  Each turn is a child process that puts one tree's
+``src`` first on ``sys.path``, builds that tree's kernels and runs
+``chip_smoke.k3_rows`` and ``chip_smoke.k2_rows`` (every case in bf16 and
+f32, each checked against the tree's plain version) -- so both trees see
+the same cases and the same seeded inputs.  Prints a table of the
+kernels' device ms per case (each tree's two turns) beside the SDPA
+yardstick, and with ``--out`` writes every row as JSON.  Needs a GPU.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+TAG = "AB_ROWS "
+
+
+def child(src: str) -> int:
+    sys.path.insert(0, src)
+    sys.path.insert(1, str(ROOT))
+    import torch
+    import chip_smoke as CS
+    from repro_torch.config import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    check = Path(_build.__file__).resolve()
+    if not str(check).startswith(str(Path(src).resolve())):
+        raise RuntimeError(f"imported {check}, not the tree under {src}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build(["flash_attention", "paged_decode_attention"])
+    cfg = get_config("tconst-41m")
+    dev = torch.device("cuda")
+    max_len = serve.sessions_max_len(serve.parse_args(CS.SESSIONS_ARGS))
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(dtype)
+
+    rows = []
+    for dname in ("bfloat16", "float32"):
+        CS.k3_rows(torch, rows, cfg, dev, randn, gen, dname, max_len)
+        CS.k2_rows(torch, rows, cfg, dev, randn, dname, max_len)
+    print(TAG + json.dumps(rows), flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", required=True,
+                    help="root of the earlier checkout (A)")
+    ap.add_argument("--out", default="")
+    ap.add_argument("--child", default="", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.child:
+        return child(args.child)
+    trees = {"A": str(Path(args.parent).resolve() / "src"),
+             "B": str(ROOT / "src")}
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    turns = []
+    for who in "ABBA":
+        res = subprocess.run([sys.executable, __file__, "--parent",
+                              args.parent, "--child", trees[who]],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
+            raise SystemExit(f"turn {who} failed (exit {res.returncode})")
+        line = [x for x in res.stdout.splitlines() if x.startswith(TAG)][-1]
+        turns.append((who, json.loads(line[len(TAG):])))
+    print(card)
+    print(f"{'kernel':28s} {'case':17s} {'dtype':8s} {'A ms':>17s} "
+          f"{'B ms':>17s} {'library ms':>10s}")
+    for i, r in enumerate(turns[0][1]):
+        a = [t[1][i]["ms"] for t in turns if t[0] == "A"]
+        b = [t[1][i]["ms"] for t in turns if t[0] == "B"]
+        lib = r["library_ms"]
+        print(f"{r['kernel']:28s} {r['case']:17s} {r['dtype']:8s} "
+              f"{a[0]:8.4f} {a[1]:8.4f} {b[0]:8.4f} {b[1]:8.4f} "
+              f"{'' if lib is None else f'{lib:10.4f}'}")
+    if args.out:
+        Path(args.out).write_text(json.dumps(
+            {"card": card, "turns": [{"tree": w, "rows": rows}
+                                     for w, rows in turns]}, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
