@@ -13,11 +13,12 @@ Phases (any failure raises, so the exit code is non-zero):
    or HGMMA) in every bf16 entry of the flash_attention library.
 3. Kernels: each kernel against its plain PyTorch version on the same
    CUDA tensors, in bf16 and f32, at the shapes ``tconst-41m`` serving
-   gives it.  K1 (decode): the step's self and cross attention with full,
-   partial and empty slot ranges, TLinFormer's history cross-attention at
-   ``S = max_len`` and a long history above 48 KB of scores (the kernel
-   raises its shared-memory limit).  K1-int8: int8 K/V with per-vector
-   scales at the gen-self, ctx-cross and hist-cross shapes.  K2 (flash):
+   gives it.  K1 (decode, split-KV): the step's self and cross attention
+   with full, partial and empty slot ranges, TLinFormer's history
+   cross-attention at ``S = max_len``, a 16384-slot history (64 runs) and
+   a 65536-slot one past the first version's shared-memory limit (~57.9k
+   slots).  K1-int8: int8 K/V with per-vector scales at the gen-self,
+   ctx-cross and hist-cross shapes.  K2 (flash):
    the resync's compress / context self / restore and the admission's
    window passes, with dead keys and negative query positions, a compress
    over a 16384-slot history (histories 12000 and 300: most key tiles
@@ -33,8 +34,8 @@ Phases (any failure raises, so the exit code is non-zero):
    the plain version's and ``F.scaled_dot_product_attention``'s times (a
    yardstick only, with the gather or dequantisation it needs; the port
    never calls it; no one PyTorch call computes K4) and the least time
-   the card could take.  Then the device launches one call of K2, K3 and
-   K3-int8 makes (torch.profiler).
+   the card could take.  Then the device launches one call of K1, K1-int8,
+   K2, K3 and K3-int8 makes (torch.profiler): one each.
 4. Serve ``tconst-41m`` at full width with the port's seeded init
    (``--sessions 4 --prompt-len 600 --gen 320 --chunk 32``), each run's
    launch counters reset before the scheduler and read right after it:
@@ -218,8 +219,10 @@ def k1_cases(torch, cfg, dev, max_len: int):
         ("empty", 2, W, t([0, W]), t([0, W])),
         # TLinFormer's history cross-attention on the dense layout
         ("hist_cross", 3, max_len, t([0, 0, 0]), t([0, 613, 960])),
-        # scores above 48 KB of shared memory (G = 1: S > ~11.9k)
+        # long histories: 64 runs of 256 slots; 64 runs of 1024 slots past
+        # the ~57.9k slots the first version's scores could hold
         ("hist_long", 2, 16384, t([0, 0]), t([16000, 9000])),
+        ("hist_huge", 1, 65536, t([0]), t([65000])),
     ]
 
 
@@ -449,6 +452,55 @@ def ssd_phase(torch, rows, dev, gen):
         torch.cuda.empty_cache()
 
 
+def k1_rows(torch, rows, cfg, dev, randn, gen, dname: str, max_len: int,
+            cases=None, int8_cases=None):
+    """K1 and K1-int8 against their plain versions at the hit step's and
+    the dense history's shapes (``cases`` / ``int8_cases``: a subset of
+    :func:`k1_cases` / :func:`k1_int8_cases`, default all)."""
+    from repro_torch.kernels import decode_attention as DA
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    dt = getattr(torch, dname)
+    if cases is None:
+        cases = k1_cases(torch, cfg, dev, max_len)
+    if int8_cases is None:
+        int8_cases = k1_int8_cases(torch, cfg, dev, max_len)
+    for label, B, S, lo, hi in cases:
+        q = randn((B, H, D), dt)
+        k = randn((B, S, KV, D), dt)
+        v = randn((B, S, KV, D), dt)
+        n = (hi - lo).clamp(min=0)
+        used = int(n.sum()) * KV * D * k.element_size()
+        out = DA.decode_attention_cuda(q, k, v, lo, hi)
+        kernel_row(rows, K1, label, dname,
+                   f"B={B} H={H} KV={KV} D={D} S={S}", out,
+                   DA.decode_attention_plain(q, k, v, lo, hi),
+                   lambda: DA.decode_attention_cuda(q, k, v, lo, hi),
+                   lambda: DA.decode_attention_plain(q, k, v, lo, hi),
+                   sdpa_k1(torch, q, k, v, lo, hi),
+                   nbytes(q, lo, hi, out) + 2 * used,
+                   4 * H * D * int(n.sum()),
+                   plain_reps=5 if S > 4096 else 20)
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    for label, B, S, lo, hi in int8_cases:
+        q = randn((B, H, D), dt)
+        k = int8_codes(torch, gen, (B, S, KV, D), dev)
+        v = int8_codes(torch, gen, (B, S, KV, D), dev)
+        ks = randn((B, S, KV, 1), torch.float32).abs() * 0.02 + 1e-3
+        vs = randn((B, S, KV, 1), torch.float32).abs() * 0.02 + 1e-3
+        n = (hi - lo).clamp(min=0)
+        used = int(n.sum()) * KV * (D + 4)        # codes + one scale
+        out = DA.decode_attention_int8_cuda(q, k, v, ks, vs, lo, hi)
+        kernel_row(
+            rows, K1_INT8, label, dname,
+            f"B={B} H={H} KV={KV} D={D} S={S} int8", out,
+            DA.decode_attention_plain(q, k, v, lo, hi, 0.0, ks, vs),
+            lambda: DA.decode_attention_int8_cuda(q, k, v, ks, vs, lo, hi),
+            lambda: DA.decode_attention_plain(q, k, v, lo, hi, 0.0, ks, vs),
+            sdpa_k1(torch, q, k, v, lo, hi, ks, vs),
+            nbytes(q, lo, hi, out) + 2 * used, 4 * H * D * int(n.sum()))
+
+
 def k3_rows(torch, rows, cfg, dev, randn, gen, dname: str, max_len: int):
     """K3 and K3-int8 (pages of 64) against their plain versions."""
     from repro_torch.kernels import paged_decode_attention as PD
@@ -557,8 +609,10 @@ def launches_per_call(torch, fn) -> int:
 
 
 def launch_counts(torch, cfg, dev, max_len: int) -> dict:
-    """Launches per call of K2 and K3 (float and int8 pools) at the
-    served shapes (the compress pass; the paged history of 3 rows)."""
+    """Launches per call of K1, K1-int8, K2 and K3 (float and int8 pools)
+    at the served shapes (the hit step's gen-window self-attention, the
+    compress pass, the paged history of 3 rows)."""
+    from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_decode_attention as PD
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -567,13 +621,24 @@ def launch_counts(torch, cfg, dev, max_len: int) -> dict:
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    _, qp, kp, _ = k2_cases(torch, cfg, dev, max_len)[0]
     bf = torch.bfloat16
+    _, B, S, lo, hi = k1_cases(torch, cfg, dev, max_len)[0]
+    qd = randn((B, H, D), bf)
+    kd, vd = randn((B, S, KV, D), bf), randn((B, S, KV, D), bf)
+    kq = int8_codes(torch, gen, (B, S, KV, D), dev)
+    vq = int8_codes(torch, gen, (B, S, KV, D), dev)
+    sc = randn((B, S, KV, 1), torch.float32).abs() * 0.02 + 1e-3
+    out = {K1: launches_per_call(
+        torch, lambda: DA.decode_attention_cuda(qd, kd, vd, lo, hi)),
+        K1_INT8: launches_per_call(
+        torch, lambda: DA.decode_attention_int8_cuda(qd, kq, vq, sc, sc, lo,
+                                                     hi))}
+    _, qp, kp, _ = k2_cases(torch, cfg, dev, max_len)[0]
     q = randn((2, qp.shape[1], H, D), bf)
     k, v = randn((2, kp.shape[1], KV, D), bf), randn((2, kp.shape[1], KV, D),
                                                      bf)
-    out = {K2: launches_per_call(
-        torch, lambda: FA.flash_attention_cuda(q, k, v, qp, kp, True))}
+    out[K2] = launches_per_call(
+        torch, lambda: FA.flash_attention_cuda(q, k, v, qp, kp, True))
     for name, pool in ((K3, bf), (K3_INT8, None)):
         pk, pv, ks, vs, pt, vl = paged_pool(torch, randn, gen, 3, KV, D, 64,
                                             -(-max_len // 64),
@@ -587,8 +652,6 @@ def launch_counts(torch, cfg, dev, max_len: int) -> dict:
 
 
 def kernel_phase(torch, cfg, dev, max_len: int):
-    from repro_torch.kernels import decode_attention as DA
-    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
 
@@ -597,41 +660,7 @@ def kernel_phase(torch, cfg, dev, max_len: int):
                            dtype=torch.float32).to(dtype)
 
     for dname in ("bfloat16", "float32"):
-        dt = getattr(torch, dname)
-        for label, B, S, lo, hi in k1_cases(torch, cfg, dev, max_len):
-            q = randn((B, H, D), dt)
-            k = randn((B, S, KV, D), dt)
-            v = randn((B, S, KV, D), dt)
-            n = (hi - lo).clamp(min=0)
-            used = int(n.sum()) * KV * D * k.element_size()
-            out = DA.decode_attention_cuda(q, k, v, lo, hi)
-            kernel_row(rows, K1, label, dname,
-                       f"B={B} H={H} KV={KV} D={D} S={S}", out,
-                       DA.decode_attention_plain(q, k, v, lo, hi),
-                       lambda: DA.decode_attention_cuda(q, k, v, lo, hi),
-                       lambda: DA.decode_attention_plain(q, k, v, lo, hi),
-                       sdpa_k1(torch, q, k, v, lo, hi),
-                       nbytes(q, lo, hi, out) + 2 * used,
-                       4 * H * D * int(n.sum()))
-        for label, B, S, lo, hi in k1_int8_cases(torch, cfg, dev, max_len):
-            q = randn((B, H, D), dt)
-            k = int8_codes(torch, gen, (B, S, KV, D), dev)
-            v = int8_codes(torch, gen, (B, S, KV, D), dev)
-            ks = randn((B, S, KV, 1), torch.float32).abs() * 0.02 + 1e-3
-            vs = randn((B, S, KV, 1), torch.float32).abs() * 0.02 + 1e-3
-            n = (hi - lo).clamp(min=0)
-            used = int(n.sum()) * KV * (D + 4)        # codes + one scale
-            out = DA.decode_attention_int8_cuda(q, k, v, ks, vs, lo, hi)
-            kernel_row(
-                rows, K1_INT8, label, dname,
-                f"B={B} H={H} KV={KV} D={D} S={S} int8", out,
-                DA.decode_attention_plain(q, k, v, lo, hi, 0.0, ks, vs),
-                lambda: DA.decode_attention_int8_cuda(q, k, v, ks, vs, lo,
-                                                      hi),
-                lambda: DA.decode_attention_plain(q, k, v, lo, hi, 0.0, ks,
-                                                  vs),
-                sdpa_k1(torch, q, k, v, lo, hi, ks, vs),
-                nbytes(q, lo, hi, out) + 2 * used, 4 * H * D * int(n.sum()))
+        k1_rows(torch, rows, cfg, dev, randn, gen, dname, max_len)
         k3_rows(torch, rows, cfg, dev, randn, gen, dname, max_len)
         k2_rows(torch, rows, cfg, dev, randn, dname, max_len)
     ssd_phase(torch, rows, dev, gen)
@@ -806,8 +835,8 @@ def main() -> int:
     rows = kernel_phase(torch, cfg41, dev, max_len)
     per_call = launch_counts(torch, cfg41, dev, max_len)
     print(f"[launches] device launches per call: {per_call}")
-    check(all(n == 1 for n in per_call.values()), f"K2 / K3 must take one "
-          f"device launch a call: {per_call}")
+    check(all(n == 1 for n in per_call.values()), f"K1 / K2 / K3 must take "
+          f"one device launch a call: {per_call}")
     phase_s = {"kernels": time.time() - t_phase}
 
     # 4. serve at full width: every run is a main path, counted alone

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/repro_torch_kernels/`` at the repository root, named by a hash of
-its source and flags (so an edited source is rebuilt), and loaded with
+its source, the shared headers and the flags (so an edited source or
+header is rebuilt), and loaded with
 ``ctypes``.  Building happens at first use, never at import; :func:`build`
 compiles several sources in parallel, one ``nvcc`` each.  A failed build
 raises with the compiler's output.
@@ -50,10 +51,13 @@ def _flags(verbose: bool) -> List[str]:
 
 
 def target(name: str) -> Path:
-    """Library path of ``name``, keyed by its source and flags (``-v``
-    only adds compiler output, not code, so it is not part of the key)."""
+    """Library path of ``name``, keyed by its source, the shared headers
+    (``csrc/*.cuh``) and the flags (``-v`` only adds compiler output, not
+    code, so it is not part of the key)."""
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

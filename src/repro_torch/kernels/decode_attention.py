@@ -8,9 +8,14 @@ serves the generation-window self-attention (``[0, gen_len + 1)``) and the
 compressed-context cross-attention (the valid context slots are a suffix
 ``[W_oh - n_valid, W_oh)``).
 
+It is a split-KV decode whose grid is ``(KV, B, n_split)``: each block
+attends a run of a row's slots (:func:`split_plan`, from ``S`` alone on
+the host) and writes an f32 partial (m, l, acc) to a workspace; the last
+block of each (row, KV head) merges them -- one launch per call, through
+an int32 ticket per (row, KV head) that the wrapper keeps per device.
 The int8 variant (``decode_attention_int8_cuda``, a second entry of the
 same source) reads int8 K/V with ``(B, S, KV, 1)`` float32 per-vector
-scales and dequantises inside the QK and PV loops -- the counterpart of
+scales and dequantises each tile as it stages it -- the counterpart of
 ``decode_attention_pallas(k_scale=..., v_scale=...)`` for the int8 cache
 layouts.  Its launches are counted apart (``decode_attention_int8``).
 
@@ -20,7 +25,7 @@ tensors reach it (the dispatch is :mod:`repro_torch.kernels.ops`).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -30,18 +35,45 @@ from repro_torch.kernels import _build
 NEG_INF = -2.3819763e38
 MAX_GROUP = 8            # query heads per KV head the kernel holds
 MAX_HEAD_DIM = 256
-# bytes of dynamic shared memory a block may use on Hopper (the kernel
-# raises its own limit above the default 48 KB)
+# bytes of dynamic shared memory a block may use on Hopper (the kernels
+# raise their own limit above the default 48 KB)
 SMEM_LIMIT = 232448
 COUNTER = runtime.counter("decode_attention")
 COUNTER_INT8 = runtime.counter("decode_attention_int8")
+# csrc/split_decode.cuh's kThreads, kTile and kMaxSplit (K1 and K3)
+THREADS = 128            # the kernel's threads per block
+TILE = 64                # slots it stages at a time
+MAX_SPLIT = 64           # runs per row (its merge holds 64 weights)
 
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 +
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 +
              [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-_ARGTYPES_INT8 = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 +
+_ARGTYPES_INT8 = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 +
                   [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                    ctypes.c_void_p])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_TICKETS: Dict[torch.device, torch.Tensor] = {}   # zero between calls
+
+
+def split_plan(n: int, unit: int) -> tuple:
+    """``(units_per_split, n_split)``: how a split decode divides a row of
+    ``n`` units of ``unit`` slots (K3: pages; K1: ``split_plan(S, 1)``,
+    slots) across blocks.  A run holds at least 64 slots and a row at most
+    ``MAX_SPLIT`` runs; the plan reads shapes only, never the attended
+    range (a device value), so no call synchronises."""
+    per = max(-(-TILE // unit), -(-n // MAX_SPLIT), 1)
+    return per, max(-(-n // per), 1)
+
+
+def tickets(store: Dict[torch.device, torch.Tensor], device: torch.device,
+            n: int) -> torch.Tensor:
+    """A split decode's ticket buffer on ``device`` (kept in ``store``, one
+    per kernel), at least ``n`` entries, zeroed once when it is made (the
+    kernel's merging block resets each ticket it used)."""
+    t = store.get(device)
+    if t is None or t.numel() < n:
+        t = store[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                        device=device)
+    return t
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -75,13 +107,6 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(B, H, D).to(q.dtype)
 
 
-def smem_bytes(S: int, H: int, KV: int, D: int) -> int:
-    """Shared memory of one launch (mirrors ``smem_bytes`` in the CUDA
-    source: q, scores, the cross-warp reduction of 4 warps, the sums)."""
-    G = H // KV
-    return 4 * (G * D + G * S + 4 * G * D + G)
-
-
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            lo: torch.Tensor, hi: torch.Tensor, what: str) -> None:
     if not (q.is_cuda and k.is_cuda and v.is_cuda and lo.is_cuda
@@ -95,15 +120,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             v.shape != k.shape:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
-    S, KV = k.shape[1], k.shape[2]
+    KV = k.shape[2]
     if H % KV or H // KV > MAX_GROUP or D > MAX_HEAD_DIM:
         raise ValueError(f"decode kernel needs H % KV == 0, H/KV <= "
                          f"{MAX_GROUP}, head_dim <= {MAX_HEAD_DIM}; got "
                          f"H={H} KV={KV} D={D}")
-    if smem_bytes(S, H, KV, D) > SMEM_LIMIT:
-        raise ValueError(f"decode kernel keeps the scores in shared memory: "
-                         f"S={S} with H/KV={H // KV}, D={D} needs "
-                         f"{smem_bytes(S, H, KV, D)} B > {SMEM_LIMIT} B")
     if lo.shape != (B,) or hi.shape != (B,):
         raise ValueError("lo/hi must be (B,)")
 
@@ -112,11 +133,16 @@ def _launch(symbol: str, argtypes, ptrs, q: torch.Tensor, S: int, KV: int,
             softcap: float) -> torch.Tensor:
     B, H, D = q.shape
     out = torch.empty_like(q)
+    split, n_split = split_plan(S, 1)
+    part = torch.empty((B, KV, n_split, H // KV, D + 2), dtype=torch.float32,
+                       device=q.device)
+    tk = tickets(_TICKETS, q.device, B * KV)
     fn = _build.function("decode_attention", symbol, argtypes)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = fn(*ptrs, out.data_ptr(), B, S, H, KV, D, float(D ** -0.5),
-                 float(softcap), _DTYPES[q.dtype], stream)
+        err = fn(*ptrs, out.data_ptr(), part.data_ptr(), tk.data_ptr(), B, S,
+                 H, KV, D, split, n_split, float(D ** -0.5), float(softcap),
+                 _DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError(f"{symbol} kernel launch failed: CUDA error "
                            f"{err}")

@@ -33,9 +33,9 @@ import torch
 
 from repro_torch import runtime
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention import (MAX_GROUP, MAX_HEAD_DIM,
-                                                  SMEM_LIMIT,
-                                                  decode_attention_plain)
+from repro_torch.kernels.decode_attention import (
+    MAX_GROUP, MAX_HEAD_DIM, MAX_SPLIT, SMEM_LIMIT, THREADS, TILE,
+    decode_attention_plain, split_plan, tickets)
 
 COUNTER = runtime.counter("paged_decode_attention")
 COUNTER_INT8 = runtime.counter("paged_decode_attention_int8")
@@ -47,30 +47,7 @@ _ARGTYPES_INT8 = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 +
                   [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the CUDA source's kThreads, kTile and kMaxSplit
-_THREADS = 128           # the kernel's threads per block
-_TILE = 64               # slots it stages at a time
-MAX_SPLIT = 64           # runs of pages per row (its merge holds 64 weights)
 _TICKETS = {}            # device -> int32 tickets, zero between calls
-
-
-def split_plan(pps: int, page: int) -> tuple:
-    """``(pages_per_split, n_split)``: how the kernel splits a row's ``pps``
-    pages across blocks.  A run holds at least 64 slots and a row at most
-    ``MAX_SPLIT`` runs; the plan reads shapes only, never ``valid_len``
-    (a device value), so no call synchronises."""
-    per = max(-(-_TILE // page), -(-pps // MAX_SPLIT), 1)
-    return per, max(-(-pps // per), 1)
-
-
-def _tickets(device: torch.device, n: int) -> torch.Tensor:
-    """The device's ticket buffer, at least ``n`` entries, zeroed once when
-    it is made (the kernel's merging block resets each ticket it used)."""
-    t = _TICKETS.get(device)
-    if t is None or t.numel() < n:
-        t = _TICKETS[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
-                                           device=device)
-    return t
 
 
 def attended_range(valid_len: torch.Tensor, window: int, limit: int
@@ -114,13 +91,13 @@ def paged_decode_attention_plain(q: torch.Tensor, pool_k: torch.Tensor,
 
 
 def smem_bytes(H: int, KV: int, D: int) -> int:
-    """Shared memory of one launch (mirrors ``smem_bytes`` in the CUDA
-    source: q, one tile of K and V rows padded to D + 1, its scores, the
-    slot-group sums, m / l / alpha and the merge's weights).  It does not
-    depend on the page size or the context."""
+    """Shared memory of one launch (mirrors ``smem_bytes`` in
+    ``csrc/split_decode.cuh``: q, one tile of K and V rows padded to
+    D + 1, its scores, the slot-group sums, m / l / alpha and the merge's
+    weights).  It does not depend on the page size or the context."""
     G = H // KV
-    sg = max(1, _THREADS // (G * D))
-    return 4 * (G * D + 2 * _TILE * (D + 1) + G * _TILE + sg * G * D +
+    sg = max(1, THREADS // (G * D))
+    return 4 * (G * D + 2 * TILE * (D + 1) + G * TILE + sg * G * D +
                 3 * G + MAX_SPLIT * G)
 
 
@@ -159,7 +136,7 @@ def paged_decode_attention_cuda(q: torch.Tensor, pool_k: torch.Tensor,
                          f"{MAX_GROUP}, head_dim <= {MAX_HEAD_DIM}; got "
                          f"H={H} KV={KV} D={D}")
     if smem_bytes(H, KV, D) > SMEM_LIMIT:
-        raise ValueError(f"paged kernel stages a tile of {_TILE} slots in "
+        raise ValueError(f"paged kernel stages a tile of {TILE} slots in "
                          f"shared memory: H/KV={H // KV}, D={D} needs "
                          f"{smem_bytes(H, KV, D)} B > {SMEM_LIMIT} B")
     if page_table.ndim != 2 or page_table.shape[0] != B or \
@@ -183,7 +160,7 @@ def paged_decode_attention_cuda(q: torch.Tensor, pool_k: torch.Tensor,
     per, n_split = split_plan(pps, page)
     part = torch.empty((B, KV, n_split, H // KV, D + 2), dtype=torch.float32,
                        device=q.device)
-    tickets = _tickets(q.device, B * KV)
+    tk = tickets(_TICKETS, q.device, B * KV)
     ptrs = [q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr()]
     if quant:
         k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
@@ -194,7 +171,7 @@ def paged_decode_attention_cuda(q: torch.Tensor, pool_k: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = fn(*ptrs, pt.data_ptr(), vl.data_ptr(), out.data_ptr(),
-                 part.data_ptr(), tickets.data_ptr(), B, H, KV, D, page, pps,
+                 part.data_ptr(), tk.data_ptr(), B, H, KV, D, page, pps,
                  per, n_split, float(D ** -0.5), float(softcap), int(window),
                  _DTYPES[q.dtype], stream)
     if err:

@@ -250,6 +250,41 @@ CUDA_FLASH_EXTRA = [
 ]
 
 
+# the split-KV decode's own edges (GPU sweep only): ranges that start and
+# end inside different runs of a 1000-slot row, a single-slot range, an
+# empty row, 16384 slots at G 4, softcap, and int8 codes with scales
+CUDA_DECODE_SPLIT = [
+    # B, H, KV, D, S, lo, hi, softcap, int8
+    (3, 12, 12, 36, 1000, [70, 0, 500], [930, 0, 501], 0.0, False),
+    (2, 16, 4, 64, 16384, [0, 9000], [16000, 16384], 0.0, False),
+    (2, 8, 2, 32, 700, [65, 0], [640, 700], 30.0, False),
+    (3, 8, 2, 36, 1000, [0, 130, 1000], [999, 700, 1000], 0.0, True),
+    (2, 12, 12, 36, 256, [0, 156], [170, 256], 20.0, True),
+]
+
+
+def _decode_split_inputs(B, H, KV, D, S, lo, hi, quant, dtype, dev,
+                         seed=37):
+    """q, k, v (int8 codes when ``quant``), their scales (or None), lo,
+    hi on ``dev``."""
+    rng = np.random.RandomState(seed)
+    q = torch.from_numpy(rng.randn(B, H, D).astype(np.float32)).to(dev,
+                                                                   dtype)
+    ks = vs = None
+    if quant:
+        k, v = (torch.from_numpy(rng.randint(-127, 128, (B, S, KV, D))
+                                 .astype(np.int8)).to(dev) for _ in "kv")
+        ks, vs = (torch.from_numpy((rng.rand(B, S, KV, 1) * 0.02 + 1e-3)
+                                   .astype(np.float32)).to(dev)
+                  for _ in "kv")
+    else:
+        k, v = (torch.from_numpy(rng.randn(B, S, KV, D).astype(np.float32))
+                .to(dev, dtype) for _ in "kv")
+    lo, hi = (torch.tensor(x, dtype=torch.int32, device=dev)
+              for x in (lo, hi))
+    return q, k, v, ks, vs, lo, hi
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
@@ -267,6 +302,18 @@ def test_cuda_kernels_vs_plain(dtype, tol):
         out = DA.decode_attention_cuda(q, k, v, lo, hi, cap)
         ref = DA.decode_attention_plain(q, k, v, lo, hi, cap)
         assert (out.float() - ref.float()).abs().max().item() <= tol
+    for B, H, KV, D, S, lo, hi, cap, quant in CUDA_DECODE_SPLIT:
+        q, k, v, ks, vs, lo, hi = _decode_split_inputs(B, H, KV, D, S, lo,
+                                                       hi, quant, dtype, dev)
+        if quant:
+            out = DA.decode_attention_int8_cuda(q, k, v, ks, vs, lo, hi, cap)
+        else:
+            out = DA.decode_attention_cuda(q, k, v, lo, hi, cap)
+        ref = DA.decode_attention_plain(q, k, v, lo, hi, cap, ks, vs)
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+        for b in range(B):
+            if int(hi[b]) <= int(lo[b]):
+                assert not out[b].any(), "an empty row gives exact zeros"
     for B, Lq, Lk, H, KV, D, causal, win in RAGGED + CUDA_FLASH_EXTRA:
         q, k, v = (torch.from_numpy(a).to(dev, dtype)
                    for a in _qkv(B, Lq, Lk, H, KV, D, seed=33))

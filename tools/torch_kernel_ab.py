@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's K2 and K3 kernels of two source trees on one GPU, in
+"""Time the port's K1, K2 and K3 kernels of two source trees on one GPU, in
 turns (A B B A), at the cases of this checkout's ``chip_smoke.py``.
 
     python tools/torch_kernel_ab.py --parent DIR [--out FILE]
@@ -7,10 +7,12 @@ turns (A B B A), at the cases of this checkout's ``chip_smoke.py``.
 ``DIR`` is a checkout of an earlier commit (for example unpacked with
 ``git archive``).  Each turn is a child process that puts one tree's
 ``src`` first on ``sys.path``, builds that tree's kernels and runs
-``chip_smoke.k3_rows`` and ``chip_smoke.k2_rows`` (every case in bf16 and
-f32, each checked against the tree's plain version) -- so both trees see
-the same cases and the same seeded inputs.  Prints a table of the
-kernels' device ms per case (each tree's two turns) beside the SDPA
+``chip_smoke.k1_rows``, ``k3_rows`` and ``k2_rows`` (every case in bf16
+and f32, each checked against the tree's plain version) -- so both trees
+see the same cases and the same seeded inputs.  A K1 case that a tree's
+wrapper refuses (an earlier K1 kept its scores in shared memory, so it
+took no more than ~57.9k slots) is printed as refused.  Prints a table of
+the kernels' device ms per case (each tree's two turns) beside the SDPA
 yardstick, and with ``--out`` writes every row as JSON.  Needs a GPU.
 """
 from __future__ import annotations
@@ -37,7 +39,8 @@ def child(src: str) -> int:
     if not str(check).startswith(str(Path(src).resolve())):
         raise RuntimeError(f"imported {check}, not the tree under {src}")
     torch.backends.cuda.matmul.allow_tf32 = False
-    _build.build(["flash_attention", "paged_decode_attention"])
+    _build.build(["decode_attention", "flash_attention",
+                  "paged_decode_attention"])
     cfg = get_config("tconst-41m")
     dev = torch.device("cuda")
     max_len = serve.sessions_max_len(serve.parse_args(CS.SESSIONS_ARGS))
@@ -49,6 +52,16 @@ def child(src: str) -> int:
 
     rows = []
     for dname in ("bfloat16", "float32"):
+        for case in CS.k1_cases(torch, cfg, dev, max_len):
+            try:
+                CS.k1_rows(torch, rows, cfg, dev, randn, gen, dname, max_len,
+                           cases=[case], int8_cases=[])
+            except ValueError as e:     # the tree's wrapper refuses it
+                rows.append({"kernel": CS.K1, "case": case[0],
+                             "dtype": dname, "ms": None, "library_ms": None,
+                             "refused": str(e)})
+        CS.k1_rows(torch, rows, cfg, dev, randn, gen, dname, max_len,
+                   cases=[])
         CS.k3_rows(torch, rows, cfg, dev, randn, gen, dname, max_len)
         CS.k2_rows(torch, rows, cfg, dev, randn, dname, max_len)
     print(TAG + json.dumps(rows), flush=True)
@@ -82,12 +95,15 @@ def main(argv=None) -> int:
     print(card)
     print(f"{'kernel':28s} {'case':17s} {'dtype':8s} {'A ms':>17s} "
           f"{'B ms':>17s} {'library ms':>10s}")
-    for i, r in enumerate(turns[0][1]):
+    def ms(x):
+        return "refused" if x is None else f"{x:.4f}"
+
+    for i, r in enumerate(turns[1][1]):     # a B turn: never refused
         a = [t[1][i]["ms"] for t in turns if t[0] == "A"]
         b = [t[1][i]["ms"] for t in turns if t[0] == "B"]
         lib = r["library_ms"]
         print(f"{r['kernel']:28s} {r['case']:17s} {r['dtype']:8s} "
-              f"{a[0]:8.4f} {a[1]:8.4f} {b[0]:8.4f} {b[1]:8.4f} "
+              f"{ms(a[0]):>8s} {ms(a[1]):>8s} {ms(b[0]):>8s} {ms(b[1]):>8s} "
               f"{'' if lib is None else f'{lib:10.4f}'}")
     if args.out:
         Path(args.out).write_text(json.dumps(
