@@ -26,16 +26,18 @@ Phases (any failure raises, so the exit code is non-zero):
    (paged decode) and K3-int8: the history over a page pool of 64-token
    pages, ragged valid lengths (0, a partial last page), window 0 and 256,
    trash entries in the table, and a row of 16000 slots (250 pages, many
-   splits) beside an empty row.  K4 (the SSD chunk kernels, f32 only: their
-   inputs are f32 on every path): the intra-chunk block and the chunk scan
-   at the shapes ``mamba2-130m`` admission gives them -- chunk Q = 64
-   (batch 4, 1024 tokens), 8, 2 and 1 (one prompt of 600, 610, 605
-   tokens), one case with a nonzero initial state.  Prints the kernel's,
+   splits) beside an empty row.  K4 (the SSD scan, tiled at mamba2's
+   chunk 64 with a ragged last chunk; f32 arithmetic): its two launches
+   against the plain mirror of that tiling at the shapes ``mamba2-130m``
+   admission gives them -- batch 4 x 1024 tokens (whole chunks), one
+   prompt of 605 and of 615 tokens (10 chunks, the last ragged; 615 from
+   a nonzero state) and of 29 (one short chunk), in f32 and (1024 and 605)
+   with the bf16 model's inputs.  Prints the kernel's,
    the plain version's and ``F.scaled_dot_product_attention``'s times (a
    yardstick only, with the gather or dequantisation it needs; the port
    never calls it; no one PyTorch call computes K4) and the least time
    the card could take.  Then the device launches one call of K1, K1-int8,
-   K2, K3 and K3-int8 makes (torch.profiler): one each.
+   K2, K3, K3-int8 and each K4 launch makes (torch.profiler): one each.
 4. Serve ``tconst-41m`` at full width with the port's seeded init
    (``--sessions 4 --prompt-len 600 --gen 320 --chunk 32``), each run's
    launch counters reset before the scheduler and read right after it:
@@ -368,87 +370,117 @@ def paged_pool(torch, randn, gen, B, KV, D, page, pps, valid_len, dtype,
 
 
 def kernel_row(rows, kernel, case, dname, shape, out, ref, run, plain,
-               library, n_bytes, flops, scale=1.0, plain_reps=20):
+               library, n_bytes, flops, scale=1.0, plain_reps=20,
+               tol_dtype=None, ops_dtype=None):
     """Check one kernel output against its plain version (tolerance TOL
-    times ``scale``) and time the kernel, the plain version (``plain_reps``
-    calls a round: fewer for a slow host loop) and the library call (None:
-    there is none)."""
+    of ``tol_dtype``, default ``dname``, times ``scale``) and time the
+    kernel, the plain version (``plain_reps`` calls a round: fewer for a
+    slow host loop) and the library call (None: there is none).  The
+    operations bound takes the peak rate of ``ops_dtype`` (default
+    ``dname``): the type the kernel computes in."""
     import torch
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
-    tol = TOL[dname] * scale
+    tol = TOL[tol_dtype or dname] * scale
     check(bool(torch.isfinite(out.float()).all()),
           f"{kernel} {case}/{dname}: non-finite output")
     check(err <= tol, f"{kernel} {case}/{dname}: max |kernel - "
           f"plain| = {err} > {tol}")
-    b, by = bound_ms(n_bytes, flops, dname)
+    ops_dtype = ops_dtype or dname
+    b, by = bound_ms(n_bytes, flops, ops_dtype)
     rows.append({"kernel": kernel, "case": case, "dtype": dname,
                  "shape": shape, "max_abs_err": err, "tol": tol,
                  "ms": time_ms(run),
                  "plain_ms": time_ms(plain, reps=plain_reps),
                  "library_ms": None if library is None else
-                 time_ms(library), "bound_ms": b, "bound_by": by})
+                 time_ms(library), "bound_ms": b, "bound_by": by,
+                 "bytes_ms": 1e3 * n_bytes / HBM_BYTES_PER_S,
+                 "ops_ms": 1e3 * flops / PEAK_FLOPS[ops_dtype]})
 
 
 def ssd_cases():
-    """(label, B, L, Q, init): K4 at mamba2-130m's admission shapes --
-    the engine's batch of 1024-token prompts and the sessions' prompts
-    of 600, 610 and 605 tokens, whose chunk rule gives Q = 64, 8, 2, 1;
-    the Q = 2 case starts from a nonzero state."""
-    return [("q64_b4", 4, 1024, 64, False), ("q8_l600", 1, 600, 8, False),
-            ("q2_l610", 1, 610, 2, True), ("q1_l605", 1, 605, 1, False)]
+    """(label, B, L, init, dtype): K4 at mamba2-130m's admission shapes,
+    tiled at its ssm_chunk (64) -- the engine's batch of 1024-token
+    prompts (whole chunks), the sessions' prompts of 605 and 615 tokens
+    (10 chunks, the last ragged: 29 and 39 rows; the 615 case starts from
+    a nonzero state) and a 29-token prompt (one short chunk); in f32 and,
+    for the two served shapes, in bf16 (the bf16 model's inputs)."""
+    return [("q64_b4", 4, 1024, False, "float32"),
+            ("l605", 1, 605, False, "float32"),
+            ("l615", 1, 615, True, "float32"),
+            ("l29", 1, 29, False, "float32"),
+            ("q64_b4", 4, 1024, False, "bfloat16"),
+            ("l605", 1, 605, False, "bfloat16")]
+
+
+def ssd_flops(B: int, L: int, H: int, P: int, N: int, Q: int):
+    """f32 operations (an FMA is two) each K4 launch needs on these
+    shapes, chunk by chunk (the last one ragged): launch 1 the scores
+    C . B^T once per (row, chunk) on the s <= l pairs, and per head the
+    decay, scores . xdt and the chunk-end state; launch 2 C . prev, its
+    scale and add, and the state update."""
+    intra = scan = 0
+    for r0 in range(0, L, Q):
+        q = min(Q, L - r0)
+        pairs = q * (q + 1) // 2
+        intra += 2 * B * pairs * N +             B * H * (pairs + 2 * pairs * P + 2 * q * P * N)
+        scan += B * H * (2 * q * P * N + 2 * q * P + 2 * P * N)
+    return intra, scan
 
 
 def ssd_phase(torch, rows, dev, gen):
-    """K4's two entries against their plain versions, f32, on inputs made
-    as the mixer makes them (dt = softplus, a = -(1..H))."""
+    """K4's two launches against the plain mirror of their ragged tiling,
+    each on the mirror's inputs: x, b and c sliced from one conv output as
+    the mixer slices them, dt = softplus, a = -(1..H)."""
     from repro_torch.config import get_config
     from repro_torch.kernels import ssd_scan as SS
     from repro_torch.layers.ssm import ssm_dims
-    dims = ssm_dims(get_config(SSM))
-    H, P, N = dims.n_heads, dims.head_dim, dims.n_state
+    cfg = get_config(SSM)
+    dims = ssm_dims(cfg)
+    H, P, N, Q = dims.n_heads, dims.head_dim, dims.n_state, cfg.ssm_chunk
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    for label, B, L, Q, init in ssd_cases():
-        x, b, c = randn(B, L, H, P), randn(B, L, N), randn(B, L, N)
+    for label, B, L, init, dname in ssd_cases():
+        dtype = getattr(torch, dname)
+        xbc = randn(B, L, H * P + 2 * N).to(dtype)
+        x = xbc[..., :H * P].reshape(B, L, H, P)
+        b, c = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
         dt = torch.nn.functional.softplus(randn(B, L, H) - 4.0)
         a = -torch.arange(1, H + 1, device=dev, dtype=torch.float32)
-        xdt, da, bc, cc = SS.prepare(x, dt, a, b, c, Q)
-        nc = L // Q
-        shape = f"B={B} H={H} nc={nc} Q={Q} P={P} N={N}"
-        pairs = Q * (Q + 1) // 2
-        # each row checks both outputs of its entry (flattened together)
-        y, st = SS.ssd_intra_chunk_cuda(xdt, da, bc, cc)
-        yr, sr = SS.ssd_intra_chunk_plain(xdt, da, bc, cc)
+        nc = -(-L // Q)
+        shape = f"B={B} L={L} H={H} nc={nc} Q={Q} P={P} N={N}"
+        f_intra, f_scan = ssd_flops(B, L, H, P, N, Q)
+        # each row checks both outputs of its launch (flattened together)
+        y, st = SS.ssd_intra_chunk_cuda(x, dt, a, b, c, Q)
+        yr, sr = SS.ssd_intra_chunk_tiled_plain(x, dt, a, b, c, Q)
         out, ref = torch.cat([y.flatten(), st.flatten()]), \
             torch.cat([yr.flatten(), sr.flatten()])
-        kernel_row(rows, K4_INTRA, label, "float32", shape, out, ref,
-                   lambda: SS.ssd_intra_chunk_cuda(xdt, da, bc, cc),
-                   lambda: SS.ssd_intra_chunk_plain(xdt, da, bc, cc), None,
-                   nbytes(xdt, da, bc, cc, y, st),
-                   # C.B^T once per (row, chunk); per head the decay,
-                   # scores.xdt and the state product
-                   2 * B * nc * pairs * N +
-                   B * H * nc * (pairs + 2 * pairs * P + 2 * Q * P * N),
-                   scale=max(1.0, ref.abs().max().item()))
-        s0 = randn(B, H, P, N) if init else None
-        y2, f = SS.ssd_chunk_scan_cuda(yr, sr, da, cc, s0)
-        y2r, fr = SS.ssd_chunk_scan_plain(yr, sr, da, cc, s0)
-        out, ref = torch.cat([y2.flatten(), f.flatten()]), \
-            torch.cat([y2r.flatten(), fr.flatten()])
-        kernel_row(rows, K4_SCAN, label, "float32",
-                   shape + (" init" if init else ""), out, ref,
-                   lambda: SS.ssd_chunk_scan_cuda(yr, sr, da, cc, s0),
-                   lambda: SS.ssd_chunk_scan_plain(yr, sr, da, cc, s0),
-                   None, nbytes(yr, sr, da, cc, y2, f) +
-                   (0 if s0 is None else nbytes(s0)),
-                   B * H * nc * (2 * Q * P * N + Q * P + 2 * P * N),
+        # launch 1's outputs are f32 whatever the inputs: the f32 TOL
+        kernel_row(rows, K4_INTRA, label, dname, shape, out, ref,
+                   lambda: SS.ssd_intra_chunk_cuda(x, dt, a, b, c, Q),
+                   lambda: SS.ssd_intra_chunk_tiled_plain(x, dt, a, b, c, Q),
+                   None, nbytes(x, dt, a, b, c, y, st), f_intra,
                    scale=max(1.0, ref.abs().max().item()),
-                   plain_reps=max(1, 40 // nc))   # a host loop of nc steps
-        del x, b, c, dt, xdt, da, bc, cc, y, st, yr, sr, y2, f, y2r, fr, \
-            out, ref
+                   tol_dtype="float32", ops_dtype="float32", plain_reps=5)
+        s0 = randn(B, H, P, N) if init else None
+        y2, f = SS.ssd_chunk_scan_cuda(yr, sr, dt, a, c, Q, s0)
+        y2r, fr = SS.ssd_chunk_scan_tiled_plain(yr, sr, dt, a, c, Q, s0,
+                                                dtype)
+        check(y2.dtype == dtype, f"{K4_SCAN} {label}: y in {y2.dtype}")
+        out, ref = torch.cat([y2.float().flatten(), f.flatten()]), \
+            torch.cat([y2r.float().flatten(), fr.flatten()])
+        kernel_row(rows, K4_SCAN, label, dname,
+                   shape + (" init" if init else ""), out, ref,
+                   lambda: SS.ssd_chunk_scan_cuda(yr, sr, dt, a, c, Q, s0),
+                   lambda: SS.ssd_chunk_scan_tiled_plain(yr, sr, dt, a, c, Q,
+                                                         s0, dtype),
+                   None, nbytes(yr, sr, dt, a, c, y2, f) +
+                   (0 if s0 is None else nbytes(s0)), f_scan,
+                   scale=max(1.0, ref.abs().max().item()),
+                   ops_dtype="float32", plain_reps=5)
+        del xbc, x, b, c, dt, y, st, yr, sr, y2, f, y2r, fr, out, ref
         torch.cuda.empty_cache()
 
 
@@ -609,9 +641,11 @@ def launches_per_call(torch, fn) -> int:
 
 
 def launch_counts(torch, cfg, dev, max_len: int) -> dict:
-    """Launches per call of K1, K1-int8, K2 and K3 (float and int8 pools)
-    at the served shapes (the hit step's gen-window self-attention, the
-    compress pass, the paged history of 3 rows)."""
+    """Launches per call of K1, K1-int8, K2, K3 (float and int8 pools) and
+    K4's two launches at the served shapes (the hit step's gen-window
+    self-attention, the compress pass, the paged history of 3 rows, a
+    605-token bf16 mamba2 admission with x, b, c sliced as the mixer
+    slices them)."""
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_decode_attention as PD
@@ -648,6 +682,22 @@ def launch_counts(torch, cfg, dev, max_len: int) -> dict:
         out[name] = launches_per_call(
             torch, lambda: PD.paged_decode_attention_cuda(
                 qd, pk, pv, pt, vl, 0.0, 0, ks, vs))
+    from repro_torch.config import get_config
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.layers.ssm import ssm_dims
+    scfg = get_config(SSM)
+    dims = ssm_dims(scfg)
+    H, P, N, Q = dims.n_heads, dims.head_dim, dims.n_state, scfg.ssm_chunk
+    xbc = randn((1, 605, H * P + 2 * N), bf)
+    x = xbc[..., :H * P].reshape(1, 605, H, P)
+    b, c = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    dt = torch.nn.functional.softplus(randn((1, 605, H), torch.float32))
+    a = -torch.arange(1, H + 1, device=dev, dtype=torch.float32)
+    yi, st = SS.ssd_intra_chunk_cuda(x, dt, a, b, c, Q)
+    out[K4_INTRA] = launches_per_call(
+        torch, lambda: SS.ssd_intra_chunk_cuda(x, dt, a, b, c, Q))
+    out[K4_SCAN] = launches_per_call(
+        torch, lambda: SS.ssd_chunk_scan_cuda(yi, st, dt, a, c, Q))
     return out
 
 
@@ -835,8 +885,8 @@ def main() -> int:
     rows = kernel_phase(torch, cfg41, dev, max_len)
     per_call = launch_counts(torch, cfg41, dev, max_len)
     print(f"[launches] device launches per call: {per_call}")
-    check(all(n == 1 for n in per_call.values()), f"K1 / K2 / K3 must take "
-          f"one device launch a call: {per_call}")
+    check(all(n == 1 for n in per_call.values()), f"K1 / K2 / K3 / K4 must "
+          f"take one device launch a call: {per_call}")
     phase_s = {"kernels": time.time() - t_phase}
 
     # 4. serve at full width: every run is a main path, counted alone
@@ -849,7 +899,8 @@ def main() -> int:
             tol = (LOGIT_TOL_SSM if mode == "mamba2" else LOGIT_TOL).get(
                 dtype)
             if dtype == "bfloat16" or (mode, layout) == ("tconst", "dense"):
-                # mamba2: prompts 600 and 605 (K4 at chunk 8 and 1)
+                # mamba2: prompts 600 and 605 (10 chunks of 64, the last
+                # 24 and 29 rows)
                 rep["logit_err"] = logits_phase(
                     torch, serve, cfg, args, params, tol,
                     n_prompts=None if (mode, layout) == ("tconst", "dense")
@@ -913,7 +964,7 @@ def main() -> int:
     # 6. report
     line = []
     for name, (case, src, repl, run) in KERNELS.items():
-        # the bf16 row of the representative case (K4 has f32 rows only)
+        # the bf16 row of the representative case
         r = min((x for x in rows if x["kernel"] == name and
                  x["case"] == case), key=lambda x: x["dtype"] != "bfloat16")
         line.append({

@@ -96,6 +96,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4 (both entries: the intra-chunk block and the chunk scan).  x
     (Bt, L, H, P); dt (Bt, L, H); a (H,); b/c (Bt, L, N); init_state
-    (Bt, H, P, N) or None.  Returns (y (Bt, L, H, P), final state (Bt, H,
-    P, N) f32) -- ``ssd_chunked``'s result."""
+    (Bt, H, P, N) or None; ``chunk`` the model's ``ssm_chunk`` (the card
+    tiles at it with a ragged last chunk, the CPU path halves it until it
+    divides L).  Returns (y (Bt, L, H, P), final state (Bt, H, P, N) f32)
+    -- ``ssd_chunked``'s result."""
     return SS.ssd_scan(x, dt, a, b, c, chunk, init_state)

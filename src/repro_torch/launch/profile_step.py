@@ -8,8 +8,8 @@ It takes ``serve``'s flags (``--arch``, ``--layout``, ``--page-size``, ...
 with the full pool) and ``--mode tlin`` for the TLinFormer baseline on
 the same weights, whose hit step also reads the O(N) history KV (K3 on
 the paged layouts).  ``--arch mamba2_130m`` profiles the SSM family: its
-step and its admission (K4 at chunk ``min(64, prompt_len)`` halved until
-it divides the prompt); it has no resync.
+step and its admission (K4 tiled at chunk 64, the prompt's last chunk
+ragged); it has no resync.
 
 Prefills a uniform batch, warms up, then profiles ``--steps`` cache-hit
 steps (one batched token each, ended by ``cuda.synchronize``), one

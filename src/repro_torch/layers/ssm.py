@@ -6,8 +6,9 @@ SSD core, gated RMSNorm, out_proj.  Single B/C group (n_groups=1), scalar
 A per head.
 
 The mixer's chunked branch runs K4 (``ops.ssd_scan``: the intra-chunk
-kernel and the chunk scan; the JAX mixer calls the plain ``ssd_chunked``,
-of which K4 is the drop-in equivalent).  :func:`ssd_chunked` stays here as
+kernel and the chunk scan, tiled at ``ssm_chunk`` for any length on the
+card; the JAX mixer calls the plain ``ssd_chunked``, of which K4 is the
+drop-in equivalent).  :func:`ssd_chunked` stays here as
 the plain reference the tests hold K4 against.  The decode recurrence
 :func:`ssd_step` is plain ops, as in JAX.
 """
@@ -225,10 +226,9 @@ def ssm_mixer(params: Params, x: torch.Tensor, cfg: ModelConfig,
         y = y[:, None]
     else:
         init = state["ssm"] if state is not None else None
-        chunk = min(cfg.ssm_chunk, L)
-        while L % chunk != 0:
-            chunk //= 2
-        y, new_ssm = ops.ssd_scan(xs, dt, a, b, c, max(1, chunk), init)
+        # the card tiles at ssm_chunk with a ragged last chunk; the CPU
+        # path halves the chunk until it divides L, as JAX does
+        y, new_ssm = ops.ssd_scan(xs, dt, a, b, c, cfg.ssm_chunk, init)
 
     y = y + xs * params["d_skip"].to(dtype)[None, None, :, None]
     y = y.reshape(B, L, di)

@@ -136,23 +136,23 @@ def test_ssd_dispatch_takes_plain_on_cpu_and_counts_it():
 def test_ssd_cuda_wrappers_refuse_cpu_tensors_and_bad_shapes():
     """No fallback: the kernel wrappers take CUDA tensors or raise; shapes
     beyond the kernels' limits raise on any device."""
-    xdt = torch.zeros((1, 2, 3, 4, 8))
-    da = torch.zeros((1, 2, 3, 4))
-    b = torch.zeros((1, 3, 4, 16))
+    x = torch.zeros((1, 12, 2, 8))
+    dt = torch.zeros((1, 12, 2))
+    a = torch.zeros((2,))
+    b = torch.zeros((1, 12, 16))
     with pytest.raises(ValueError, match="CUDA"):
-        SS.ssd_intra_chunk_cuda(xdt, da, b, b)
+        SS.ssd_intra_chunk_cuda(x, dt, a, b, b, 4)
     with pytest.raises(ValueError, match="CUDA"):
-        SS.ssd_chunk_scan_cuda(xdt, torch.zeros((1, 2, 3, 8, 16)), da, b)
-    SS.check_shapes(xdt, da, b, b)
+        SS.ssd_chunk_scan_cuda(x, torch.zeros((1, 2, 3, 8, 16)), dt, a, b, 4)
+    SS.check_shapes(x, dt, a, b, b, 4)
     for shape_q, shape_p, shape_n in ((65, 8, 16), (4, 65, 16),
                                       (4, 8, 129)):
         with pytest.raises(ValueError, match="Q <= 64"):
-            SS.check_shapes(torch.zeros((1, 2, 3, shape_q, shape_p)),
-                            torch.zeros((1, 2, 3, shape_q)),
-                            torch.zeros((1, 3, shape_q, shape_n)),
-                            torch.zeros((1, 3, shape_q, shape_n)))
+            SS.check_shapes(torch.zeros((1, 12, 2, shape_p)), dt, a,
+                            torch.zeros((1, 12, shape_n)),
+                            torch.zeros((1, 12, shape_n)), shape_q)
     with pytest.raises(ValueError, match="bad shapes"):
-        SS.check_shapes(xdt, da[..., :2], b, b)
+        SS.check_shapes(x, dt[..., :1], a, b, b, 4)
 
 
 # ---------------------------------------------------------------------------

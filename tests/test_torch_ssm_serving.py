@@ -197,26 +197,48 @@ def test_serve_batch_and_profile_step_on_cpu(capsys):
 
 @pytest.mark.cuda
 def test_cuda_ssd_kernels_vs_plain():
+    """Both K4 launches against the plain mirror of their ragged tiling
+    (each launch on the mirror's inputs), f32 tolerance 1e-4 of the
+    output's scale (bf16 y: 2e-2): L 1, 29 (one short chunk), 605 and 1024
+    (ragged and whole), B 1 and 4, with and without an initial state, a
+    chunk below 64, bf16 inputs, and the mixer's strided slices."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no "
                     "CPU mode (their plain versions are tested above)")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    for B, L, H, P, N, Q, init in ((2, 128, 4, 64, 128, 64, True),
-                                   (1, 120, 3, 16, 16, 8, False),
-                                   (1, 37, 2, 64, 128, 1, True)):
+    cases = [  # B, L, H, P, N, Q, init, dtype
+        (1, 1, 4, 64, 128, 64, True, torch.float32),
+        (4, 1, 3, 16, 16, 64, False, torch.float32),
+        (1, 29, 3, 16, 16, 64, False, torch.float32),
+        (4, 29, 24, 64, 128, 64, True, torch.float32),
+        (1, 605, 24, 64, 128, 64, False, torch.float32),
+        (4, 605, 8, 32, 64, 64, True, torch.float32),
+        (1, 1024, 24, 64, 128, 64, True, torch.float32),
+        (4, 1024, 24, 64, 128, 64, False, torch.float32),
+        (2, 130, 4, 64, 128, 32, True, torch.float32),
+        (1, 605, 24, 64, 128, 64, True, torch.bfloat16),
+        (4, 1024, 24, 64, 128, 64, False, torch.bfloat16)]
+    for B, L, H, P, N, Q, init, dtype in cases:
         def rnd(*shape):
             return torch.randn(shape, generator=gen, device=dev)
-        x, b, c = rnd(B, L, H, P), rnd(B, L, N), rnd(B, L, N)
+        # x, b, c as the mixer slices them from one conv output
+        xbc = rnd(B, L, H * P + 2 * N).to(dtype)
+        x = xbc[..., :H * P].reshape(B, L, H, P)
+        b, c = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
         dt = torch.nn.functional.softplus(rnd(B, L, H) - 3.0)
         a = -torch.arange(1, H + 1, device=dev, dtype=torch.float32)
         s0 = rnd(B, H, P, N) if init else None
-        xdt, da, bc, cc = SS.prepare(x, dt, a, b, c, Q)
-        y, st = SS.ssd_intra_chunk_cuda(xdt, da, bc, cc)
-        yr, str_ = SS.ssd_intra_chunk_plain(xdt, da, bc, cc)
-        y2, f = SS.ssd_chunk_scan_cuda(yr, str_, da, cc, s0)
-        y2r, fr = SS.ssd_chunk_scan_plain(yr, str_, da, cc, s0)
+        y, st = SS.ssd_intra_chunk_cuda(x, dt, a, b, c, Q)
+        yr, str_ = SS.ssd_intra_chunk_tiled_plain(x, dt, a, b, c, Q)
+        y2, f = SS.ssd_chunk_scan_cuda(yr, str_, dt, a, c, Q, s0)
+        y2r, fr = SS.ssd_chunk_scan_tiled_plain(yr, str_, dt, a, c, Q, s0,
+                                                dtype)
         torch.cuda.synchronize()
-        for got, ref in ((y, yr), (st, str_), (y2, y2r), (f, fr)):
-            scale = max(1.0, ref.abs().max().item())
-            assert (got - ref).abs().max().item() <= 1e-4 * scale
+        assert y2.dtype == dtype and f.dtype == torch.float32
+        ytol = 1e-4 if dtype == torch.float32 else 2e-2
+        for got, ref, tol in ((y, yr, 1e-4), (st, str_, 1e-4),
+                              (y2, y2r, ytol), (f, fr, 1e-4)):
+            scale = max(1.0, ref.float().abs().max().item())
+            err = (got.float() - ref.float()).abs().max().item()
+            assert err <= tol * scale, (B, L, H, P, N, Q, init, dtype, err)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's K1, K2 and K3 kernels of two source trees on one GPU, in
-turns (A B B A), at the cases of this checkout's ``chip_smoke.py``.
+"""Time the port's K1, K2, K3 and K4 kernels of two source trees on one GPU,
+in turns (A B B A), at the cases of this checkout's ``chip_smoke.py``.
 
     python tools/torch_kernel_ab.py --parent DIR [--out FILE]
 
@@ -11,9 +11,15 @@ turns (A B B A), at the cases of this checkout's ``chip_smoke.py``.
 and f32, each checked against the tree's plain version) -- so both trees
 see the same cases and the same seeded inputs.  A K1 case that a tree's
 wrapper refuses (an earlier K1 kept its scores in shared memory, so it
-took no more than ~57.9k slots) is printed as refused.  Prints a table of
-the kernels' device ms per case (each tree's two turns) beside the SDPA
-yardstick, and with ``--out`` writes every row as JSON.  Needs a GPU.
+took no more than ~57.9k slots) is printed as refused.  K4 is timed
+through ``kernels.ssd_scan.ssd_scan``, the wrapper both trees have with
+one signature, at mamba2-130m's admission shapes (batch 4 x 1024 tokens,
+one 605-token prompt; f32 and bf16 inputs, made from one seed), each tree
+given the chunk its own mixer passes (``ssm_chunk``; a tree without
+``jax_chunk`` halved it until it divides L, as JAX does: chunk 1 at 605).
+Prints a table of the kernels' device ms per case (each tree's two turns)
+beside the SDPA yardstick, and with ``--out`` writes every row as JSON.
+Needs a GPU.
 """
 from __future__ import annotations
 
@@ -40,7 +46,7 @@ def child(src: str) -> int:
         raise RuntimeError(f"imported {check}, not the tree under {src}")
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build(["decode_attention", "flash_attention",
-                  "paged_decode_attention"])
+                  "paged_decode_attention", "ssd_scan"])
     cfg = get_config("tconst-41m")
     dev = torch.device("cuda")
     max_len = serve.sessions_max_len(serve.parse_args(CS.SESSIONS_ARGS))
@@ -64,8 +70,45 @@ def child(src: str) -> int:
                    cases=[])
         CS.k3_rows(torch, rows, cfg, dev, randn, gen, dname, max_len)
         CS.k2_rows(torch, rows, cfg, dev, randn, dname, max_len)
+        k4_rows(torch, CS, rows, dev, dname)
     print(TAG + json.dumps(rows), flush=True)
     return 0
+
+
+def k4_rows(torch, CS, rows, dev, dname: str) -> None:
+    """K4 through the tree's ``ssd_scan`` wrapper at the chunk the tree's
+    mixer passes."""
+    from repro_torch.config import get_config
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.layers.ssm import ssm_dims
+    cfg = get_config(CS.SSM)
+    dims = ssm_dims(cfg)
+    H, P, N = dims.n_heads, dims.head_dim, dims.n_state
+    dtype = getattr(torch, dname)
+    for label, B, L in (("q64_b4", 4, 1024), ("l605", 1, 605)):
+        gen = torch.Generator(device=dev).manual_seed(L)
+        xbc = torch.randn((B, L, H * P + 2 * N), generator=gen,
+                          device=dev).to(dtype)
+        x = xbc[..., :H * P].reshape(B, L, H, P)
+        b, c = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+        dt = torch.nn.functional.softplus(
+            torch.randn((B, L, H), generator=gen, device=dev) - 4.0)
+        a = -torch.arange(1, H + 1, device=dev, dtype=torch.float32)
+        chunk = cfg.ssm_chunk
+        if not hasattr(SS, "jax_chunk"):
+            while L % chunk:
+                chunk //= 2
+        y, f = SS.ssd_scan(x, dt, a, b, c, chunk)
+        torch.cuda.synchronize()
+        CS.check(bool(torch.isfinite(y.float()).all()) and
+                 bool(torch.isfinite(f).all()), f"K4 {label}: non-finite")
+        rows.append({"kernel": "ssd_scan (K4, both)", "case": label,
+                     "dtype": dname, "chunk": chunk,
+                     "ms": CS.time_ms(lambda: SS.ssd_scan(x, dt, a, b, c,
+                                                          chunk)),
+                     "library_ms": None})
+        del xbc, x, b, c, dt, y, f
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
