@@ -32,7 +32,12 @@ Phases (any failure raises, so the exit code is non-zero):
    admission gives them -- batch 4 x 1024 tokens (whole chunks), one
    prompt of 605 and of 615 tokens (10 chunks, the last ragged; 615 from
    a nonzero state) and of 29 (one short chunk), in f32 and (1024 and 605)
-   with the bf16 model's inputs.  Prints the kernel's,
+   with the bf16 model's inputs.  The dense LMs' shapes: K1 and K3 at
+   smollm-360m's (G 3, head_dim 64: 16-byte loads; hi 600 and 935 of 999
+   slots, a row with lo > 0, window 256), K1-int8 and K3-int8 at the base
+   transformer's, and K2's square causal prefill of 600 and 1024 tokens
+   (smollm, and 1024 under a 256 window) and of 1024 (base), where the
+   library yardstick is SDPA with ``is_causal``.  Prints the kernel's,
    the plain version's and ``F.scaled_dot_product_attention``'s times (a
    yardstick only, with the gather or dequantisation it needs; the port
    never calls it; no one PyTorch call computes K4) and the least time
@@ -51,11 +56,24 @@ Phases (any failure raises, so the exit code is non-zero):
    layout (the f32 runs of the new layouts use ``--prompt-len 700 --gen
    96``: every session still crosses a resync).  bf16 logits after the
    prefill and after a few decode steps are held against the f32 plain
-   path on the CPU, same layout.
-5. Uniform-batch Engine (``--batch 4 --prompt-len 1024 --gen 800``), on
-   tconst/dense and tlin/paged in the same call, in turns (A, B, B, A):
-   the mean cache-hit step (the paper's O(1) against O(N)) and resync
-   times of each run.
+   path on the CPU, same layout.  Then the dense attention LMs at full
+   width: smollm-360m (32 layers, d 960, 15 heads over 5 KV heads) on
+   the dense layout (K1, K2) and the paged one (K2, K3), and the paper's
+   base transformer (tconst-41m in full attention, on the tconst
+   weights) on int8 (K1-int8, K2) and paged_int8 (K2, K3-int8), same
+   argv, bf16 and f32 (f32 at ``--prompt-len 700 --gen 72``); their bf16
+   logits held at 3x the CPU plain path's own bf16 error.  Prints one
+   bf16 slot's KV bytes at max_len for tconst, the base and smollm.
+   A window phase serves reduced gemma3 (6 layers: 5 local : 1 global)
+   and tconst-41m in sliding mode (window 8) on all four layouts in f32:
+   K1 with ``lo > 0`` and K3 with ``window > 0`` through a model, the
+   card's logits against the CPU plain path's, the streams equal on the
+   float layouts.
+5. Uniform-batch Engine (``--batch 4 --prompt-len 1024 --gen 800``): the
+   paper's three variants on one set of weights -- tconst/dense,
+   tlin/paged and the base transformer (full/dense) -- in one call, in
+   turns (A, B, C, C, B, A): the mean cache-hit step (O(1) against O(N))
+   and resync times of each run.
 6. Prints the per-kernel JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.  Details go to
    ``build/chip_smoke.json``.
@@ -94,9 +112,25 @@ LOGIT_STEPS = 8      # decode steps checked after the prefill (K1's path)
 # bf16 activations, untied head
 LOGIT_TOL_SSM = {"bfloat16": 0.55}
 
+# the dense attention LMs' bf16 logits against the CPU f32 plain path: 3x
+# the CPU plain path's own bf16-against-f32 error on the same two prompts
+# (tools/torch_logit_err.py --arch smollm-360m, and --arch tconst-41m
+# --mode full for the base transformer, on the GPU machine's CPU)
+LOGIT_TOL_LM = {"smollm": {"bfloat16": 0.16},   # 0.046 first, 0.053 steps
+                "full": {"bfloat16": 0.09}}     # 0.027 first, 0.030 steps
+
 SESSIONS_ARGS = ["--sessions", "4", "--slots", "2", "--prompt-len", "600",
                  "--gen", "320", "--chunk", "32"]
 SSM = "mamba2_130m"
+SMOLLM = "smollm-360m"
+# a run's model: mode -> (arch, config overrides).  "full" is the paper's
+# base transformer: tconst-41m's config and weights in full attention
+MODELS = {"tconst": ("tconst-41m", {"attention_mode": "tconst"}),
+          "tlin": ("tconst-41m", {"attention_mode": "tlin"}),
+          "full": ("tconst-41m", {"attention_mode": "full"}),
+          "smollm": (SMOLLM, {}),
+          "mamba2": (SSM, {})}
+RESYNCING = ("tconst", "tlin")       # the modes with a periodic resync
 # paged runs: 3 slots, a pool below the full 3 x 16 pages: sessions need
 # 15, 15, 16, 16 pages of 64 (prompt + gen + one chunk), so two decode
 # together and the third waits for pages with a slot free
@@ -105,9 +139,14 @@ PAGED_ARGS = ["--slots", "3", "--page-size", "64", "--pool-pages", "31"]
 # resync (g0 = 188..203 of W_og = 256); paged pool 27 of 3 x 14 pages
 F32_ARGS = ["--prompt-len", "700", "--gen", "96"]
 F32_PAGED_ARGS = ["--slots", "3", "--page-size", "64", "--pool-pages", "27"]
+# f32 runs of the dense LMs (no resync to cross): gen 72, the shortest at
+# which the first session still decodes when the third arrives, so the
+# paged pool of 27 makes it wait (13 + 13 pages held)
+F32_LM_ARGS = ["--prompt-len", "700", "--gen", "72"]
 # gen 800 from a 1024-token prompt: four resyncs, three of them warm
 ENGINE_ARGS = ["--arch", "tconst-41m", "--batch", "4", "--prompt-len",
                "1024", "--gen", "800"]
+ENGINE_TURNS = (("tconst", "dense"), ("tlin", "paged"), ("full", "dense"))
 # mamba2: K4 at Q = 64 on admission, 255 warm steps
 SSM_ENGINE_ARGS = ["--arch", SSM, "--batch", "4", "--prompt-len", "1024",
                    "--gen", "256"]
@@ -124,7 +163,25 @@ SESSION_RUNS = [
     ("tlin", "paged_int8", (K1_INT8, K2, K3_INT8)),
     ("tconst", "int8", (K1_INT8, K2)),
     ("mamba2", "dense", (K4_INTRA, K4_SCAN)),
+    # the dense attention LMs: K2 at admission, the layout's decode kernel
+    # at every step
+    ("smollm", "dense", (K1, K2)),
+    ("smollm", "paged", (K2, K3)),
+    ("full", "int8", (K1_INT8, K2)),
+    ("full", "paged_int8", (K2, K3_INT8)),
 ]
+# the window phase (f32, reduced widths): gemma3's 5 local : 1 global
+# pattern needs 6 layers (reduced() keeps 2), window 8; tconst-41m in
+# sliding mode, window 8 on every layer.  Every layout; streams against
+# the CPU plain path's.
+WINDOW_MODELS = {"gemma3": ("gemma3_4b", {"n_layers": 6}),
+                 "sliding": ("tconst-41m", {"attention_mode": "sliding",
+                                            "sliding_window": 8})}
+WINDOW_ARGS = ["--reduced", "--dtype", "float32", "--sessions", "3",
+               "--slots", "2", "--prompt-len", "20", "--gen", "24",
+               "--chunk", "4", "--page-size", "16"]
+LAYOUT_KERNELS = {"dense": (K1, K2), "int8": (K1_INT8, K2),
+                  "paged": (K2, K3), "paged_int8": (K2, K3_INT8)}
 # the kernels line: kernel -> (representative case, source, TPU kernel,
 # the session run whose counts are its launches)
 KERNELS = {
@@ -333,9 +390,14 @@ def sdpa_k3(torch, q, pk, pv, pt, lo, hi, k_scale=None, v_scale=None):
     return fn
 
 
-def sdpa_k2(torch, q, k, v, mask):
+def sdpa_k2(torch, q, k, v, mask, square_causal=False):
+    """SDPA with the boolean mask, or (a square causal prompt) with
+    ``is_causal`` and no mask, which lets it take its fused kernels."""
     import torch.nn.functional as F
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if square_causal:
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
     m = mask[:, None]
     return lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=m, enable_gqa=True)
@@ -533,14 +595,16 @@ def k1_rows(torch, rows, cfg, dev, randn, gen, dname: str, max_len: int,
             nbytes(q, lo, hi, out) + 2 * used, 4 * H * D * int(n.sum()))
 
 
-def k3_rows(torch, rows, cfg, dev, randn, gen, dname: str, max_len: int):
-    """K3 and K3-int8 (pages of 64) against their plain versions."""
+def k3_rows(torch, rows, cfg, dev, randn, gen, dname: str, max_len: int,
+            cases=None, quants=(False, True)):
+    """K3 and K3-int8 (pages of 64) against their plain versions
+    (``cases``: default :func:`k3_cases`)."""
     from repro_torch.kernels import paged_decode_attention as PD
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     dt = getattr(torch, dname)
     page = 64
-    for quant in (False, True):
-        for label, vlist, window, cap in k3_cases(max_len):
+    for quant in quants:
+        for label, vlist, window, cap in cases or k3_cases(max_len):
             B, pps = len(vlist), -(-cap // page)
             pk, pv, ks, vs, pt, vl = paged_pool(
                 torch, randn, gen, B, KV, D, page, pps, vlist,
@@ -567,32 +631,39 @@ def k3_rows(torch, rows, cfg, dev, randn, gen, dname: str, max_len: int):
             torch.cuda.empty_cache()
 
 
-def k2_rows(torch, rows, cfg, dev, randn, dname: str, max_len: int):
-    """K2 against its plain version at the resync / admission shapes."""
+def k2_rows(torch, rows, cfg, dev, randn, dname: str, max_len: int,
+            cases=None):
+    """K2 against its plain version at the resync / admission shapes
+    (``cases``: (label, q_pos, k_pos, causal[, window]), default
+    :func:`k2_cases`)."""
     from repro_torch.kernels import flash_attention as FA
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     dt = getattr(torch, dname)
-    for label, qp, kp, causal in k2_cases(torch, cfg, dev, max_len):
+    for label, qp, kp, causal, *win in cases or k2_cases(torch, cfg, dev,
+                                                         max_len):
+        window = win[0] if win else 0
         B, Lq, Lk = qp.shape[0], qp.shape[1], kp.shape[1]
         if kp.shape[0] != B:
             kp = kp.expand(B, Lk).contiguous()
         q = randn((B, Lq, H, D), dt)
         k = randn((B, Lk, KV, D), dt)
         v = randn((B, Lk, KV, D), dt)
-        mask = FA.position_mask(qp, kp, causal, 0)
+        mask = FA.position_mask(qp, kp, causal, window)
+        square = causal and not window and qp is kp
         pairs = int(mask.sum())
         # K/V bytes only of the keys some query attends (dead keys and
         # keys past every query's position need not be read)
         keys = int(mask.any(dim=1).sum())
         used = keys * KV * D * k.element_size()
-        out = FA.flash_attention_cuda(q, k, v, qp, kp, causal)
+        args = (q, k, v, qp, kp, causal, window)
+        out = FA.flash_attention_cuda(*args)
         kernel_row(rows, K2, label, dname,
-                   f"B={B} Lq={Lq} Lk={Lk} H={H} KV={KV} D={D}", out,
-                   FA.flash_attention_plain(q, k, v, qp, kp, causal),
-                   lambda: FA.flash_attention_cuda(q, k, v, qp, kp, causal),
-                   lambda: FA.flash_attention_plain(q, k, v, qp, kp,
-                                                    causal),
-                   sdpa_k2(torch, q, k, v, mask),
+                   f"B={B} Lq={Lq} Lk={Lk} H={H} KV={KV} D={D}"
+                   f"{f' window={window}' if window else ''}", out,
+                   FA.flash_attention_plain(*args),
+                   lambda: FA.flash_attention_cuda(*args),
+                   lambda: FA.flash_attention_plain(*args),
+                   sdpa_k2(torch, q, k, v, mask, square),
                    nbytes(q, qp, kp, out) + 2 * used, 4 * H * D * pairs,
                    plain_reps=5 if Lk > 4096 else 20)
         del q, k, v, mask, out
@@ -701,6 +772,53 @@ def launch_counts(torch, cfg, dev, max_len: int) -> dict:
     return out
 
 
+def lm_rows(torch, rows, dev, randn, gen, dname: str, max_len: int):
+    """The kernels at the shapes the dense LMs' runs give them: smollm-360m
+    (G 3, head_dim 64) K1 over its KV cache (hi 600 and 935, and a row
+    with lo > 0), K3 over its pages (window 0 and 256) and K2's causal
+    prefill of 600 and 1024 tokens (and 1024 under a 256 window); the base
+    transformer (G 1, head_dim 36) K1-int8 and K3-int8 over its cache and
+    K2's 1024-token prefill."""
+    from repro_torch.config import get_config
+    t = lambda xs: torch.tensor(xs, dtype=torch.int32, device=dev)  # noqa
+
+    def square(L):
+        return torch.arange(L, dtype=torch.int32, device=dev)[None]
+
+    def prefills(prefix, lens, window=0):
+        """Square causal prompts: one position tensor as q_pos and k_pos
+        (``k2_rows`` then times SDPA with ``is_causal``)."""
+        out = []
+        for L in lens:
+            pos = square(L)
+            out.append((f"{prefix}_prefill_{L}", pos, pos, True))
+        if window:
+            pos = square(lens[-1])
+            out.append((f"{prefix}_prefill_{lens[-1]}_w{window}", pos, pos,
+                        True, window))
+        return out
+
+    hist = [600, min(935, max_len), 0]
+    smollm = get_config(SMOLLM)
+    k1_rows(torch, rows, smollm, dev, randn, gen, dname, max_len,
+            cases=[("smollm_step", 2, max_len, t([0, 0]), t(hist[:2])),
+                   ("smollm_lo", 2, max_len, t([344, 679]), t(hist[:2]))],
+            int8_cases=[])
+    k3_rows(torch, rows, smollm, dev, randn, gen, dname, max_len,
+            cases=[("smollm_hist", hist, 0, max_len),
+                   ("smollm_window", hist, 256, max_len)], quants=(False,))
+    k2_rows(torch, rows, smollm, dev, randn, dname, max_len,
+            cases=prefills("smollm", [600, 1024], 256))
+    base = get_config("tconst-41m", attention_mode="full")
+    k1_rows(torch, rows, base, dev, randn, gen, dname, max_len, cases=[],
+            int8_cases=[("base_int8_step", 2, max_len, t([0, 0]),
+                         t(hist[:2]))])
+    k3_rows(torch, rows, base, dev, randn, gen, dname, max_len,
+            cases=[("base_hist", hist, 0, max_len)], quants=(True,))
+    k2_rows(torch, rows, base, dev, randn, dname, max_len,
+            cases=prefills("base", [1024]))
+
+
 def kernel_phase(torch, cfg, dev, max_len: int):
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
@@ -713,6 +831,7 @@ def kernel_phase(torch, cfg, dev, max_len: int):
         k1_rows(torch, rows, cfg, dev, randn, gen, dname, max_len)
         k3_rows(torch, rows, cfg, dev, randn, gen, dname, max_len)
         k2_rows(torch, rows, cfg, dev, randn, dname, max_len)
+        lm_rows(torch, rows, dev, randn, gen, dname, max_len)
     ssd_phase(torch, rows, dev, gen)
     for r in rows:
         lib = "none" if r["library_ms"] is None else \
@@ -730,12 +849,14 @@ def kernel_phase(torch, cfg, dev, max_len: int):
 
 
 def session_argv(mode: str, layout: str, dtype: str):
-    """The launcher's argv of one sessions run."""
-    argv = SESSIONS_ARGS + ["--arch", SSM if mode == "mamba2" else
-                            "tconst-41m", "--dtype", dtype, "--layout",
-                            layout]
-    new = layout != "dense"
-    if dtype == "float32" and new:
+    """The launcher's argv of one sessions run (f32 runs of the layouts
+    added after the first slice at the shorter F32_ARGS, of the dense LMs
+    at F32_LM_ARGS)."""
+    argv = SESSIONS_ARGS + ["--arch", MODELS[mode][0], "--dtype", dtype,
+                            "--layout", layout]
+    if dtype == "float32" and mode in ("smollm", "full"):
+        argv += F32_LM_ARGS
+    elif dtype == "float32" and layout != "dense":
         argv += F32_ARGS
     if layout.startswith("paged"):
         argv += F32_PAGED_ARGS if dtype == "float32" else PAGED_ARGS
@@ -746,10 +867,8 @@ def serve_phase(torch, runtime, serve, mode: str, layout: str, dtype: str,
                 kernels):
     """One sessions run of the main path: counters reset right before
     the scheduler, read right after it; then the checks."""
-    ssm = mode == "mamba2"
     args = serve.parse_args(session_argv(mode, layout, dtype))
-    cfg, api, params = serve.load(args, **({} if ssm else
-                                           {"attention_mode": mode}))
+    cfg, api, params = serve.load(args, **MODELS[mode][1])
     torch.cuda.synchronize()
     runtime.reset_counters()
     served = serve.serve_sessions(cfg, api, params, args)
@@ -769,8 +888,8 @@ def serve_phase(torch, runtime, serve, mode: str, layout: str, dtype: str,
     for s in served["sessions"]:
         check(len(s.tokens) == args.gen, f"{what}: session {s.sid}: "
               f"{len(s.tokens)} tokens, expected {args.gen}")
-        # the SSM family has no resync
-        check(ssm or sched.resyncs.get(s.sid, 0) >= 1,
+        # the SSM family and the dense LMs have no resync
+        check(mode not in RESYNCING or sched.resyncs.get(s.sid, 0) >= 1,
               f"{what}: session {s.sid} crossed no resync")
     if sched._paged:
         check(sched.peak_active >= 2, f"{what}: fewer than two sessions "
@@ -836,6 +955,71 @@ def logits_phase(torch, serve, cfg, args, params, tol, n_prompts=None,
     return errs
 
 
+def kv_bytes_per_slot(torch, serve, max_len: int) -> dict:
+    """``DecodeState.kv_bytes`` of one bf16 slot on the dense layout at
+    ``max_len`` for tconst-41m, its base transformer and smollm-360m
+    (meta tensors: nothing is allocated)."""
+    import dataclasses
+    from repro_torch.config import get_config
+    from repro_torch.models.api import build_decode
+    out = {}
+    for mode in ("tconst", "full", "smollm"):
+        arch, over = MODELS[mode]
+        dec = build_decode(get_config(arch, **over), device="cpu")
+        meta = dataclasses.replace(dec, device=torch.device("meta"))
+        out[f"{arch} {dec.cfg.attention_mode}"] = \
+            meta.init_state(1, max_len).kv_bytes()
+    return out
+
+
+def window_phase(torch, runtime, serve) -> dict:
+    """Sliding windows through a served model on every layout (f32,
+    reduced widths).  Each card run must launch exactly its layout's
+    kernels and no plain version.  The card's logits along the CPU plain
+    path's greedy tokens (``logits_phase``: the admission and
+    ``LOGIT_STEPS`` steps, every one past the window) must be within the
+    f32 ``LOGIT_TOL``; the greedy session streams must equal the CPU's on
+    the float layouts.  On the int8 layouts a K/V whose f32 value sits at
+    a .5 boundary of x / scale may be stored one code apart on the two
+    devices (their GEMMs sum in other orders), which moves the logits by
+    ~3e-4 while the window holds it and can flip a near-tied greedy token
+    of these random weights: there the streams are recorded, not
+    required equal."""
+    from repro_torch.models.lm import layer_windows
+    out = {}
+    for name, (arch, over) in WINDOW_MODELS.items():
+        for layout, kernels in LAYOUT_KERNELS.items():
+            argv = WINDOW_ARGS + ["--arch", arch, "--layout", layout]
+            streams, counts = {}, None
+            for device in ("cuda", "cpu"):
+                args = serve.parse_args(argv + ["--device", device])
+                cfg, api, params = serve.load(args, **over)
+                runtime.reset_counters()
+                served = serve.serve_sessions(cfg, api, params, args)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                    counts = runtime.read_counters()
+                streams[device] = [list(s.tokens) for s in
+                                   served["sessions"]]
+            what = f"windows {name}/{layout}"
+            check(set(counts) >= set(kernels), f"{what}: {counts}")
+            for n, c in counts.items():
+                check((c["kernel"] > 0) == (n in kernels) and
+                      c["plain"] == 0, f"{what}: launches {counts}")
+            errs = logits_phase(torch, serve, cfg, args, params,
+                                LOGIT_TOL["float32"])
+            same = streams["cuda"] == streams["cpu"]
+            check(same or "int8" in layout, f"{what}: greedy streams "
+                  f"differ from the CPU plain path's")
+            out[f"{name}/{layout}"] = {
+                "windows": sorted(set(layer_windows(cfg))),
+                "launches": {n: c["kernel"] for n, c in counts.items()
+                             if c["kernel"]},
+                "streams_equal": same,
+                "logit_max_err": max(e["err"] for e in errs)}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -896,8 +1080,8 @@ def main() -> int:
             t_phase = time.time()
             cfg, args, params, rep = serve_phase(torch, runtime, serve, mode,
                                                  layout, dtype, kernels)
-            tol = (LOGIT_TOL_SSM if mode == "mamba2" else LOGIT_TOL).get(
-                dtype)
+            tol = {"mamba2": LOGIT_TOL_SSM, **LOGIT_TOL_LM}.get(
+                mode, LOGIT_TOL).get(dtype)
             if dtype == "bfloat16" or (mode, layout) == ("tconst", "dense"):
                 # mamba2: prompts 600 and 605 (10 chunks of 64, the last
                 # 24 and 29 rows)
@@ -923,18 +1107,41 @@ def main() -> int:
     print(f"[serve] decode state per slot (bf16): tconst/dense "
           f"{runs['tconst/dense/bfloat16']['kv_bytes'] / 2:.0f} B, mamba2 "
           f"{runs['mamba2/dense/bfloat16']['kv_bytes'] / 2:.0f} B")
+    print("[launches] the dense LMs' sessions runs: " + "; ".join(
+        f"{k}: " + str({n: c["kernel"] for n, c in r["launches"].items()
+                        if c["kernel"]})
+        for k, r in runs.items() if k.split("/")[0] in ("smollm", "full")))
+    kv_slot = kv_bytes_per_slot(torch, serve, max_len)
+    print(f"[serve] KV bytes of one slot at max_len {max_len}, bf16, dense "
+          f"layout (DecodeState.kv_bytes, paper Fig 8g): " + ", ".join(
+              f"{k} {v}" for k, v in kv_slot.items()))
 
-    # 5. uniform batch engine (bf16): tconst/dense and tlin/paged in turns
-    # (A, B, B, A): the host-bound step time drifts between runs
+    # 4b. sliding windows through the models: K1 lo > 0, K3 window > 0
+    t_phase = time.time()
+    windows = window_phase(torch, runtime, serve)
+    phase_s["windows"] = time.time() - t_phase
+    for k, v in windows.items():
+        print(f"[windows] {k} (f32, reduced; windows {v['windows']}): "
+              f"launches {v['launches']}, logits max err vs the CPU f32 "
+              f"plain path {v['logit_max_err']:.3g} (tol "
+              f"{LOGIT_TOL['float32']}), greedy streams equal the CPU's: "
+              f"{v['streams_equal']}")
+    print(f"[windows] {phase_s['windows']:.1f}s")
+
+    # 5. uniform batch engine (bf16): the paper's three variants on one
+    # set of weights -- tconst/dense, tlin/paged and the base transformer
+    # (full/dense) -- in turns (A, B, C, C, B, A): the host-bound step time
+    # drifts between runs
     engines = {}
-    for mode, layout in (("tconst", "dense"), ("tlin", "paged"),
-                         ("tlin", "paged"), ("tconst", "dense")):
+    for mode, layout in ENGINE_TURNS + ENGINE_TURNS[::-1]:
         t_phase = time.time()
         eargs = serve.parse_args(ENGINE_ARGS + ["--layout", layout])
         ecfg, eapi, eparams = serve.load(eargs, attention_mode=mode)
         erep = serve.run_batch(ecfg, eapi, eparams, eargs)
-        check(erep["hit_ms"] is not None and erep["miss_ms"] is not None,
-              f"{mode}/{layout} engine run recorded no warm hit or miss")
+        check(erep["hit_ms"] is not None and
+              (erep["miss_ms"] is not None) == (mode in RESYNCING),
+              f"{mode}/{layout} engine run recorded no warm hit, or its "
+              f"resyncs are wrong ({erep['n_misses']})")
         done = engines.setdefault(f"{mode}/{layout}", [])
         done.append({k: erep[k] for k in ("hit_ms", "miss_ms", "n_hits",
                                           "n_misses", "miss_samples_ms",
@@ -942,11 +1149,11 @@ def main() -> int:
         phase_s[f"engine {mode}/{layout} #{len(done)}"] = \
             time.time() - t_phase
     print(f"[engine] bf16 batch {eargs.batch}, max_len "
-          f"{serve.batch_max_len(eargs)}, runs in turns A B B A: " +
+          f"{serve.batch_max_len(eargs)}, runs in turns A B C C B A: " +
           "; ".join(f"{k} cache-hit step "
                     f"{[round(r['hit_ms'], 3) for r in v]} ms, resync "
-                    f"{[round(r['miss_ms'], 3) for r in v]} ms"
-                    for k, v in engines.items()))
+                    f"{[r['miss_ms'] and round(r['miss_ms'], 3) for r in v]}"
+                    f" ms" for k, v in engines.items()))
     t_phase = time.time()
     sargs = serve.parse_args(SSM_ENGINE_ARGS)
     scfg, sapi, sparams = serve.load(sargs)

@@ -10,10 +10,11 @@ norms ``{"scale": (d,)}``, and the tied head reads ``embed.tok``.
 
 The JAX decoder-only LM (``models/lm.py::init_lm``) stacks its layers on
 a leading ``n_layers`` axis the same way; the port keeps a list of
-per-layer dicts (``ln1`` and, for the SSM family, the mixer's
-``in_proj``/``conv_w``/``conv_b``/``dt_bias``/``a_log``/``d_skip``/
-``norm_scale``/``out_proj`` in the JAX layouts) beside ``embed.tok`` /
-``embed.head`` and ``final_norm``.
+per-layer dicts in the JAX layouts -- ``ln1`` and, for the SSM family,
+the mixer's ``in_proj``/``conv_w``/``conv_b``/``dt_bias``/``a_log``/
+``d_skip``/``norm_scale``/``out_proj``; for the dense attention LMs
+``attn`` (``wq``/``wk``/``wv``/``wo``), ``ln2`` and the SwiGLU ``ffn`` --
+beside ``embed.tok`` / ``embed.head`` and ``final_norm``.
 
 The caller turns the JAX leaves into numpy arrays first; this module
 never imports JAX.
@@ -61,7 +62,7 @@ def lm_params_from_jax(tree: Any, device: Any = None) -> Any:
     (float32 tensors as stored) on ``device`` (default: CPU)."""
     if "dense_layers" in tree:
         raise NotImplementedError("MoE leading dense layers are not ported "
-                                  "(ROADMAP Queue 1 item 7)")
+                                  "(ROADMAP Queue 1 item 7b)")
     layers = tree["layers"]
     n = int(np.shape(layers["ln1"]["scale"])[0])
     return {

@@ -202,9 +202,10 @@ def register_arch(name: str) -> Callable:
     return deco
 
 
-# The paper's own model and the SSM family are ported so far; the other
-# families are ROADMAP Queue 1 items 7 and 9.
-_ARCH_MODULES = ["tconst_41m", "mamba2_130m"]
+# The paper's own model, the SSM family and the dense attention LMs are
+# ported so far; MoE is ROADMAP Queue 1 item 7b, the other families item 9.
+_ARCH_MODULES = ["tconst_41m", "mamba2_130m", "smollm_360m", "llama3_405b",
+                 "gemma3_4b"]
 
 
 def _load_all() -> None:

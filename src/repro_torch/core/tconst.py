@@ -40,9 +40,8 @@ from repro_torch.kernels.flash_attention import INVALID_POS
 from repro_torch.layers import attention as A
 from repro_torch.layers import embed as E
 from repro_torch.layers import rope as R
-from repro_torch.layers.common import (Params, dense_init, rmsnorm,
-                                       to_device)
-from repro_torch.layers.mlp import swiglu
+from repro_torch.layers.common import Params, rmsnorm, to_device
+from repro_torch.layers.mlp import init_swiglu, swiglu
 from repro_torch.models import layouts as LT
 
 MODES = ("tconst", "tlin")
@@ -62,23 +61,13 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def _init_layer(cfg: ModelConfig, gen: torch.Generator) -> Params:
-    d, hd = cfg.d_model, cfg.resolved_head_dim
-    H, KV, ff = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
-    return {
-        "attn": {
-            "wq": dense_init((d, H, hd), d, gen),
-            "wk": dense_init((d, KV, hd), d, gen),
-            "wv": dense_init((d, KV, hd), d, gen),
-            "wo": dense_init((H, hd, d), H * hd, gen),
-        },
-        "ffn": {
-            "w_gate": dense_init((d, ff), d, gen),
-            "w_up": dense_init((d, ff), d, gen),
-            "w_down": dense_init((ff, d), ff, gen),
-        },
-        "ln1": {"scale": torch.ones(d)},
-        "ln2": {"scale": torch.ones(d)},
-    }
+    """One layer: attention, then the SwiGLU FFN, drawn from ``gen`` in
+    that order (the dense LM's attention layers draw the same way)."""
+    d = cfg.d_model
+    return {"attn": A.init_attention(cfg, gen),
+            "ffn": init_swiglu(d, cfg.d_ff, gen),
+            "ln1": {"scale": torch.ones(d)},
+            "ln2": {"scale": torch.ones(d)}}
 
 
 def init_tconst_lm(cfg: ModelConfig, seed: int = 0,
@@ -89,7 +78,7 @@ def init_tconst_lm(cfg: ModelConfig, seed: int = 0,
     through :func:`repro_torch.bridge.params_from_jax` instead."""
     if cfg.is_moe:
         raise NotImplementedError("MoE FFNs are not ported (ROADMAP Queue 1 "
-                                  "item 7)")
+                                  "item 7b)")
     gen = torch.Generator().manual_seed(seed)
     embed = E.init_embed(cfg, gen)
     blocks = [{"layers": [_init_layer(cfg, gen)

@@ -7,9 +7,12 @@ cache-hit step, its resync and an admission.
 It takes ``serve``'s flags (``--arch``, ``--layout``, ``--page-size``, ...
 with the full pool) and ``--mode tlin`` for the TLinFormer baseline on
 the same weights, whose hit step also reads the O(N) history KV (K3 on
-the paged layouts).  ``--arch mamba2_130m`` profiles the SSM family: its
+the paged layouts), or ``--mode full`` for the base transformer, whose
+step attends its whole O(N) KV cache (K1 / K3) and whose admission is
+one causal K2 pass a layer.  ``--arch smollm-360m`` profiles a dense
+attention LM the same way; ``--arch mamba2_130m`` the SSM family: its
 step and its admission (K4 tiled at chunk 64, the prompt's last chunk
-ragged); it has no resync.
+ragged).  None of these three has a resync.
 
 Prefills a uniform batch, warms up, then profiles ``--steps`` cache-hit
 steps (one batched token each, ended by ``cuda.synchronize``), one
@@ -85,10 +88,11 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--top", type=int, default=8)
     ap.add_argument("--out", default="")
-    ap.add_argument("--mode", default="", choices=["", "tconst", "tlin"],
+    ap.add_argument("--mode", default="",
+                    choices=["", "tconst", "tlin", "full"],
                     help="attention mode of a TConst config (default: the "
-                         "config's; tlin: the TLinFormer baseline on the "
-                         "same weights)")
+                         "config's; tlin: the TLinFormer baseline, full: "
+                         "the base transformer, both on the same weights)")
     args = serve.parse_args(argv, ap)
     cfg, api, params = serve.load(
         args, **({"attention_mode": args.mode} if args.mode else {}))

@@ -23,12 +23,22 @@ recurrent step after it; no resync)::
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_130m \\
       --reduced --sessions 3 --slots 2 --gen 24 --device cpu
 
+``--arch smollm-360m`` serves a dense attention LM (K2 at admission, K1
+on the dense layout, K1-int8 / K3 / K3-int8 on the others; no resync);
+the paper's base transformer is ``tconst-41m`` in ``full`` mode on the
+tconst weights (``load(args, attention_mode="full")``; the JAX launcher
+has no mode flag, so this one has none)::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
+      --reduced --sessions 3 --slots 2 --gen 24 --device cpu
+
 ``--layout dense|int8|paged|paged_int8`` picks the cache layout
 (``--page-size``, ``--pool-pages``: a pool below ``slots x pages_per_slot``
 needs ``--sessions``, whose scheduler allocates pages).  The tconst
 configs of the registry run in tconst mode, whose O(1) cache has nothing
 to page; the paged layouts page TLinFormer's history KV
-(``attention_mode="tlin"``, built by the caller of :func:`load`).  The SSM
+(``attention_mode="tlin"``, built by the caller of :func:`load`) and a
+dense LM's whole KV cache.  The SSM
 state has no length axis and is never quantized: every layout holds it
 dense, as in the JAX package.
 

@@ -1,11 +1,12 @@
-"""Grouped-query attention for the TConst paths.
+"""Grouped-query attention for the TConst paths and the dense LM.
 
 Port of ``src/repro/layers/attention.py`` (projections, ``make_mask``,
 the masked-safe ``sdpa`` and the KVView decode / cross attends).  Every
 attention the model runs goes through :mod:`repro_torch.kernels.ops`:
 multi-query attention is K2 (flash, positional masks); one-query decode
 attention is K1 over a per-row ``[lo, hi)`` slot range on dense views,
-K1's int8 variant on int8 views and K3 on paged views.  ``sdpa`` with a
+K1's int8 variant on int8 views and K3 on paged views (a sliding
+window: K3's ``window``, K1's ``lo``).  ``sdpa`` with a
 boolean mask is kept as the plain reference of the JAX function and
 takes CPU tensors only.
 
@@ -18,13 +19,25 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import masked_attention
-from repro_torch.layers.common import Params
+from repro_torch.layers.common import Params, dense_init
 from repro_torch.layers.rope import apply_rope
 from repro_torch.models import layouts as LT
 
 NEG_INF = -2.3819763e38
+
+
+def init_attention(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    """``wq``, ``wk``, ``wv``, ``wo`` from :func:`dense_init`, drawn from
+    ``gen`` in that order (the port's own init)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    return {"wq": dense_init((d, H, hd), d, gen),
+            "wk": dense_init((d, KV, hd), d, gen),
+            "wv": dense_init((d, KV, hd), d, gen),
+            "wo": dense_init((H, hd, d), H * hd, gen)}
 
 
 def qkv_proj(params: Params, xq: torch.Tensor, xkv: torch.Tensor,
@@ -114,13 +127,15 @@ def attention_block(params: Params, xq: torch.Tensor, xkv: torch.Tensor,
 
 def _attend_views(q: torch.Tensor, k_view, v_view,
                   lo: Optional[torch.Tensor], hi: torch.Tensor,
-                  logit_softcap: float = 0.0) -> torch.Tensor:
+                  logit_softcap: float = 0.0, window: int = 0
+                  ) -> torch.Tensor:
     """One-query attention over a per-layer KVView pair
     (``repro_torch.models.layouts``), in its PHYSICAL representation:
 
     * :class:`~repro_torch.models.layouts.PagedView` -- K3 walks the page
       table (int8 pools: its int8 entry).  Needs a prefix range
-      (``lo`` None, slots ``[0, hi)``).
+      (``lo`` None, slots ``[0, hi)``), the last ``window`` of them when
+      ``window > 0``.
     * :class:`~repro_torch.models.layouts.QuantView` -- K1's int8 variant
       over ``[lo, hi)``.  (The JAX package sends a ``kv_valid``-masked
       cross-attention to dequantise-then-``sdpa``; here the valid context
@@ -128,6 +143,8 @@ def _attend_views(q: torch.Tensor, k_view, v_view,
     * :class:`~repro_torch.models.layouts.DenseView` -- K1 over
       ``[lo, hi)``.
 
+    On the last two a ``window > 0`` raises ``lo`` to ``hi - window``:
+    the same slots K3 attends, JAX's ``kv_valid`` of a sliding window.
     q (B, H, D) RoPE'd; lo/hi (B,) int (``lo`` None means 0).  Returns
     (B, H, D)."""
     dtype = q.dtype
@@ -137,13 +154,15 @@ def _attend_views(q: torch.Tensor, k_view, v_view,
         if k_view.quant:
             return ops.paged_decode(
                 q, k_view.storage.q, v_view.storage.q, k_view.page_table, hi,
-                softcap=logit_softcap, k_scale=k_view.storage.scale,
-                v_scale=v_view.storage.scale)
+                softcap=logit_softcap, window=window,
+                k_scale=k_view.storage.scale, v_scale=v_view.storage.scale)
         return ops.paged_decode(
             q, k_view.storage.data.to(dtype), v_view.storage.data.to(dtype),
-            k_view.page_table, hi, softcap=logit_softcap)
+            k_view.page_table, hi, softcap=logit_softcap, window=window)
     if lo is None:
         lo = torch.zeros_like(hi)
+    if window > 0:
+        lo = torch.maximum(lo, hi - window)
     if isinstance(k_view, LT.QuantView):
         return ops.decode_attention_int8(q, k_view.q, v_view.q, k_view.scale,
                                          v_view.scale, lo, hi, logit_softcap)
@@ -155,7 +174,7 @@ def decode_attend_view(params: Params, x: torch.Tensor, k_view, v_view,
                        slot: torch.Tensor, write: torch.Tensor,
                        lo: Optional[torch.Tensor], hi: torch.Tensor,
                        cos_q: torch.Tensor, sin_q: torch.Tensor,
-                       logit_softcap: float = 0.0
+                       logit_softcap: float = 0.0, window: int = 0
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One-token decode self-attention over a per-layer KVView pair.
     Projects q/k/v for the new token and writes k/v THROUGH THE VIEWS at
@@ -163,15 +182,17 @@ def decode_attend_view(params: Params, x: torch.Tensor, k_view, v_view,
     rows where ``write`` is True -- before attending, so the new token is
     attended in its stored representation, as in the JAX package.  Other
     rows' entries are rewritten with their own values and come through
-    bit-identical.  Attends slots ``[lo, hi)``.  Returns (out (B, 1, d),
-    the RoPE'd query (B, 1, H, D) for the cross-attention)."""
+    bit-identical.  Attends slots ``[lo, hi)``, the last ``window`` of
+    them when ``window > 0``.  Returns (out (B, 1, d), the RoPE'd query
+    (B, 1, H, D) for the cross-attention)."""
     dtype = x.dtype
     q, k_new, v_new = qkv_proj(params, x, x, dtype)
     q = apply_rope(q, cos_q, sin_q)
     k_new = apply_rope(k_new, cos_q, sin_q)
     k_view.write_token(slot, k_new[:, 0], write)
     v_view.write_token(slot, v_new[:, 0], write)
-    o = _attend_views(q[:, 0], k_view, v_view, lo, hi, logit_softcap)
+    o = _attend_views(q[:, 0], k_view, v_view, lo, hi, logit_softcap,
+                      window)
     return out_proj(params, o[:, None], dtype), q
 
 

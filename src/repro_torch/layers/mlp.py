@@ -1,11 +1,19 @@
-"""SwiGLU feed-forward (port of ``src/repro/layers/mlp.py:20-25``; the
+"""SwiGLU feed-forward (port of ``src/repro/layers/mlp.py:10-25``; the
 SiLU is taken in float32)."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.layers.common import Params
+from repro_torch.layers.common import Params, dense_init
+
+
+def init_swiglu(d_model: int, d_ff: int, gen: torch.Generator) -> Params:
+    """``w_gate``, ``w_up``, ``w_down`` from :func:`dense_init`, drawn
+    from ``gen`` in that order."""
+    return {"w_gate": dense_init((d_model, d_ff), d_model, gen),
+            "w_up": dense_init((d_model, d_ff), d_model, gen),
+            "w_down": dense_init((d_ff, d_model), d_ff, gen)}
 
 
 def swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,14 @@
 """Model facade and the decode-side serving protocol.
 
 Port of ``src/repro/models/api.py`` for the TConst family (tconst and
-tlin modes) and the SSM family of the decoder-only LM: the typed
+tlin modes) and the decoder-only LM's SSM family and dense attention LMs
+(among them the paper's base transformer, ``tconst-41m`` with
+``attention_mode="full"``): the typed
 :class:`DecodeState` (explicit kv / bookkeeping partition, a pluggable
 physical layout from :mod:`repro_torch.models.layouts`, slot surgery
 through the layout), per-slot sampling, the :class:`DecodeAPI` protocol,
-:func:`decode_chunk`, :class:`TConstDecode`, :class:`DenseDecode` (the
-SSM family: an O(1) recurrent state and no periodic resync),
+:func:`decode_chunk`, :class:`TConstDecode`, :class:`DenseDecode` (a
+growing KV cache or an O(1) recurrent state, no periodic resync),
 ``build_decode`` and ``build_model``.  The hit step reads the cache
 through KVViews (``DecodeState.decode_views``); ``merged`` (the dense
 logical dict) is the oracle and the admission path's currency.
@@ -265,6 +267,19 @@ def decode_chunk(decode: DecodeAPI, params: Any, state: DecodeState,
     return out, state, resyncs
 
 
+def _check_prefill_layout(layout: Any, cache: Dict[str, torch.Tensor]
+                          ) -> None:
+    """A full-batch prefill cannot place rows in an under-sized paged pool
+    -- but only when the cache has paged fields."""
+    if isinstance(layout, LT.PagedLayout) and not layout.preallocated \
+            and layout.pages_anything(cache):
+        raise ValueError(
+            "full-batch prefill cannot place rows in an under-sized paged "
+            "pool (pool_pages < slots * pages_per_slot); use the "
+            "scheduler's page allocator via prefill_into_slot, or leave "
+            "pool_pages=None")
+
+
 # ---------------------------------------------------------------------------
 # TConstDecode
 # ---------------------------------------------------------------------------
@@ -317,18 +332,6 @@ class TConstDecode:
         st.host["gen_len"] = np.array(gen_len, np.int64)
         return st
 
-    def _check_prefill_layout(self, layout: Any,
-                              cache: Dict[str, torch.Tensor]) -> None:
-        """A full-batch prefill cannot place rows in an under-sized paged
-        pool -- but only when the cache has paged fields."""
-        if isinstance(layout, LT.PagedLayout) and not layout.preallocated \
-                and layout.pages_anything(cache):
-            raise ValueError(
-                "full-batch prefill cannot place rows in an under-sized "
-                "paged pool (pool_pages < slots * pages_per_slot); use "
-                "the scheduler's page allocator via prefill_into_slot, "
-                "or leave pool_pages=None")
-
     def init_state(self, slots: int, max_len: int) -> DecodeState:
         cache = TC.init_tconst_cache(self.cfg, slots, max_len, self.mode,
                                      device=self.device)
@@ -351,7 +354,7 @@ class TConstDecode:
         logits, cache, g0 = self._prefill(params, batch["tokens"], max_len)
         B = cache["done"].shape[0]
         layout = self.bind(B, max_len)
-        self._check_prefill_layout(layout, cache)
+        _check_prefill_layout(layout, cache)
         return logits, self._wrap(cache, np.full((B,), g0), layout)
 
     def prefill_into_slot(self, params, state: DecodeState, slot: int,
@@ -438,19 +441,20 @@ class TConstDecode:
 
 
 # ---------------------------------------------------------------------------
-# DenseDecode: the decoder-only LM family (so far: SSM)
+# DenseDecode: the decoder-only LM family (SSM and dense attention LMs)
 # ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
 class DenseDecode:
-    """Decoder-only LM family, served through the same protocol.  Ported
-    so far: the SSM family (mamba2), whose cache is an O(1) recurrent
-    state (``ssm`` / ``conv`` per layer) with no periodic sync.  The state
-    has no length axis and is never quantized, so every layout holds it
-    dense (the paged and int8 layouts bind, and page or quantize
-    nothing).  ``raw_step`` updates the state IN PLACE; rows that are not
-    ``live`` keep it bit-identical."""
+    """Decoder-only LM family, served through the same protocol, with no
+    periodic sync.  Ported so far: the dense attention LMs, whose cache is
+    a growing K/V buffer (``k`` / ``v`` of (layers, B, max_len, KV, hd):
+    paged by the paged layouts, int8 under the int8 ones), and the SSM
+    family (mamba2), whose O(1) recurrent state (``ssm`` / ``conv`` per
+    layer) has no length axis and is never quantized, so every layout
+    holds it dense.  ``raw_step`` updates the cache IN PLACE; rows that
+    are not ``live`` keep it bit-identical."""
 
     cfg: ModelConfig
     device: torch.device
@@ -492,17 +496,26 @@ class DenseDecode:
         layout."""
         logits, cache = LM.lm_prefill(params, self._tokens(batch["tokens"]),
                                       self.cfg, max_len)
-        B = cache["done"].shape[0]
-        return logits, self._wrap(cache, self.bind(B, max_len))
+        layout = self.bind(cache["done"].shape[0], max_len)
+        _check_prefill_layout(layout, cache)
+        return logits, self._wrap(cache, layout)
+
+    @staticmethod
+    def _max_len(state: DecodeState, fallback: int) -> int:
+        """The length of the state's K/V buffers (JAX's ``_max_len``);
+        ``fallback`` for the SSM state, which has no positional buffer."""
+        views = state.kv_views()
+        return LT.field_length(views["k"]) if "k" in views else fallback
 
     def prefill_into_slot(self, params, state: DecodeState, slot: int,
                           tokens: Any) -> Tuple[torch.Tensor, DecodeState]:
         """Admit one request: prefill prompt ``tokens`` (L,) as a batch-1
-        row and write it into ``slot`` through the state's layout (in
-        place).  Returns (logits (V,), state)."""
+        row as long as the state's K/V buffers and write it into ``slot``
+        through the state's layout (in place; paged: the slot's own pages,
+        which the scheduler has assigned).  Returns (logits (V,), state)."""
         toks = self._tokens(tokens).reshape(1, -1)
-        # pure SSM: the state has no positional buffer, so no max_len
-        logits, cache = LM.lm_prefill(params, toks, self.cfg, toks.shape[1])
+        logits, cache = LM.lm_prefill(params, toks, self.cfg,
+                                      self._max_len(state, toks.shape[1]))
         return logits[0], state.with_slot(slot, self._wrap(cache))
 
     def raw_step(self, params, state: DecodeState, token: torch.Tensor,
@@ -541,7 +554,8 @@ def build_decode(cfg: ModelConfig, layout: Any = None,
     """The decode protocol for ``cfg`` on ``device`` (default ``cuda``)
     with cache layout ``layout`` ("dense" | "paged" | "int8" |
     "paged_int8" | LayoutSpec | None).  Ported: the TConst family
-    (tconst and tlin modes) and the SSM family."""
+    (tconst and tlin modes), the SSM family and the dense attention LMs
+    (a TConst config in ``full`` or ``sliding`` mode among them)."""
     spec = LT.as_spec(layout)
     if _is_tconst(cfg):
         return TConstDecode(cfg, runtime.resolve_device(device), spec)

@@ -430,6 +430,15 @@ def assigned_kv_bytes(views: Dict[str, FieldView]) -> int:
                else _view_bytes(v) for v in views.values())
 
 
+def field_length(view: FieldView) -> int:
+    """The logical length of a length-axis field's view at any level: a
+    paged view's ``max_len``, else the axis after the batch axis."""
+    if isinstance(view, PagedView):
+        return view.max_len
+    data = view.q if isinstance(view, QuantView) else view.data
+    return data.shape[view.batch_axis + 1]
+
+
 # ---------------------------------------------------------------------------
 # Dense (base: pack-through + per-field slot surgery)
 # ---------------------------------------------------------------------------

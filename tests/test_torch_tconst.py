@@ -59,12 +59,14 @@ def reduced41():
 
 
 def test_config_copy_matches_jax():
-    for arch in ("tconst-41m", "mamba2_130m"):
+    archs = ["gemma3_4b", "llama3_405b", "mamba2_130m", "smollm_360m",
+             "tconst_41m"]
+    for arch in archs:
         j = JC.get_config(arch)
         p = PC.get_config(arch)
         assert port_cfg(j) == p
         assert port_cfg(JC.reduced(j)) == PC.reduced(p)
-    assert PC.list_archs() == ["mamba2_130m", "tconst_41m"]
+    assert PC.list_archs() == archs
 
 
 def test_norm_rope_mlp_embed_match_jax():

@@ -68,6 +68,32 @@ def ssm_pair(tiny: bool = False):
     return jcfg, jparams, port_cfg(jcfg), params
 
 
+# the dense attention LMs of the parity suites: name -> (registry arch,
+# reduced() overrides); gemma3 at 6 layers holds its 5 local : 1 global
+# pattern (2 layers would both be local)
+LM_CONFIGS = {
+    "smollm": ("smollm_360m", {}),
+    "llama3": ("llama3_405b", {}),
+    "gemma3": ("gemma3_4b", {"n_layers": 6}),
+    "full": ("tconst_41m", {"attention_mode": "full"}),
+    "sliding": ("tconst_41m", {"attention_mode": "sliding",
+                               "sliding_window": 8}),
+    "softcap": ("smollm_360m", {"logit_softcap": 2.0}),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def lm_pair(name: str):
+    """(JAX cfg, JAX params, the port's cfg, its params bridged from
+    them) for ``LM_CONFIGS[name]``, reduced, f32.  Built once per
+    process."""
+    arch, kw = LM_CONFIGS[name]
+    jcfg = JC.reduced(JC.get_config(arch), dtype="float32", **kw)
+    jparams = JLM.init_lm(jax.random.PRNGKey(0), jcfg)
+    params = bridge.lm_params_from_jax(jax_to_numpy(jparams))
+    return jcfg, jparams, port_cfg(jcfg), params
+
+
 def t(a):
     return torch.from_numpy(np.array(a))
 

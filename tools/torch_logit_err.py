@@ -2,6 +2,7 @@
 """The CPU plain path's own bf16-against-f32 logit error, at full width.
 
     PYTHONPATH=src python tools/torch_logit_err.py [--arch mamba2_130m]
+        [--arch smollm-360m] [--arch tconst-41m --mode full]
 
 Runs ``chip_smoke.py``'s logit check with both sides on the CPU: the
 plain PyTorch path in bf16 against the same path in f32, same weights
@@ -27,6 +28,9 @@ def main(argv=None) -> int:
     from repro_torch.launch import serve
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default=CS.SSM)
+    ap.add_argument("--mode", default="",
+                    help="attention mode override (full: the base "
+                         "transformer of tconst-41m)")
     ap.add_argument("--prompts", type=int, default=2)
     ap.add_argument("--threads", type=int, default=1,
                     help="CPU threads (many threads slow CPU bf16 down)")
@@ -34,13 +38,15 @@ def main(argv=None) -> int:
     torch.set_num_threads(args_.threads)
     args = serve.parse_args(CS.SESSIONS_ARGS + [
         "--arch", args_.arch, "--dtype", "bfloat16", "--device", "cpu"])
-    cfg, _, params = serve.load(args)
+    cfg, _, params = serve.load(
+        args, **({"attention_mode": args_.mode} if args_.mode else {}))
     errs = CS.logits_phase(torch, serve, cfg, args, params, float("inf"),
                            n_prompts=args_.prompts, device="cpu")
     first = max(e["err"] for e in errs if e["step"] == 0)
     steps = max(e["err"] for e in errs if e["step"] > 0)
     print(json.dumps({"arch": cfg.name, "errs": errs}))
-    print(f"[logit_err] {cfg.name} CPU bf16 vs CPU f32 plain path: "
+    print(f"[logit_err] {cfg.name} {cfg.attention_mode} CPU bf16 vs CPU "
+          f"f32 plain path: "
           f"first token {first}, {CS.LOGIT_STEPS} steps {steps}")
     return 0
 
