@@ -37,12 +37,16 @@ Phases (any failure raises, so the exit code is non-zero):
    slots, a row with lo > 0, window 256), K1-int8 and K3-int8 at the base
    transformer's, and K2's square causal prefill of 600 and 1024 tokens
    (smollm, and 1024 under a 256 window) and of 1024 (base), where the
-   library yardstick is SDPA with ``is_causal``.  Prints the kernel's,
+   library yardstick is SDPA with ``is_causal``.  deepseek-moe-16b's
+   shapes (H 16 over 16 KV heads, head_dim 128): K2's prefill of 600 and
+   1024 tokens (its first runs at D 128, bf16 and f32), K1 and K3 at B 2,
+   S 999, hi 600 and 935, G 1.  Prints the kernel's,
    the plain version's and ``F.scaled_dot_product_attention``'s times (a
    yardstick only, with the gather or dequantisation it needs; the port
    never calls it; no one PyTorch call computes K4) and the least time
    the card could take.  Then the device launches one call of K1, K1-int8,
-   K2, K3, K3-int8 and each K4 launch makes (torch.profiler): one each.
+   K2, K3, K3-int8 and each K4 launch makes (torch.profiler): one each,
+   and K2, K1 and K3 at deepseek's shapes too.
 4. Serve ``tconst-41m`` at full width with the port's seeded init
    (``--sessions 4 --prompt-len 600 --gen 320 --chunk 32``), each run's
    launch counters reset before the scheduler and read right after it:
@@ -62,10 +66,18 @@ Phases (any failure raises, so the exit code is non-zero):
    base transformer (tconst-41m in full attention, on the tconst
    weights) on int8 (K1-int8, K2) and paged_int8 (K2, K3-int8), same
    argv, bf16 and f32 (f32 at ``--prompt-len 700 --gen 72``); their bf16
-   logits held at 3x the CPU plain path's own bf16 error.  Prints one
-   bf16 slot's KV bytes at max_len for tconst, the base and smollm.
-   A window phase serves reduced gemma3 (6 layers: 5 local : 1 global)
-   and tconst-41m in sliding mode (window 8) on all four layouts in f32:
+   logits held at 3x the CPU plain path's own bf16 error.  Then the MoE
+   family: deepseek-moe-16b (16.4 B parameters, drawn on the card in bf16
+   from a seed) at full width and depth on dense (K1, K2) and paged (K2,
+   K3, the under-sized pool) in bf16 (``--gen 96``; finite logits), and
+   at full width and depth 3 (the dense layer and two MoE layers) in f32
+   (streams equal their solo runs); at that depth its f32 and bf16 logits
+   are held against one CPU f32 reference, with the count of routed
+   tokens whose expert set differs.  Prints one bf16 slot's KV bytes at
+   max_len for tconst, the base, smollm and deepseek.
+   A window phase serves reduced gemma3 (6 layers: 5 local : 1 global),
+   tconst-41m in sliding mode (window 8) and reduced mixtral (window 8,
+   two MoE layers, G 4) on all four layouts in f32:
    K1 with ``lo > 0`` and K3 with ``window > 0`` through a model, the
    card's logits against the CPU plain path's, the streams equal on the
    float layouts.
@@ -83,6 +95,7 @@ meaningful next to the card name and power limit printed with it.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
@@ -118,18 +131,36 @@ LOGIT_TOL_SSM = {"bfloat16": 0.55}
 # --mode full for the base transformer, on the GPU machine's CPU)
 LOGIT_TOL_LM = {"smollm": {"bfloat16": 0.16},   # 0.046 first, 0.053 steps
                 "full": {"bfloat16": 0.09}}     # 0.027 first, 0.030 steps
+# deepseek-moe-16b's logits, at the checked depth (the dense layer and two
+# MoE layers, full width): bf16 3x the CPU plain path's own bf16-against-
+# f32 error on the same two prompts (tools/torch_logit_err.py --arch
+# deepseek_moe_16b --layers 3, on the GPU machine's CPU: 0.057 first token,
+# 0.419 over 8 steps).  It is ~0.05 where no expert set differs and 0.25-
+# 0.42 at a step where one token's set flips under bf16 (186 of 2442
+# routed tokens there, nearly all in the admissions); f32 as LOGIT_TOL
+LOGIT_TOL_MOE = {"bfloat16": 1.26, "float32": LOGIT_TOL["float32"]}
 
 SESSIONS_ARGS = ["--sessions", "4", "--slots", "2", "--prompt-len", "600",
                  "--gen", "320", "--chunk", "32"]
 SSM = "mamba2_130m"
 SMOLLM = "smollm-360m"
+DEEPSEEK = "deepseek_moe_16b"
+# deepseek's f32 runs and its logit checks: the dense layer and two MoE
+# layers at full width (the only cut: 16.4 B parameters are 65.6 GB in
+# f32, and the CPU reference reads every expert's weights each step)
+DEEPSEEK_CHECK_DEPTH = 3
+# deepseek's bf16 runs at full depth: gen 96 (three chunks), so each
+# session but the last decodes while the next is admitted, and the paged
+# run's third session waits for pages (12 + 12 of 31 held)
+DEEPSEEK_BF16_ARGS = ["--gen", "96"]
 # a run's model: mode -> (arch, config overrides).  "full" is the paper's
 # base transformer: tconst-41m's config and weights in full attention
 MODELS = {"tconst": ("tconst-41m", {"attention_mode": "tconst"}),
           "tlin": ("tconst-41m", {"attention_mode": "tlin"}),
           "full": ("tconst-41m", {"attention_mode": "full"}),
           "smollm": (SMOLLM, {}),
-          "mamba2": (SSM, {})}
+          "mamba2": (SSM, {}),
+          "deepseek": (DEEPSEEK, {})}
 RESYNCING = ("tconst", "tlin")       # the modes with a periodic resync
 # paged runs: 3 slots, a pool below the full 3 x 16 pages: sessions need
 # 15, 15, 16, 16 pages of 64 (prompt + gen + one chunk), so two decode
@@ -169,14 +200,22 @@ SESSION_RUNS = [
     ("smollm", "paged", (K2, K3)),
     ("full", "int8", (K1_INT8, K2)),
     ("full", "paged_int8", (K2, K3_INT8)),
+    # the MoE family: deepseek-moe-16b at full width, bf16 at full depth
+    # and f32 at DEEPSEEK_CHECK_DEPTH (routing and expert GEMMs PyTorch)
+    ("deepseek", "dense", (K1, K2)),
+    ("deepseek", "paged", (K2, K3)),
 ]
+# config overrides of a run by (mode, dtype)
+RUN_OVERRIDES = {("deepseek", "float32"): {"n_layers": DEEPSEEK_CHECK_DEPTH}}
 # the window phase (f32, reduced widths): gemma3's 5 local : 1 global
 # pattern needs 6 layers (reduced() keeps 2), window 8; tconst-41m in
-# sliding mode, window 8 on every layer.  Every layout; streams against
-# the CPU plain path's.
+# sliding mode, window 8 on every layer; mixtral (reduced: window 8, two
+# MoE layers).  Every layout; streams against the CPU plain path's.
 WINDOW_MODELS = {"gemma3": ("gemma3_4b", {"n_layers": 6}),
                  "sliding": ("tconst-41m", {"attention_mode": "sliding",
-                                            "sliding_window": 8})}
+                                            "sliding_window": 8}),
+                 # an MoE model (top-2 of 4 experts, G 4) on windows
+                 "mixtral": ("mixtral_8x22b", {})}
 WINDOW_ARGS = ["--reduced", "--dtype", "float32", "--sessions", "3",
                "--slots", "2", "--prompt-len", "20", "--gen", "24",
                "--chunk", "4", "--page-size", "16"]
@@ -716,7 +755,8 @@ def launch_counts(torch, cfg, dev, max_len: int) -> dict:
     K4's two launches at the served shapes (the hit step's gen-window
     self-attention, the compress pass, the paged history of 3 rows, a
     605-token bf16 mamba2 admission with x, b, c sliced as the mixer
-    slices them)."""
+    slices them), and of K2, K1 and K3 at deepseek-moe-16b's (head_dim
+    128: the 1024-token prefill, a 2-row step, its paged history)."""
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_decode_attention as PD
@@ -744,6 +784,31 @@ def launch_counts(torch, cfg, dev, max_len: int) -> dict:
                                                      bf)
     out[K2] = launches_per_call(
         torch, lambda: FA.flash_attention_cuda(q, k, v, qp, kp, True))
+    # deepseek's shapes (H 16 over 16 KV heads, head_dim 128): the
+    # 1024-token causal prefill, the step over 2 rows, the paged history
+    from repro_torch.config import get_config
+    ds = get_config(DEEPSEEK)
+    Hd, KVd, Dd = ds.n_heads, ds.n_kv_heads, ds.resolved_head_dim
+    pos = torch.arange(1024, dtype=torch.int32, device=dev)[None]
+    qp2 = randn((1, 1024, Hd, Dd), bf)
+    kp2, vp2 = randn((1, 1024, KVd, Dd), bf), randn((1, 1024, KVd, Dd), bf)
+    out[K2 + "@deepseek"] = launches_per_call(
+        torch, lambda: FA.flash_attention_cuda(qp2, kp2, vp2, pos, pos,
+                                               True))
+    qd2 = randn((2, Hd, Dd), bf)
+    kd2, vd2 = randn((2, max_len, KVd, Dd), bf), \
+        randn((2, max_len, KVd, Dd), bf)
+    hi2 = torch.tensor([600, min(935, max_len)], dtype=torch.int32,
+                       device=dev)
+    lo2 = torch.zeros_like(hi2)
+    out[K1 + "@deepseek"] = launches_per_call(
+        torch, lambda: DA.decode_attention_cuda(qd2, kd2, vd2, lo2, hi2))
+    pk, pv, ks, vs, pt, vl = paged_pool(torch, randn, gen, 2, KVd, Dd, 64,
+                                        -(-max_len // 64),
+                                        [600, min(935, max_len)], bf, dev)
+    out[K3 + "@deepseek"] = launches_per_call(
+        torch, lambda: PD.paged_decode_attention_cuda(qd2, pk, pv, pt, vl,
+                                                      0.0, 0, ks, vs))
     for name, pool in ((K3, bf), (K3_INT8, None)):
         pk, pv, ks, vs, pt, vl = paged_pool(torch, randn, gen, 3, KV, D, 64,
                                             -(-max_len // 64),
@@ -753,7 +818,6 @@ def launch_counts(torch, cfg, dev, max_len: int) -> dict:
         out[name] = launches_per_call(
             torch, lambda: PD.paged_decode_attention_cuda(
                 qd, pk, pv, pt, vl, 0.0, 0, ks, vs))
-    from repro_torch.config import get_config
     from repro_torch.kernels import ssd_scan as SS
     from repro_torch.layers.ssm import ssm_dims
     scfg = get_config(SSM)
@@ -773,12 +837,13 @@ def launch_counts(torch, cfg, dev, max_len: int) -> dict:
 
 
 def lm_rows(torch, rows, dev, randn, gen, dname: str, max_len: int):
-    """The kernels at the shapes the dense LMs' runs give them: smollm-360m
-    (G 3, head_dim 64) K1 over its KV cache (hi 600 and 935, and a row
-    with lo > 0), K3 over its pages (window 0 and 256) and K2's causal
-    prefill of 600 and 1024 tokens (and 1024 under a 256 window); the base
-    transformer (G 1, head_dim 36) K1-int8 and K3-int8 over its cache and
-    K2's 1024-token prefill."""
+    """The kernels at the shapes the attention LMs' runs give them:
+    smollm-360m (G 3, head_dim 64) K1 over its KV cache (hi 600 and 935,
+    and a row with lo > 0), K3 over its pages (window 0 and 256) and K2's
+    causal prefill of 600 and 1024 tokens (and 1024 under a 256 window);
+    the base transformer (G 1, head_dim 36) K1-int8 and K3-int8 over its
+    cache and K2's 1024-token prefill; deepseek-moe-16b (G 1, head_dim
+    128) K1 and K3 over its cache and K2's prefill of 600 and 1024."""
     from repro_torch.config import get_config
     t = lambda xs: torch.tensor(xs, dtype=torch.int32, device=dev)  # noqa
 
@@ -817,6 +882,16 @@ def lm_rows(torch, rows, dev, randn, gen, dname: str, max_len: int):
             cases=[("base_hist", hist, 0, max_len)], quants=(True,))
     k2_rows(torch, rows, base, dev, randn, dname, max_len,
             cases=prefills("base", [1024]))
+    # deepseek-moe-16b (H 16 over 16 KV heads, head_dim 128): K2's first
+    # runs at D 128, K1 / K3 at D 128 with G 1
+    deepseek = get_config(DEEPSEEK)
+    k1_rows(torch, rows, deepseek, dev, randn, gen, dname, max_len,
+            cases=[("deepseek_step", 2, max_len, t([0, 0]), t(hist[:2]))],
+            int8_cases=[])
+    k3_rows(torch, rows, deepseek, dev, randn, gen, dname, max_len,
+            cases=[("deepseek_hist", hist, 0, max_len)], quants=(False,))
+    k2_rows(torch, rows, deepseek, dev, randn, dname, max_len,
+            cases=prefills("deepseek", [600, 1024]))
 
 
 def kernel_phase(torch, cfg, dev, max_len: int):
@@ -851,24 +926,28 @@ def kernel_phase(torch, cfg, dev, max_len: int):
 def session_argv(mode: str, layout: str, dtype: str):
     """The launcher's argv of one sessions run (f32 runs of the layouts
     added after the first slice at the shorter F32_ARGS, of the dense LMs
-    at F32_LM_ARGS)."""
+    and deepseek at F32_LM_ARGS; deepseek's bf16 runs at
+    DEEPSEEK_BF16_ARGS)."""
     argv = SESSIONS_ARGS + ["--arch", MODELS[mode][0], "--dtype", dtype,
                             "--layout", layout]
-    if dtype == "float32" and mode in ("smollm", "full"):
+    if dtype == "float32" and mode in ("smollm", "full", "deepseek"):
         argv += F32_LM_ARGS
     elif dtype == "float32" and layout != "dense":
         argv += F32_ARGS
+    elif mode == "deepseek":
+        argv += DEEPSEEK_BF16_ARGS
     if layout.startswith("paged"):
         argv += F32_PAGED_ARGS if dtype == "float32" else PAGED_ARGS
     return argv
 
 
 def serve_phase(torch, runtime, serve, mode: str, layout: str, dtype: str,
-                kernels):
+                kernels, **overrides):
     """One sessions run of the main path: counters reset right before
-    the scheduler, read right after it; then the checks."""
+    the scheduler, read right after it; then the checks.  ``overrides``
+    replace config fields of the run's model (deepseek's depth)."""
     args = serve.parse_args(session_argv(mode, layout, dtype))
-    cfg, api, params = serve.load(args, **MODELS[mode][1])
+    cfg, api, params = serve.load(args, **MODELS[mode][1], **overrides)
     torch.cuda.synchronize()
     runtime.reset_counters()
     served = serve.serve_sessions(cfg, api, params, args)
@@ -915,55 +994,143 @@ def serve_phase(torch, runtime, serve, mode: str, layout: str, dtype: str,
     return cfg, args, params, rep
 
 
+@contextlib.contextmanager
+def route_log():
+    """While active, record the routing of every MoE layer that runs:
+    for each ``route_topk`` call, each token's expert set, sorted, as a
+    (tokens, K) CPU tensor, in call order."""
+    from repro_torch.layers import moe
+    orig, calls = moe.route_topk, []
+
+    def logged(logits, top_k, capacity):
+        out = orig(logits, top_k, capacity)
+        calls.append(out[0].transpose(-1, -2).reshape(-1, top_k)
+                     .sort(dim=-1).values.cpu())
+        return out
+
+    moe.route_topk = logged
+    try:
+        yield calls
+    finally:
+        moe.route_topk = orig
+
+
+def cpu_reference(torch, serve, cfg, args, params, n_prompts=None):
+    """The plain path on the CPU in f32, same weights and layout (full
+    pool), on the first ``n_prompts`` session prompts: per prompt, the
+    logits of the first token and of ``LOGIT_STEPS`` greedy steps after
+    it, each with the expert sets its MoE layers chose."""
+    from repro_torch.models.api import build_decode
+    spec = serve.layout_spec(args, full_pool=True)
+    dec = build_decode(cfg.replace(dtype="float32"), spec, device="cpu")
+    ref_params = dec.prepare_params(params)
+    out = []
+    for p in serve.session_prompts(cfg, args)[:n_prompts]:
+        with route_log() as routes:
+            logits, st = dec.prefill(ref_params, {"tokens": p[None]},
+                                     serve.sessions_max_len(args))
+        steps = [(logits, routes)]
+        for _ in range(LOGIT_STEPS):
+            with route_log() as routes:
+                logits, st = dec.raw_step(
+                    ref_params, st, logits.argmax(dim=-1).to(torch.int32))
+            steps.append((logits, routes))
+        out.append((p, steps))
+    return out
+
+
 def logits_phase(torch, serve, cfg, args, params, tol, n_prompts=None,
-                 device="cuda"):
+                 device="cuda", ref=None):
     """Logits of session prompts on the card (kernels) against the plain
     path on the CPU in f32, same weights and layout (full pool): the
     first token (the admission: K2, or K4 for mamba2) and
     ``LOGIT_STEPS`` cache-hit steps after it (K1 / K1-int8 / K3; mamba2's
     plain recurrent step), both fed the reference's greedy tokens.
-    ``tol``: the largest error allowed."""
+    ``tol``: the largest error allowed; ``ref``: a
+    :func:`cpu_reference` of these weights to reuse.  Each record counts
+    the routed tokens (token x MoE layer) and those whose expert set
+    differs from the reference's."""
     from repro_torch.models.api import build_decode
-    prompts = serve.session_prompts(cfg, args)[:n_prompts]
+    if ref is None:
+        ref = cpu_reference(torch, serve, cfg, args, params, n_prompts)
     max_len = serve.sessions_max_len(args)
-    spec = serve.layout_spec(args, full_pool=True)
-    ref_dec = build_decode(cfg.replace(dtype="float32"), spec, device="cpu")
-    ref_params = ref_dec.prepare_params(params)
-    card_dec = build_decode(cfg, spec, device=device)
+    card_dec = build_decode(cfg, serve.layout_spec(args, full_pool=True),
+                            device=device)
     card_params = card_dec.prepare_params(params)
     errs = []
-    for p in prompts:
-        got, card_st = card_dec.prefill(card_params, {"tokens": p[None]},
-                                        max_len)
-        ref, ref_st = ref_dec.prefill(ref_params, {"tokens": p[None]},
-                                      max_len)
-        for step in range(LOGIT_STEPS + 1):
+    for p, steps in ref:
+        for step, (want, want_routes) in enumerate(steps):
             what = "first-token" if step == 0 else f"step-{step}"
+            with route_log() as routes:
+                if step == 0:
+                    got, st = card_dec.prefill(card_params,
+                                               {"tokens": p[None]}, max_len)
+                else:
+                    tok = steps[step - 1][0].argmax(dim=-1).to(torch.int32)
+                    got, st = card_dec.raw_step(card_params, st,
+                                                tok.to(device))
             check(bool(torch.isfinite(got).all()), f"non-finite {what} "
                   f"logits")
-            err = (got.float().cpu() - ref).abs().max().item()
+            err = (got.float().cpu() - want).abs().max().item()
             check(err <= tol, f"{cfg.name} {cfg.attention_mode}/"
                   f"{args.layout} {cfg.dtype} {what} logits differ from "
                   f"the CPU plain path by {err} > {tol}")
-            errs.append({"prompt_len": len(p), "step": step, "err": err})
-            if step == LOGIT_STEPS:
-                break
-            tok = ref.argmax(dim=-1).to(torch.int32)
-            got, card_st = card_dec.raw_step(card_params, card_st,
-                                             tok.to(device))
-            ref, ref_st = ref_dec.raw_step(ref_params, ref_st, tok)
+            errs.append({"prompt_len": len(p), "step": step, "err": err,
+                         "routed": sum(r.shape[0] for r in want_routes),
+                         "route_flips": sum(
+                             int((a != b).any(dim=-1).sum())
+                             for a, b in zip(routes, want_routes))})
     return errs
+
+
+def summarize(errs) -> dict:
+    """The largest first-token and step errors of ``logits_phase`` records
+    and their routing counts."""
+    return {"first": max(e["err"] for e in errs if e["step"] == 0),
+            "steps": max(e["err"] for e in errs if e["step"] > 0),
+            "route_flips": sum(e["route_flips"] for e in errs),
+            "routed": sum(e["routed"] for e in errs)}
+
+
+def moe_logits_phase(torch, serve, cfg, args, params) -> dict:
+    """deepseek at ``DEEPSEEK_CHECK_DEPTH`` on f32 weights: the card's f32
+    path and its bf16 path (these weights cast, as the bf16 init draws
+    them) against one CPU f32 reference, within ``LOGIT_TOL_MOE``."""
+    ref = cpu_reference(torch, serve, cfg, args, params, n_prompts=2)
+    return {dtype: summarize(logits_phase(
+        torch, serve, cfg.replace(dtype=dtype), args, params,
+        LOGIT_TOL_MOE[dtype], ref=ref)) for dtype in ("float32", "bfloat16")}
+
+
+def finite_logits(torch, serve, cfg, args, params, steps: int = 2) -> bool:
+    """The first session prompt's admission and ``steps`` greedy steps on
+    the card, whose logits must be finite (the full-depth runs: a CPU
+    reference of 16.4 B parameters would not fit the time)."""
+    from repro_torch.models.api import build_decode
+    dec = build_decode(cfg, serve.layout_spec(args, full_pool=True),
+                       device="cuda")
+    p = dec.prepare_params(params)
+    prompt = serve.session_prompts(cfg, args)[0]
+    logits, st = dec.prefill(p, {"tokens": prompt[None]},
+                             serve.sessions_max_len(args))
+    for step in range(steps + 1):
+        check(bool(torch.isfinite(logits).all()), f"{cfg.name} "
+              f"{args.layout} {cfg.dtype}: non-finite logits at step {step}")
+        if step < steps:
+            logits, st = dec.raw_step(p, st,
+                                      logits.argmax(dim=-1).to(torch.int32))
+    return True
 
 
 def kv_bytes_per_slot(torch, serve, max_len: int) -> dict:
     """``DecodeState.kv_bytes`` of one bf16 slot on the dense layout at
-    ``max_len`` for tconst-41m, its base transformer and smollm-360m
-    (meta tensors: nothing is allocated)."""
+    ``max_len`` for tconst-41m, its base transformer, smollm-360m and
+    deepseek-moe-16b (meta tensors: nothing is allocated)."""
     import dataclasses
     from repro_torch.config import get_config
     from repro_torch.models.api import build_decode
     out = {}
-    for mode in ("tconst", "full", "smollm"):
+    for mode in ("tconst", "full", "smollm", "deepseek"):
         arch, over = MODELS[mode]
         dec = build_decode(get_config(arch, **over), device="cpu")
         meta = dataclasses.replace(dec, device=torch.device("meta"))
@@ -985,17 +1152,22 @@ def window_phase(torch, runtime, serve) -> dict:
     ~3e-4 while the window holds it and can flip a near-tied greedy token
     of these random weights: there the streams are recorded, not
     required equal."""
+    from repro_torch.models.api import build_model
     from repro_torch.models.lm import layer_windows
     out = {}
     for name, (arch, over) in WINDOW_MODELS.items():
         for layout, kernels in LAYOUT_KERNELS.items():
             argv = WINDOW_ARGS + ["--arch", arch, "--layout", layout]
             streams, counts = {}, None
+            # one set of weights: the MoE family draws its own on the card
+            # (a CUDA generator), so the CPU run takes the card's
+            cfg, _, params = serve.load(
+                serve.parse_args(argv + ["--device", "cuda"]), **over)
             for device in ("cuda", "cpu"):
                 args = serve.parse_args(argv + ["--device", device])
-                cfg, api, params = serve.load(args, **over)
                 runtime.reset_counters()
-                served = serve.serve_sessions(cfg, api, params, args)
+                served = serve.serve_sessions(
+                    cfg, build_model(cfg, device=device), params, args)
                 if device == "cuda":
                     torch.cuda.synchronize()
                     counts = runtime.read_counters()
@@ -1078,23 +1250,34 @@ def main() -> int:
     for mode, layout, kernels in SESSION_RUNS:
         for dtype in ("bfloat16", "float32"):
             t_phase = time.time()
-            cfg, args, params, rep = serve_phase(torch, runtime, serve, mode,
-                                                 layout, dtype, kernels)
-            tol = {"mamba2": LOGIT_TOL_SSM, **LOGIT_TOL_LM}.get(
-                mode, LOGIT_TOL).get(dtype)
-            if dtype == "bfloat16" or (mode, layout) == ("tconst", "dense"):
+            cfg, args, params, rep = serve_phase(
+                torch, runtime, serve, mode, layout, dtype, kernels,
+                **RUN_OVERRIDES.get((mode, dtype), {}))
+            tol = LOGIT_TOL_MOE if mode == "deepseek" else \
+                {"mamba2": LOGIT_TOL_SSM, **LOGIT_TOL_LM}.get(
+                    mode, LOGIT_TOL).get(dtype)
+            if mode == "deepseek" and dtype == "bfloat16":
+                rep["finite_logits"] = finite_logits(torch, serve, cfg, args,
+                                                     params)
+            elif mode == "deepseek":
+                # both dtypes' logits at the checked depth, on the bf16
+                # runs' prompts (600 and 605: those of LOGIT_TOL_MOE)
+                rep["logit_max_err"] = moe_logits_phase(
+                    torch, serve, cfg, serve.parse_args(
+                        session_argv(mode, layout, "bfloat16")), params)
+            elif dtype == "bfloat16" or (mode, layout) == ("tconst",
+                                                           "dense"):
                 # mamba2: prompts 600 and 605 (10 chunks of 64, the last
                 # 24 and 29 rows)
                 rep["logit_err"] = logits_phase(
                     torch, serve, cfg, args, params, tol,
                     n_prompts=None if (mode, layout) == ("tconst", "dense")
                     else 2)
-                first = max(e["err"] for e in rep["logit_err"]
-                            if e["step"] == 0)
-                steps = max(e["err"] for e in rep["logit_err"]
-                            if e["step"] > 0)
-                rep["logit_max_err"] = {"first": first, "steps": steps}
+                rep["logit_max_err"] = summarize(rep["logit_err"])
             runs[f"{mode}/{layout}/{dtype}"] = rep
+            # one model's weights on the card at a time
+            params = None
+            torch.cuda.empty_cache()
             phase_s[f"{mode}/{layout}/{dtype}"] = time.time() - t_phase
             launched = {n: c["kernel"] for n, c in rep["launches"].items()
                         if c["kernel"]}
@@ -1107,10 +1290,11 @@ def main() -> int:
     print(f"[serve] decode state per slot (bf16): tconst/dense "
           f"{runs['tconst/dense/bfloat16']['kv_bytes'] / 2:.0f} B, mamba2 "
           f"{runs['mamba2/dense/bfloat16']['kv_bytes'] / 2:.0f} B")
-    print("[launches] the dense LMs' sessions runs: " + "; ".join(
+    print("[launches] the attention LMs' sessions runs: " + "; ".join(
         f"{k}: " + str({n: c["kernel"] for n, c in r["launches"].items()
                         if c["kernel"]})
-        for k, r in runs.items() if k.split("/")[0] in ("smollm", "full")))
+        for k, r in runs.items()
+        if k.split("/")[0] in ("smollm", "full", "deepseek")))
     kv_slot = kv_bytes_per_slot(torch, serve, max_len)
     print(f"[serve] KV bytes of one slot at max_len {max_len}, bf16, dense "
           f"layout (DecodeState.kv_bytes, paper Fig 8g): " + ", ".join(

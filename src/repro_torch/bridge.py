@@ -13,8 +13,11 @@ a leading ``n_layers`` axis the same way; the port keeps a list of
 per-layer dicts in the JAX layouts -- ``ln1`` and, for the SSM family,
 the mixer's ``in_proj``/``conv_w``/``conv_b``/``dt_bias``/``a_log``/
 ``d_skip``/``norm_scale``/``out_proj``; for the dense attention LMs
-``attn`` (``wq``/``wk``/``wv``/``wo``), ``ln2`` and the SwiGLU ``ffn`` --
-beside ``embed.tok`` / ``embed.head`` and ``final_norm``.
+``attn`` (``wq``/``wk``/``wv``/``wo``), ``ln2`` and the SwiGLU ``ffn``
+(for the MoE family the MoE ``ffn``: ``router`` (d, E), ``w_gate`` /
+``w_up`` (E, d, ff), ``w_down`` (E, ff, d) and the ``shared`` SwiGLU;
+DeepSeek's leading ``dense_layers`` are already a list in JAX) -- beside
+``embed.tok`` / ``embed.head`` and ``final_norm``.
 
 The caller turns the JAX leaves into numpy arrays first; this module
 never imports JAX.
@@ -58,17 +61,18 @@ def params_from_jax(tree: Any, device: Any = None) -> Any:
 
 def lm_params_from_jax(tree: Any, device: Any = None) -> Any:
     """``tree``: the JAX ``init_lm`` pytree with numpy leaves (layers
-    stacked on a leading ``n_layers`` axis).  Returns the port's LM params
-    (float32 tensors as stored) on ``device`` (default: CPU)."""
-    if "dense_layers" in tree:
-        raise NotImplementedError("MoE leading dense layers are not ported "
-                                  "(ROADMAP Queue 1 item 7b)")
+    stacked on a leading ``n_layers - n_dense`` axis; an MoE model's
+    leading ``dense_layers`` a list of unstacked layers).  Returns the
+    port's LM params (float32 tensors as stored) on ``device`` (default:
+    CPU)."""
     layers = tree["layers"]
     n = int(np.shape(layers["ln1"]["scale"])[0])
-    return {
-        "embed": _map(tree["embed"], lambda a: _tensor(a, device)),
-        "layers": [_map(layers, lambda a, i=i: _tensor(a[i], device))
-                   for i in range(n)],
-        "final_norm": _map(tree["final_norm"],
-                           lambda a: _tensor(a, device)),
-    }
+    out = {"embed": _map(tree["embed"], lambda a: _tensor(a, device))}
+    if "dense_layers" in tree:
+        out["dense_layers"] = _map(tree["dense_layers"],
+                                   lambda a: _tensor(a, device))
+    out["layers"] = [_map(layers, lambda a, i=i: _tensor(a[i], device))
+                     for i in range(n)]
+    out["final_norm"] = _map(tree["final_norm"],
+                             lambda a: _tensor(a, device))
+    return out

@@ -202,10 +202,11 @@ def register_arch(name: str) -> Callable:
     return deco
 
 
-# The paper's own model, the SSM family and the dense attention LMs are
-# ported so far; MoE is ROADMAP Queue 1 item 7b, the other families item 9.
+# The paper's own model, the SSM family, the dense attention LMs and the
+# MoE family are ported so far; the other families are ROADMAP Queue 1
+# item 9.
 _ARCH_MODULES = ["tconst_41m", "mamba2_130m", "smollm_360m", "llama3_405b",
-                 "gemma3_4b"]
+                 "gemma3_4b", "deepseek_moe_16b", "mixtral_8x22b"]
 
 
 def _load_all() -> None:

@@ -77,8 +77,8 @@ def init_tconst_lm(cfg: ModelConfig, seed: int = 0,
     does not reproduce ``jax.random``: parity tests load the JAX weights
     through :func:`repro_torch.bridge.params_from_jax` instead."""
     if cfg.is_moe:
-        raise NotImplementedError("MoE FFNs are not ported (ROADMAP Queue 1 "
-                                  "item 7b)")
+        raise NotImplementedError("MoE FFNs inside the TConst core are not "
+                                  "ported (ROADMAP Queue 1 item 7c)")
     gen = torch.Generator().manual_seed(seed)
     embed = E.init_embed(cfg, gen)
     blocks = [{"layers": [_init_layer(cfg, gen)

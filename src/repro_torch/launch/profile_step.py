@@ -10,9 +10,11 @@ the same weights, whose hit step also reads the O(N) history KV (K3 on
 the paged layouts), or ``--mode full`` for the base transformer, whose
 step attends its whole O(N) KV cache (K1 / K3) and whose admission is
 one causal K2 pass a layer.  ``--arch smollm-360m`` profiles a dense
-attention LM the same way; ``--arch mamba2_130m`` the SSM family: its
-step and its admission (K4 tiled at chunk 64, the prompt's last chunk
-ragged).  None of these three has a resync.
+attention LM the same way, ``--arch deepseek_moe_16b`` the MoE family
+(its step routes the batch's tokens through every expert's weights);
+``--arch mamba2_130m`` the SSM family: its step and its admission (K4
+tiled at chunk 64, the prompt's last chunk ragged).  None of these has a
+resync.
 
 Prefills a uniform batch, warms up, then profiles ``--steps`` cache-hit
 steps (one batched token each, ended by ``cuda.synchronize``), one

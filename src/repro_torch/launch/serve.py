@@ -32,6 +32,15 @@ has no mode flag, so this one has none)::
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
       --reduced --sessions 3 --slots 2 --gen 24 --device cpu
 
+``--arch deepseek_moe_16b`` and ``--arch mixtral_8x22b`` serve the MoE
+family the same way (its routing and expert products are PyTorch, as
+they are XLA in JAX; deepseek-moe-16b fits one 80 GB card at full width,
+mixtral-8x22b only ``--reduced``)::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek_moe_16b --reduced --sessions 3 --slots 2 --gen 24 \\
+      --device cpu
+
 ``--layout dense|int8|paged|paged_int8`` picks the cache layout
 (``--page-size``, ``--pool-pages``: a pool below ``slots x pages_per_slot``
 needs ``--sessions``, whose scheduler allocates pages).  The tconst

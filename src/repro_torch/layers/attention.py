@@ -29,15 +29,17 @@ from repro_torch.models import layouts as LT
 NEG_INF = -2.3819763e38
 
 
-def init_attention(cfg: ModelConfig, gen: torch.Generator) -> Params:
+def init_attention(cfg: ModelConfig, gen: torch.Generator,
+                   dtype: Optional[torch.dtype] = None) -> Params:
     """``wq``, ``wk``, ``wv``, ``wo`` from :func:`dense_init`, drawn from
-    ``gen`` in that order (the port's own init)."""
+    ``gen`` in that order, cast to ``dtype`` as drawn (the port's own
+    init)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
-    return {"wq": dense_init((d, H, hd), d, gen),
-            "wk": dense_init((d, KV, hd), d, gen),
-            "wv": dense_init((d, KV, hd), d, gen),
-            "wo": dense_init((H, hd, d), H * hd, gen)}
+    return {"wq": dense_init((d, H, hd), d, gen, dtype),
+            "wk": dense_init((d, KV, hd), d, gen, dtype),
+            "wv": dense_init((d, KV, hd), d, gen, dtype),
+            "wo": dense_init((H, hd, d), H * hd, gen, dtype)}
 
 
 def qkv_proj(params: Params, xq: torch.Tensor, xkv: torch.Tensor,

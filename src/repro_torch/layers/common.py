@@ -14,12 +14,16 @@ import torch
 Params = Dict[str, Any]
 
 
-def dense_init(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:
+def dense_init(shape, fan_in: int, gen: torch.Generator,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Truncated normal in [-2, 2] scaled by 1/sqrt(fan_in) (LeCun normal,
-    as the JAX package's ``dense_init``), float32, drawn from ``gen``."""
-    t = torch.empty(shape, dtype=torch.float32)
+    as the JAX package's ``dense_init``), drawn in float32 from ``gen`` on
+    the generator's device, then cast to ``dtype`` (default: kept
+    float32)."""
+    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return t * (1.0 / math.sqrt(max(1, fan_in)))
+    t = t * (1.0 / math.sqrt(max(1, fan_in)))
+    return t if dtype is None else t.to(dtype)
 
 
 def to_device(params: Any, device: Optional[torch.device],

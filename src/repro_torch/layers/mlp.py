@@ -2,18 +2,21 @@
 SiLU is taken in float32)."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.layers.common import Params, dense_init
 
 
-def init_swiglu(d_model: int, d_ff: int, gen: torch.Generator) -> Params:
+def init_swiglu(d_model: int, d_ff: int, gen: torch.Generator,
+                dtype: Optional[torch.dtype] = None) -> Params:
     """``w_gate``, ``w_up``, ``w_down`` from :func:`dense_init`, drawn
-    from ``gen`` in that order."""
-    return {"w_gate": dense_init((d_model, d_ff), d_model, gen),
-            "w_up": dense_init((d_model, d_ff), d_model, gen),
-            "w_down": dense_init((d_ff, d_model), d_ff, gen)}
+    from ``gen`` in that order (cast to ``dtype`` as drawn)."""
+    return {"w_gate": dense_init((d_model, d_ff), d_model, gen, dtype),
+            "w_up": dense_init((d_model, d_ff), d_model, gen, dtype),
+            "w_down": dense_init((d_ff, d_model), d_ff, gen, dtype)}
 
 
 def swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:

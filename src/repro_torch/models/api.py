@@ -1,9 +1,9 @@
 """Model facade and the decode-side serving protocol.
 
 Port of ``src/repro/models/api.py`` for the TConst family (tconst and
-tlin modes) and the decoder-only LM's SSM family and dense attention LMs
+tlin modes) and the decoder-only LM's SSM family, dense attention LMs
 (among them the paper's base transformer, ``tconst-41m`` with
-``attention_mode="full"``): the typed
+``attention_mode="full"``) and MoE family: the typed
 :class:`DecodeState` (explicit kv / bookkeeping partition, a pluggable
 physical layout from :mod:`repro_torch.models.layouts`, slot surgery
 through the layout), per-slot sampling, the :class:`DecodeAPI` protocol,
@@ -448,13 +448,16 @@ class TConstDecode:
 @dataclasses.dataclass(frozen=True)
 class DenseDecode:
     """Decoder-only LM family, served through the same protocol, with no
-    periodic sync.  Ported so far: the dense attention LMs, whose cache is
-    a growing K/V buffer (``k`` / ``v`` of (layers, B, max_len, KV, hd):
-    paged by the paged layouts, int8 under the int8 ones), and the SSM
-    family (mamba2), whose O(1) recurrent state (``ssm`` / ``conv`` per
-    layer) has no length axis and is never quantized, so every layout
-    holds it dense.  ``raw_step`` updates the cache IN PLACE; rows that
-    are not ``live`` keep it bit-identical."""
+    periodic sync.  Ported so far: the dense attention LMs and the MoE
+    family (mixtral, deepseek), whose cache is a growing K/V buffer (``k``
+    / ``v`` of (layers, B, max_len, KV, hd), and DeepSeek's leading dense
+    layers' ``dense_k`` / ``dense_v``: paged by the paged layouts on one
+    shared page table, int8 under the int8 ones), and the SSM family
+    (mamba2), whose O(1) recurrent state (``ssm`` / ``conv`` per layer)
+    has no length axis and is never quantized, so every layout holds it
+    dense.  ``raw_step`` updates the cache IN PLACE; rows that are not
+    ``live`` keep it bit-identical (an MoE step still routes them: they
+    take expert capacity, as in JAX)."""
 
     cfg: ModelConfig
     device: torch.device
@@ -554,8 +557,9 @@ def build_decode(cfg: ModelConfig, layout: Any = None,
     """The decode protocol for ``cfg`` on ``device`` (default ``cuda``)
     with cache layout ``layout`` ("dense" | "paged" | "int8" |
     "paged_int8" | LayoutSpec | None).  Ported: the TConst family
-    (tconst and tlin modes), the SSM family and the dense attention LMs
-    (a TConst config in ``full`` or ``sliding`` mode among them)."""
+    (tconst and tlin modes), the SSM family, the dense attention LMs (a
+    TConst config in ``full`` or ``sliding`` mode among them) and the MoE
+    family."""
     spec = LT.as_spec(layout)
     if _is_tconst(cfg):
         return TConstDecode(cfg, runtime.resolve_device(device), spec)

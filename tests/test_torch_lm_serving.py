@@ -1,18 +1,23 @@
-"""The port's serving stack on the dense attention LMs (reduced smollm and
-the paper's base transformer, ``tconst-41m`` in ``full`` mode; f32, CPU).
+"""The port's serving stack on the attention LMs (reduced smollm, the
+paper's base transformer, ``tconst-41m`` in ``full`` mode, and the MoE
+family: reduced deepseek and mixtral; f32, CPU).
 
 * Greedy ``SlotScheduler`` streams equal the JAX scheduler's on the same
   (bridged) weights on dense, int8, paged and paged_int8; on the paged
   layouts the pool (7 pages of 16 for 3 slots x 8 pages) is under-sized,
-  so an admission waits for pages a finished session frees.
+  so an admission waits for pages a finished session frees.  DeepSeek's
+  ``dense_k`` / ``dense_v`` go through every layout beside ``k`` / ``v``
+  (one page table; int8 quantize-on-write; ``kv_bytes``,
+  ``assigned_kv_bytes``, ``with_slot``, ``where_rows``).
 * ``prefill_into_slot`` takes ``max_len`` from the state's K/V buffers;
   the SSM family's admission is unchanged (no positional buffer).
 * Frozen rows (inactive or EOS-finished) keep their K/V and ``len``
   bit-identical; the KV bytes grow with ``max_len`` (paper Fig 8g).
-* ``repro_torch.launch.serve --arch smollm-360m --sessions`` matches its
-  solo runs; MoE configs raise naming ROADMAP item 7b.
-* A ``cuda``-marked test serves reduced smollm on each layout on the card
-  against the CPU plain path (skipped without one).
+* ``repro_torch.launch.serve --arch smollm-360m --sessions`` (and
+  ``--arch deepseek_moe_16b`` / ``mixtral_8x22b --reduced``) matches its
+  solo runs.
+* ``cuda``-marked tests serve reduced smollm and reduced deepseek on each
+  layout on the card against the CPU plain path (skipped without one).
 """
 import numpy as np
 import pytest
@@ -20,9 +25,8 @@ import torch
 
 try:    # the GPU machine has no JAX: only the cuda test runs there
     from parity import make_prompts, serve_streams
-    from repro import config as JC
     from repro.models import layouts as JLT
-    from torch_parity import lm_pair, port_cfg, port_streams, ssm_pair
+    from torch_parity import lm_pair, port_streams, ssm_pair
 except ImportError:
     lm_pair = None
 from repro_torch import runtime
@@ -50,7 +54,8 @@ def _spec(mod, kind, pool=None):
 
 @pytest.mark.parametrize("name,kind", [
     ("smollm", "dense"), ("smollm", "int8"), ("smollm", "paged"),
-    ("smollm", "paged_int8"), ("full", "paged_int8"), ("gemma3", "paged")])
+    ("smollm", "paged_int8"), ("full", "paged_int8"), ("gemma3", "paged"),
+    ("deepseek", "dense"), ("deepseek", "paged_int8"), ("mixtral", "paged")])
 def test_scheduler_streams_equal_jax_scheduler(name, kind):
     _need_jax()
     jcfg, jparams, cfg, params = lm_pair(name)
@@ -226,27 +231,108 @@ def test_dense_lms_build_on_cuda_by_default(arch):
         "DenseDecode"
 
 
-@pytest.mark.parametrize("arch", ["mixtral_8x22b", "deepseek_moe_16b"])
-def test_moe_families_raise_naming_item_7b(arch):
-    _need_jax()
-    cfg = port_cfg(JC.reduced(JC.get_config(arch), dtype="float32"))
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        LM.init_lm(cfg)
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "mixtral_8x22b"])
+def test_moe_family_builds_on_cuda_by_default(arch):
+    """The MoE family's ``build_model`` runs on cuda unless the CPU is
+    asked for (no GPU: an error), and serves through ``DenseDecode``."""
+    cfg = get_config(arch)
+    if torch.cuda.is_available():
+        assert build_model(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_model(cfg)
+    api = build_model(cfg, device="cpu")
+    assert api.device.type == "cpu" and type(api.decode).__name__ == \
+        "DenseDecode"
 
 
-@pytest.mark.cuda
-def test_cuda_lm_layouts_vs_plain():
-    """Reduced smollm (f32) on each layout: two admissions and 8 steps on
-    the card against the CPU plain path fed the same tokens, logits within
-    1e-3; the card ran K2 and the layout's decode kernel, no plain
-    version."""
+@pytest.mark.parametrize("kind", LAYOUTS)
+def test_moe_dense_fields_through_layouts(kind):
+    """Reduced deepseek (one dense layer, one MoE layer): ``dense_k`` /
+    ``dense_v`` ride every layout beside ``k`` / ``v`` -- int8 fields and
+    pages on the one page table, ``kv_bytes`` of the physical buffers,
+    ``assigned_kv_bytes`` of the admitted slot's pages -- and
+    ``with_slot`` writes the admitted row's prefill into both, leaving the
+    other slots empty; ``where_rows`` keeps the unselected slot."""
+    cfg = reduced(get_config("deepseek_moe_16b"), dtype="float32")
+    params = LM.init_lm(cfg, 1)
+    dec = build_decode(cfg, _spec(PLT, kind, 5 if "paged" in kind else
+                                  None), device="cpu")
+    state = dec.init_state(2, 40)
+    names = {f.replace("__q", "").replace("__scale", "") for f in state.kv}
+    assert names == {"k", "v", "dense_k", "dense_v"}
+    KV, hd, max_len = cfg.n_kv_heads, cfg.resolved_head_dim, 40
+    per_vec = KV * (hd + 4) if "int8" in kind else KV * hd * 4
+    if "paged" in kind:
+        slots_bytes = (5 + 1) * 16 * per_vec      # the pool + trash page
+        state.bookkeeping[PLT.PAGE_TABLE][1, :2] = torch.tensor([3, 0])
+    else:
+        slots_bytes = 2 * max_len * per_vec
+    assert state.kv_bytes() == 2 * cfg.n_layers * slots_bytes
+    prompt = np.arange(1, 18, dtype=np.int32)
+    before = state.merged()
+    _, state = dec.prefill_into_slot(params, state, 1, prompt)
+    _, ref = LM.lm_prefill(params, torch.as_tensor(prompt)[None], cfg,
+                           max_len)
+    merged = state.merged()
+    for f in ("k", "v", "dense_k", "dense_v"):
+        got = merged[f][:, 1]
+        want = ref[f][:, 0]
+        if "int8" in kind:
+            want = PLT.dequantize_int8(*PLT.quantize_int8(want),
+                                       torch.float32)
+        assert torch.equal(got[:, :17], want[:, :17]), f
+        assert not merged[f][:, 0].any(), f
+    if "paged" in kind:
+        # slot 1 holds pages 3 and 0 of 16 tokens: two pages of each field
+        assert state.assigned_kv_bytes() == 2 * cfg.n_layers * 2 * 16 * \
+            per_vec
+    old = dec.init_state(2, 40)
+    old.bookkeeping.update({n: v.clone() for n, v in
+                            state.bookkeeping.items()})
+    mixed = state.where_rows(torch.tensor([False, True]), old)
+    for f, v in mixed.merged().items():
+        if f in ("k", "v", "dense_k", "dense_v"):
+            assert torch.equal(v[:, 1], merged[f][:, 1]), f
+            assert torch.equal(v[:, 0], before[f][:, 0]), f
+
+
+@pytest.mark.parametrize("arch,flags", [
+    ("deepseek_moe_16b", []),
+    ("deepseek_moe_16b", ["--layout", "paged_int8", "--page-size", "16",
+                          "--pool-pages", "6"]),
+    ("mixtral_8x22b", ["--layout", "paged", "--page-size", "16",
+                       "--pool-pages", "6"])])
+def test_serve_sessions_cli_moe_matches_solo_runs(arch, flags, capsys):
+    rc = serve.main(["--arch", arch, "--reduced", "--sessions", "3",
+                     "--slots", "2", "--gen", "12", "--prompt-len", "20",
+                     "--device", "cpu"] + flags)
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert out.count("matches solo run: True") == 3, out
+    assert "0 resyncs" in out and f"arch={get_config(arch).name}" in out
+
+
+def test_profile_step_moe_on_cpu(capsys):
+    from repro_torch.launch import profile_step
+    assert profile_step.main(["--arch", "deepseek_moe_16b", "--reduced",
+                              "--batch", "2", "--prompt-len", "12",
+                              "--steps", "2", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "[profile] hit: wall" in out and "[profile] admit: wall" in out
+    assert "resync" not in out
+
+
+def _cuda_layouts_vs_plain(arch):
+    """Reduced ``arch`` (f32) on each layout: two admissions and 8 steps
+    on the card against the CPU plain path fed the same tokens, logits
+    within 1e-3; the card ran K2 and the layout's decode kernel (every
+    layer)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no "
                     "CPU mode (their plain versions are tested above)")
-    cfg = reduced(get_config("smollm_360m"), dtype="float32")
-    params = LM.init_lm(cfg, 0)
+    cfg = reduced(get_config(arch), dtype="float32")
+    params = LM.init_lm(cfg, 0, device="cuda")
     kernels = {"dense": "decode_attention", "int8": "decode_attention_int8",
                "paged": "paged_decode_attention",
                "paged_int8": "paged_decode_attention_int8"}
@@ -273,3 +359,17 @@ def test_cuda_lm_layouts_vs_plain():
         counts = runtime.read_counters()
         assert counts["flash_attention"]["kernel"] == 2 * cfg.n_layers
         assert counts[kernels[kind]]["kernel"] == 8 * cfg.n_layers, kind
+
+
+@pytest.mark.cuda
+def test_cuda_lm_layouts_vs_plain():
+    """Reduced smollm on each layout, card against the CPU plain path."""
+    _cuda_layouts_vs_plain("smollm_360m")
+
+
+@pytest.mark.cuda
+def test_cuda_moe_layouts_vs_plain():
+    """Reduced deepseek (a dense layer with ``dense_k`` / ``dense_v``, an
+    MoE layer with a shared expert; weights drawn on the card) on each
+    layout, card against the CPU plain path on the same weights."""
+    _cuda_layouts_vs_plain("deepseek_moe_16b")

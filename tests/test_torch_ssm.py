@@ -304,13 +304,11 @@ def test_decode_protocol_prefill_into_slot_equals_batch_prefill():
     assert state.bookkeeping["len"].tolist() == [13, 0, 13]
 
 
-# the base transformer (tconst-41m in full mode) is served since the dense
-# attention LMs were ported; its MoE variant is not (item 7b)
+# the base transformer (tconst-41m in full mode) and the MoE family are
+# served since the dense attention LMs and MoE were ported; the hybrid
+# family is not (item 9)
 @pytest.mark.parametrize("arch,over,item", [
-    ("tconst_41m", {"attention_mode": "full", "arch_type": "moe",
-                    "n_experts": 4, "n_experts_per_tok": 2}, "item 7"),
-    ("mamba2_130m", {"hybrid_parallel": True}, "item 9"),
-    ("mamba2_130m", {"arch_type": "moe"}, "item 7")])
+    ("mamba2_130m", {"hybrid_parallel": True}, "item 9")])
 def test_unported_lm_families_raise_with_their_item(arch, over, item):
     cfg = reduced(get_config(arch), **over)
     with pytest.raises(NotImplementedError, match=item):

@@ -68,9 +68,11 @@ def ssm_pair(tiny: bool = False):
     return jcfg, jparams, port_cfg(jcfg), params
 
 
-# the dense attention LMs of the parity suites: name -> (registry arch,
+# the attention LMs of the parity suites: name -> (registry arch,
 # reduced() overrides); gemma3 at 6 layers holds its 5 local : 1 global
-# pattern (2 layers would both be local)
+# pattern (2 layers would both be local).  The MoE family: deepseek (one
+# dense layer, then an MoE layer with a shared expert; 4 experts, top-2)
+# and mixtral (two MoE layers, window 8, top-2, G 4)
 LM_CONFIGS = {
     "smollm": ("smollm_360m", {}),
     "llama3": ("llama3_405b", {}),
@@ -79,7 +81,10 @@ LM_CONFIGS = {
     "sliding": ("tconst_41m", {"attention_mode": "sliding",
                                "sliding_window": 8}),
     "softcap": ("smollm_360m", {"logit_softcap": 2.0}),
+    "deepseek": ("deepseek_moe_16b", {}),
+    "mixtral": ("mixtral_8x22b", {}),
 }
+MOE_CONFIGS = ("deepseek", "mixtral")
 
 
 @functools.lru_cache(maxsize=None)
