@@ -44,9 +44,18 @@ Phases (any failure raises, so the exit code is non-zero):
    the plain version's and ``F.scaled_dot_product_attention``'s times (a
    yardstick only, with the gather or dequantisation it needs; the port
    never calls it; no one PyTorch call computes K4) and the least time
-   the card could take.  Then the device launches one call of K1, K1-int8,
-   K2, K3, K3-int8 and each K4 launch makes (torch.profiler): one each,
-   and K2, K1 and K3 at deepseek's shapes too.
+   the card could take.  K2's backward (``flash_attention_bwd``) and its
+   forward's row log-sum-exp, in bf16 and f32, at the shapes a
+   tconst-41m train step at batch 8 x 1024 gives them: the compress
+   (dead keys), the context self-attention, the restore, the generation
+   window's self and cross attention and TLinFormer's history cross, a
+   compress whose every query is fully masked, the base transformer's
+   causal 1024, and one case at G 3, D 64 with a softcap and a window;
+   dq, dk and dv against the plain backward (TOL times max(1, max
+   |plain|)), with SDPA's autograd backward as the yardstick.  Then the
+   device launches one call of K1, K1-int8, K2, K3, K3-int8 and each K4
+   launch makes (torch.profiler): one each, and K2, K1 and K3 at
+   deepseek's shapes too; K2's backward three (delta, dk/dv, dq).
 4. Serve ``tconst-41m`` at full width with the port's seeded init
    (``--sessions 4 --prompt-len 600 --gen 320 --chunk 32``), each run's
    launch counters reset before the scheduler and read right after it:
@@ -60,13 +69,15 @@ Phases (any failure raises, so the exit code is non-zero):
    layout (the f32 runs of the new layouts use ``--prompt-len 700 --gen
    96``: every session still crosses a resync).  bf16 logits after the
    prefill and after a few decode steps are held against the f32 plain
-   path on the CPU, same layout.  Then the dense attention LMs at full
+   path on the CPU, same layout.  mamba2-130m's f32 run (streams only)
+   is cut to 6 of its 24 layers.  Then the dense attention LMs at full
    width: smollm-360m (32 layers, d 960, 15 heads over 5 KV heads) on
    the dense layout (K1, K2) and the paged one (K2, K3), and the paper's
    base transformer (tconst-41m in full attention, on the tconst
    weights) on int8 (K1-int8, K2) and paged_int8 (K2, K3-int8), same
-   argv, bf16 and f32 (f32 at ``--prompt-len 700 --gen 72``); their bf16
-   logits held at 3x the CPU plain path's own bf16 error.  Then the MoE
+   argv, bf16 and f32 (f32 at ``--prompt-len 700 --gen 72``, smollm at 8
+   of its 32 layers); their bf16 logits held at 3x the CPU plain path's
+   own bf16 error.  Then the MoE
    family: deepseek-moe-16b (16.4 B parameters, drawn on the card in bf16
    from a seed) at full width and depth on dense (K1, K2) and paged (K2,
    K3, the under-sized pool) in bf16 (``--gen 96``; finite logits), and
@@ -81,12 +92,23 @@ Phases (any failure raises, so the exit code is non-zero):
    K1 with ``lo > 0`` and K3 with ``window > 0`` through a model, the
    card's logits against the CPU plain path's, the streams equal on the
    float layouts.
-5. Uniform-batch Engine (``--batch 4 --prompt-len 1024 --gen 800``): the
+5. Training (``launch.train``, ``--batch 8 --seq 1024 --steps 6``):
+   tconst-41m at full width in bf16 in modes tconst, tlin and full (the
+   base transformer) on one seeded init, in turns A B C C B A over the
+   same synthetic batches.  Each run must launch K2's forward and
+   backward kernels and nothing else, no plain version, and its finite
+   loss must fall; it records warm step ms, tok/s and peak device
+   memory, and the first run of each mode one profiled step (device
+   launches, device ms, K2 calls).  Then loss and gradients at full
+   width, B 1 x 512, on the card against the CPU plain path on the same
+   f32 params: f32 within a relative L2 error of 1e-4, bf16 within 3x
+   the CPU plain path's own bf16 error.
+6. Uniform-batch Engine (``--batch 4 --prompt-len 1024 --gen 800``): the
    paper's three variants on one set of weights -- tconst/dense,
    tlin/paged and the base transformer (full/dense) -- in one call, in
    turns (A, B, C, C, B, A): the mean cache-hit step (O(1) against O(N))
    and resync times of each run.
-6. Prints the per-kernel JSON line, the card line, and as the last line
+7. Prints the per-kernel JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.  Details go to
    ``build/chip_smoke.json``.
 
@@ -185,6 +207,7 @@ SSM_ENGINE_ARGS = ["--arch", SSM, "--batch", "4", "--prompt-len", "1024",
 K1, K1_INT8, K2 = "decode_attention", "decode_attention_int8", \
     "flash_attention"
 K3, K3_INT8 = "paged_decode_attention", "paged_decode_attention_int8"
+K2_BWD = "flash_attention_bwd"
 K4_INTRA, K4_SCAN = "ssd_intra_chunk", "ssd_chunk_scan"
 # (mode, layout, the kernels the run launches -- and no other); mode
 # "mamba2" is the SSM family (arch mamba2_130m, no attention mode)
@@ -205,8 +228,15 @@ SESSION_RUNS = [
     ("deepseek", "dense", (K1, K2)),
     ("deepseek", "paged", (K2, K3)),
 ]
-# config overrides of a run by (mode, dtype)
-RUN_OVERRIDES = {("deepseek", "float32"): {"n_layers": DEEPSEEK_CHECK_DEPTH}}
+# config overrides of a run by (mode, dtype).  The f32 runs of mamba2 and
+# smollm check greedy streams against their solo runs only (their logits
+# are checked in bf16 at full depth): they run at a cut depth, the same
+# layers and kernels (mamba2 6 of 24 layers, smollm 8 of 32)
+SSM_F32_DEPTH = 6
+SMOLLM_F32_DEPTH = 8
+RUN_OVERRIDES = {("deepseek", "float32"): {"n_layers": DEEPSEEK_CHECK_DEPTH},
+                 ("mamba2", "float32"): {"n_layers": SSM_F32_DEPTH},
+                 ("smollm", "float32"): {"n_layers": SMOLLM_F32_DEPTH}}
 # the window phase (f32, reduced widths): gemma3's 5 local : 1 global
 # pattern needs 6 layers (reduced() keeps 2), window 8; tconst-41m in
 # sliding mode, window 8 on every layer; mixtral (reduced: window 8, two
@@ -242,7 +272,28 @@ KERNELS = {
                "src/repro/kernels/ssd_scan.py:61", ("mamba2", "dense")),
     K4_SCAN: ("q64_b4", "src/repro_torch/csrc/ssd_scan.cu",
               "src/repro/kernels/ssd_scan.py:114", ("mamba2", "dense")),
+    # launches: the first tconst training run (TRAIN_TURNS)
+    K2_BWD: ("compress", "src/repro_torch/csrc/flash_attention_bwd.cu",
+             "src/repro/kernels/xla_flash.py:125", ("train", "tconst")),
 }
+
+# training (phase 5): tconst-41m at full width in bf16, batch 8 x 1024,
+# in modes tconst, tlin and full (the base transformer) on one seeded
+# init, in turns A B C C B A, each run TRAIN_STEPS steps of AdamW (lr
+# 3e-3, the launcher's cosine schedule) over the same synthetic batches
+TRAIN_STEPS = 6
+TRAIN_ARGS = ["--arch", "tconst-41m", "--batch", "8", "--seq", "1024",
+              "--steps", str(TRAIN_STEPS), "--log-every", "1"]
+TRAIN_TURNS = ("tconst", "tlin", "full")
+# the gradient checks: loss and gradients at full width, B 1 x 512 (two
+# windows), on the card against the CPU plain path on the same f32
+# params.  Error: the relative L2 norm of the gradient difference over
+# all leaves.  f32: both sides exact f32 in other summation orders; a
+# wrong attention gradient is O(1).  bf16: 3x the CPU plain path's own
+# bf16 error against the same f32 reference, as the logit checks
+GRAD_CHECK_SHAPE = (1, 512)
+GRAD_TOL_F32 = 1e-4
+GRAD_BF16_FACTOR = 3.0
 
 
 class SmokeError(RuntimeError):
@@ -709,6 +760,143 @@ def k2_rows(torch, rows, cfg, dev, randn, dname: str, max_len: int,
         torch.cuda.empty_cache()
 
 
+def k2_bwd_cases(torch, cfg, dev):
+    """(label, q_pos, k_pos, causal, window, softcap, (H, KV, D)) at the
+    shapes a tconst-41m train step at batch 8 x 1024 gives K2's backward,
+    at window j = 2 of 4 (the history half live): the compress (tail
+    queries over the history, keys from 512 on dead), the context
+    self-attention, the restore (every history row over the tail), the
+    generation window's self and cross attention and TLinFormer's history
+    cross; window 0's compress (every query fully masked, every key
+    dead); the base transformer's causal 1024; and one case at G 3, D 64
+    (smollm-360m's heads) with a softcap and a window."""
+    from repro_torch.kernels.flash_attention import INVALID_POS
+    B, N = 8, 1024
+    Wh, Wg = cfg.tconst.w_oh, cfg.tconst.w_og
+
+    def ar(n, start=0, rows=B):
+        return (start + torch.arange(n, dtype=torch.int32, device=dev)
+                )[None].expand(rows, n).contiguous()
+
+    def keys(p, valid):
+        return torch.where(valid, p, torch.full_like(p, INVALID_POS))
+
+    j = 2
+    pos = ar(N)
+    hist_kp = keys(pos, pos < j * Wg)
+    tail, gen = ar(Wh, j * Wg - Wh), ar(Wg, j * Wg)
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+    p600 = ar(600, rows=4)
+    return [
+        ("compress", tail, hist_kp, True, 0, 0.0, heads),
+        ("compress_masked", ar(Wh, -Wh), keys(pos, pos < 0), True, 0, 0.0,
+         heads),
+        ("ctx_self", tail, tail, True, 0, 0.0, heads),
+        ("restore", pos, tail, True, 0, 0.0, heads),
+        ("gen_self", gen, gen, True, 0, 0.0, heads),
+        ("gen_cross", gen, tail, True, 0, 0.0, heads),
+        ("tlin_hist", gen, hist_kp, True, 0, 0.0, heads),
+        ("base_causal", pos, pos, True, 0, 0.0, heads),
+        ("g3_d64_cap_window", p600, p600, True, 256, 30.0, (15, 5, 64)),
+    ]
+
+
+def sdpa_bwd(torch, q, k, v, do, mask, square_causal, softcap):
+    """``torch.autograd.grad`` through SDPA with the same mask (a square
+    causal prompt: ``is_causal``), K/V repeated over the group, the
+    forward run once outside the timed call; None under a softcap (SDPA
+    has none)."""
+    import torch.nn.functional as F
+    if softcap > 0.0:
+        return None
+    G = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt = k.transpose(1, 2).repeat_interleave(G, dim=1).detach() \
+        .requires_grad_()
+    vt = v.transpose(1, 2).repeat_interleave(G, dim=1).detach() \
+        .requires_grad_()
+    if square_causal:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    else:
+        out = F.scaled_dot_product_attention(qt, kt, vt,
+                                             attn_mask=mask[:, None])
+    dot = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+
+def k2_bwd_rows(torch, rows, cfg, dev, randn, dname: str):
+    """K2's forward ``lse`` and its backward kernel against their plain
+    versions at :func:`k2_bwd_cases`' shapes: dq, dk and dv each within
+    TOL of ``dname`` times max(1, max |plain|) (sums over up to 1024
+    queries or keys, in another order); the rows' lse within TOL (fully
+    masked rows: NEG_INF + log(1e-30) on both sides).  Times: the
+    backward call (three launches), its plain version and SDPA's
+    backward; the bound counts the four products and the recomputed
+    scores (10 D operations a head and attended pair) at the peak rate of
+    ``dname`` and each input read once (K/V only of attended keys)."""
+    from repro_torch.kernels import flash_attention as FA
+    dt = getattr(torch, dname)
+    tol = TOL[dname]
+    for label, qp, kp, causal, window, cap, (H, KV, D) in k2_bwd_cases(
+            torch, cfg, dev):
+        B, Lq, Lk = qp.shape[0], qp.shape[1], kp.shape[1]
+        q, do = randn((B, Lq, H, D), dt), randn((B, Lq, H, D), dt)
+        k, v = randn((B, Lk, KV, D), dt), randn((B, Lk, KV, D), dt)
+        flags = (causal, window, cap)
+        o, lse = FA.flash_attention_cuda(q, k, v, qp, kp, *flags,
+                                         return_lse=True)
+        _, lse_p = FA.flash_attention_plain(q, k, v, qp, kp, *flags,
+                                            return_lse=True)
+        got = FA.flash_attention_bwd_cuda(q, k, v, qp, kp, o, lse, do,
+                                          *flags)
+        want = FA.flash_attention_bwd_plain(q, k, v, qp, kp, o, lse, do,
+                                            *flags)
+        torch.cuda.synchronize()
+        what = f"{K2_BWD} {label}/{dname}"
+        live = lse_p > -1e30
+        check(bool((lse[~live] < -1e30).all()), f"{what}: a fully masked "
+              f"row's lse is not NEG_INF")
+        lse_err = (lse - lse_p)[live].abs().max().item() if live.any() \
+            else 0.0
+        check(lse_err <= tol, f"{what}: lse differs by {lse_err} > {tol}")
+        errs = {}
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            check(g.dtype == dt and bool(torch.isfinite(g.float()).all()),
+                  f"{what}: {name} is {g.dtype} or not finite")
+            scale = max(1.0, w.float().abs().max().item())
+            errs[name] = (g.float() - w.float()).abs().max().item()
+            check(errs[name] <= tol * scale, f"{what}: max |kernel - plain| "
+                  f"of {name} = {errs[name]} > {tol} x {scale}")
+        mask = FA.position_mask(qp, kp, causal, window)
+        pairs = int(mask.sum())
+        used = int(mask.any(dim=1).sum()) * KV * D * k.element_size()
+        n_bytes = nbytes(q, o, do, lse, qp, kp, *got) + 2 * used
+        flops = 10 * H * D * pairs
+        b, by = bound_ms(n_bytes, flops, dname)
+        args = (q, k, v, qp, kp, o, lse, do, *flags)
+        lib = sdpa_bwd(torch, q, k, v, do, mask,
+                       causal and not window and qp is kp, cap)
+        rows.append({
+            "kernel": K2_BWD, "case": label, "dtype": dname,
+            "shape": f"B={B} Lq={Lq} Lk={Lk} H={H} KV={KV} D={D}"
+                     f"{f' window={window}' if window else ''}"
+                     f"{f' softcap={cap}' if cap else ''}",
+            "max_abs_err": max(errs.values()), "errs": errs,
+            "lse_err": lse_err, "tol": tol, "pairs": pairs,
+            "ms": time_ms(lambda: FA.flash_attention_bwd_cuda(*args),
+                          reps=5, rounds=3),
+            "plain_ms": time_ms(lambda: FA.flash_attention_bwd_plain(*args),
+                                reps=2, rounds=3),
+            "library_ms": None if lib is None else time_ms(lib, reps=5,
+                                                           rounds=3),
+            "bound_ms": b, "bound_by": by,
+            "bytes_ms": 1e3 * n_bytes / HBM_BYTES_PER_S,
+            "ops_ms": 1e3 * flops / PEAK_FLOPS[dname]})
+        del q, do, k, v, o, lse, lse_p, got, want, mask, args, lib
+        torch.cuda.empty_cache()
+
+
 def sass_check(_build) -> dict:
     """Tensor-core instructions in the SASS of the built flash_attention
     library: every bf16 entry (``flash_bf16_kernel<DP>``) must hold HMMA
@@ -784,6 +972,10 @@ def launch_counts(torch, cfg, dev, max_len: int) -> dict:
                                                      bf)
     out[K2] = launches_per_call(
         torch, lambda: FA.flash_attention_cuda(q, k, v, qp, kp, True))
+    o, lse = FA.flash_attention_cuda(q, k, v, qp, kp, True, return_lse=True)
+    out[K2_BWD] = launches_per_call(
+        torch, lambda: FA.flash_attention_bwd_cuda(q, k, v, qp, kp, o, lse,
+                                                   o, True))
     # deepseek's shapes (H 16 over 16 KV heads, head_dim 128): the
     # 1024-token causal prefill, the step over 2 rows, the paged history
     from repro_torch.config import get_config
@@ -907,6 +1099,7 @@ def kernel_phase(torch, cfg, dev, max_len: int):
         k3_rows(torch, rows, cfg, dev, randn, gen, dname, max_len)
         k2_rows(torch, rows, cfg, dev, randn, dname, max_len)
         lm_rows(torch, rows, dev, randn, gen, dname, max_len)
+        k2_bwd_rows(torch, rows, cfg, dev, randn, dname)
     ssd_phase(torch, rows, dev, gen)
     for r in rows:
         lib = "none" if r["library_ms"] is None else \
@@ -1192,6 +1385,180 @@ def window_phase(torch, runtime, serve) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 5: training
+# ---------------------------------------------------------------------------
+
+
+def step_profile(torch, runtime, step_fn, params, opt, batch) -> dict:
+    """One warm train step under torch.profiler: its device launches and
+    device ms (summed kernel time), and the K2 forward / backward
+    wrapper calls of the step (launch counters)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    runtime.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = step_fn(params, opt, batch)
+        float(out[2]["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = runtime.read_counters()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    top = sorted(dev, key=us, reverse=True)[:6]
+    return {"launches": sum(e.count for e in dev),
+            "device_ms": sum(us(e) for e in dev) / 1e3,
+            "wall_ms_profiled": 1e3 * wall,
+            "k2_fwd_calls": counts[K2]["kernel"],
+            "k2_bwd_calls": counts[K2_BWD]["kernel"],
+            "top": [(e.key[:60], e.count, us(e) / 1e3) for e in top]}
+
+
+def train_phase(torch, runtime) -> dict:
+    """tconst-41m at full width, bf16, batch 8 x 1024, through the train
+    launcher (``launch.train.load`` / ``train``) in modes tconst, tlin and
+    full on one seeded init, in turns A B C C B A over the same
+    synthetic batches.  Each run: launch counters reset before it and
+    read after it (K2's forward and backward kernels launched, no plain
+    version, no other kernel); a finite loss that falls; warm step ms
+    (each step ends at its loss read), tok/s and peak device memory.  The
+    first run of each mode also profiles one more step."""
+    import numpy as np
+    from repro_torch.data.pipeline import DataConfig, batches
+    from repro_torch.launch import train as T
+    from repro_torch.training.optim import AdamWConfig
+    from repro_torch.training.schedules import warmup_cosine
+    from repro_torch.training.train_step import make_train_step
+    base = T.build_parser().parse_args(TRAIN_ARGS)
+    t0 = time.time()
+    data = list(batches(DataConfig(vocab_size=50257, seq_len=base.seq,
+                                   batch_size=base.batch, seed=base.seed),
+                        steps=base.steps))
+    out = {"data_s": time.time() - t0, "runs": {}}
+    for mode in TRAIN_TURNS + TRAIN_TURNS[::-1]:
+        args = T.build_parser().parse_args(TRAIN_ARGS + ["--mode", mode])
+        cfg, api, params = T.load(args)
+        check(cfg.dtype == "bfloat16" and cfg.d_model == 432,
+              f"train {mode}: not the full-width bf16 config")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runtime.reset_counters()
+        res = T.train(cfg, api, params, args, data=data, log=lambda _: None)
+        torch.cuda.synchronize()
+        counts = runtime.read_counters()
+        what = f"train {mode}"
+        for name, c in counts.items():
+            check(c["plain"] == 0, f"{what}: plain version of {name} ran "
+                  f"({counts})")
+            check((c["kernel"] > 0) == (name in (K2, K2_BWD)),
+                  f"{what}: launches {counts}")
+        losses = res["losses"]
+        check(all(x == x and abs(x) < 1e4 for x in losses),
+              f"{what}: non-finite loss {losses}")
+        check(losses[-1] < losses[0], f"{what}: the loss did not fall "
+              f"{losses}")
+        warm = statistics.median(res["step_s"][1:])
+        rec = {"losses": losses, "grad_norms": res["grad_norms"],
+               "step_ms": [1e3 * x for x in res["step_s"]],
+               "warm_step_ms": 1e3 * warm,
+               "tok_s": base.batch * base.seq / warm,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": {n: c["kernel"] for n, c in counts.items()
+                            if c["kernel"]}}
+        runs = out["runs"].setdefault(mode, [])
+        if not runs:
+            step_fn = make_train_step(api, AdamWConfig(lr=args.lr),
+                                      warmup_cosine(0, args.steps))
+            batch = {"tokens": torch.from_numpy(np.ascontiguousarray(
+                data[0]["tokens"][:, :args.seq])).cuda()}
+            rec["profile"] = step_profile(torch, runtime, step_fn,
+                                          res["params"], res["opt"], batch)
+        runs.append(rec)
+        del res, params, api
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rel_l2(got, want) -> float:
+    """||got - want|| / ||want|| over all leaves (f32, on the CPU)."""
+    from repro_torch.training.optim import tree_leaves
+    num = den = 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        g, w = g.detach().float().cpu(), w.detach().float().cpu()
+        num += float((g - w).square().sum())
+        den += float(w.square().sum())
+    return (num / den) ** 0.5
+
+
+def grad_check_phase(torch, runtime) -> dict:
+    """Loss and gradients of tconst-41m at full width (tconst, tlin,
+    full), B 1 x 512, on the card against the CPU plain path on the same
+    f32 params: f32 within ``GRAD_TOL_F32``; bf16 within
+    ``GRAD_BF16_FACTOR`` times the CPU plain path's own bf16 error, both
+    against the CPU f32 reference.  Each card run launches K2's forward
+    and backward kernels and no plain version."""
+    import numpy as np
+    from repro_torch import bridge
+    from repro_torch.config import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.training.optim import tree_map
+    from repro_torch.training.train_step import loss_and_grads
+    B, L = GRAD_CHECK_SHAPE
+    threads = torch.get_num_threads()
+    out = {}
+    for mode in TRAIN_TURNS:
+        cfg = get_config("tconst-41m", attention_mode=mode,
+                         dtype="float32")
+        toks = torch.from_numpy(np.random.RandomState(1).randint(
+            0, cfg.vocab_size, size=(B, L)))
+        params = bridge.stack_params(build_model(cfg, device="cpu").init(0))
+        card_params = tree_map(lambda p: p.cuda(), params)
+        res = {}
+        for dname in ("float32", "bfloat16"):
+            c = cfg.replace(dtype=dname)
+            torch.set_num_threads(min(threads, 4))
+            try:
+                res[f"cpu_{dname}"] = loss_and_grads(
+                    build_model(c, device="cpu"), params, {"tokens": toks})
+            finally:
+                torch.set_num_threads(threads)
+            runtime.reset_counters()
+            res[f"card_{dname}"] = loss_and_grads(
+                build_model(c, device="cuda"), card_params,
+                {"tokens": toks.cuda()})
+            torch.cuda.synchronize()
+            counts = runtime.read_counters()
+            check(all(counts[n]["kernel"] > 0 for n in (K2, K2_BWD)) and
+                  all(x["plain"] == 0 for x in counts.values()),
+                  f"grad check {mode} {dname}: launches {counts}")
+        ref = res["cpu_float32"][1]
+        rec = {"loss_cpu_f32": float(res["cpu_float32"][0]),
+               "loss_card_f32": float(res["card_float32"][0]),
+               "loss_card_bf16": float(res["card_bfloat16"][0]),
+               "err_f32": _rel_l2(res["card_float32"][1], ref),
+               "err_bf16": _rel_l2(res["card_bfloat16"][1], ref),
+               "err_cpu_bf16": _rel_l2(res["cpu_bfloat16"][1], ref)}
+        rec["tol_bf16"] = GRAD_BF16_FACTOR * rec["err_cpu_bf16"]
+        check(rec["err_f32"] <= GRAD_TOL_F32, f"grad check {mode}: f32 "
+              f"gradients differ from the CPU's by {rec['err_f32']} > "
+              f"{GRAD_TOL_F32}")
+        check(abs(rec["loss_card_f32"] - rec["loss_cpu_f32"]) <= 1e-4,
+              f"grad check {mode}: f32 loss {rec}")
+        check(rec["err_bf16"] <= rec["tol_bf16"], f"grad check {mode}: bf16 "
+              f"gradients differ from the CPU f32 ones by {rec['err_bf16']} "
+              f"> {rec['tol_bf16']}")
+        out[mode] = rec
+        del res, params, card_params
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1241,8 +1608,11 @@ def main() -> int:
     rows = kernel_phase(torch, cfg41, dev, max_len)
     per_call = launch_counts(torch, cfg41, dev, max_len)
     print(f"[launches] device launches per call: {per_call}")
-    check(all(n == 1 for n in per_call.values()), f"K1 / K2 / K3 / K4 must "
-          f"take one device launch a call: {per_call}")
+    check(per_call[K2_BWD] == 3, f"K2's backward must take three device "
+          f"launches a call (delta, dk/dv, dq): {per_call}")
+    check(all(n == 1 for name, n in per_call.items() if name != K2_BWD),
+          f"K1 / K2 / K3 / K4 must take one device launch a call: "
+          f"{per_call}")
     phase_s = {"kernels": time.time() - t_phase}
 
     # 4. serve at full width: every run is a main path, counted alone
@@ -1312,7 +1682,30 @@ def main() -> int:
               f"{v['streams_equal']}")
     print(f"[windows] {phase_s['windows']:.1f}s")
 
-    # 5. uniform batch engine (bf16): the paper's three variants on one
+    # 5. training at full width: the paper's three variants on one init
+    t_phase = time.time()
+    training = train_phase(torch, runtime)
+    phase_s["train"] = time.time() - t_phase
+    for mode, recs in training["runs"].items():
+        prof = recs[0]["profile"]
+        print(f"[train] {mode} bf16 batch 8 x 1024: losses "
+              f"{[round(x, 3) for x in recs[0]['losses']]}; warm step "
+              f"{[round(r['warm_step_ms'], 1) for r in recs]} ms (turns), "
+              f"{recs[0]['tok_s']:.0f} tok/s, peak "
+              f"{max(r['peak_mem_gb'] for r in recs):.2f} GB; one step: "
+              f"{prof['launches']} device launches, {prof['device_ms']:.1f} "
+              f"device ms, K2 fwd {prof['k2_fwd_calls']} / bwd "
+              f"{prof['k2_bwd_calls']} calls")
+    t_phase = time.time()
+    grads = grad_check_phase(torch, runtime)
+    phase_s["train grad check"] = time.time() - t_phase
+    for mode, r in grads.items():
+        print(f"[train] {mode} gradients at B 1 x 512 vs the CPU f32 plain "
+              f"path (rel L2): f32 {r['err_f32']:.2e} (tol {GRAD_TOL_F32}), "
+              f"bf16 {r['err_bf16']:.2e} (tol {r['tol_bf16']:.2e} = "
+              f"{GRAD_BF16_FACTOR} x the CPU's bf16 {r['err_cpu_bf16']:.2e})")
+
+    # 6. uniform batch engine (bf16): the paper's three variants on one
     # set of weights -- tconst/dense, tlin/paged and the base transformer
     # (full/dense) -- in turns (A, B, C, C, B, A): the host-bound step time
     # drifts between runs
@@ -1352,16 +1745,19 @@ def main() -> int:
           f"{srep['hit_ms']:.3f} ms (mean of {srep['n_hits']}), admission "
           f"(prefill of the batch) {srep['prefill_ms']:.3f} ms")
 
-    # 6. report
+    # 7. report
     line = []
     for name, (case, src, repl, run) in KERNELS.items():
         # the bf16 row of the representative case
         r = min((x for x in rows if x["kernel"] == name and
                  x["case"] == case), key=lambda x: x["dtype"] != "bfloat16")
+        launched = training["runs"][run[1]][0]["launches"] \
+            if run[0] == "train" else {
+                n: c["kernel"] for n, c in
+                runs[f"{run[0]}/{run[1]}/bfloat16"]["launches"].items()}
         line.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
-            "launches": runs[f"{run[0]}/{run[1]}/bfloat16"]["launches"][
-                name]["kernel"],
+            "launches": launched[name],
             "max_abs_err": max(x["max_abs_err"] for x in rows
                                if x["kernel"] == name),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -1372,6 +1768,7 @@ def main() -> int:
         "cuda": torch.version.cuda, "build_s": built,
         "kernel_rows": rows, "sass_tensor_core_ops": sass,
         "launches_per_call": per_call, "sessions": runs, "engines": engines,
+        "training": training, "grad_check": grads,
         "phase_s": phase_s, "total_s": time.time() - t_start,
     }
     (OUT / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

@@ -8,8 +8,13 @@ the O(1) cache-hit decode step (paper Eq. 5) and the O(N) resync (Eq. 4).
 ``mode="tlin"`` is the paper's TLinFormer baseline (Fig 1a): layer 0 of
 each block's generation path also cross-attends the raw history, so the
 cache keeps an O(N) per-block history KV (``hist_k`` / ``hist_v``) and the
-hit step reads it -- the one field the paged layouts page.  Forward only:
-every entry point runs under ``torch.no_grad``.
+hit step reads it -- the one field the paged layouts page.  The
+teacher-forced :func:`tconst_forward` is differentiable (training: its
+attentions run K2 with its backward); the serving entry points
+(``resync``, ``decode_step*``, ``prefill``) run under ``torch.no_grad``.
+The forward skips the last block's RESTORE, whose output nothing reads,
+so those parameters get no gradient where JAX's gives zeros; the
+training step treats a missing gradient as zeros.
 
 Attention routing: every multi-query attention (compress, context self,
 restore, the teacher-forced generation window and its history
@@ -204,10 +209,9 @@ def gen_path(block: Params, hg: torch.Tensor, gen_pos: torch.Tensor,
     return hg
 
 
-@torch.no_grad()
 def tconst_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                    mode: str = "tconst") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Teacher-forced forward (no autograd).  tokens (B, N), N % W_og == 0;
+    """Teacher-forced forward (differentiable).  tokens (B, N), N % W_og == 0;
     chunk j sees chunks 0..j-1 as compressed history (and, in tlin mode,
     its block's raw history at layer 0).  Returns (logits (B, N, V)
     float32, aux loss -- always 0 here, no MoE)."""

@@ -13,7 +13,9 @@
 // at negative tail positions) gives acc / (l + 1e-30) = 0.
 //
 // Layouts: q (B, Lq, H, D); k, v (B, Lk, KV, D), all contiguous; q_pos
-// (B, Lq), k_pos (B, Lk) int32; out (B, Lq, H, D) in q's type.  f32 and
+// (B, Lq), k_pos (B, Lk) int32; out (B, Lq, H, D) in q's type; lse, when
+// not null, (B, H, Lq) f32: each row's m + log(l + 1e-30), xla_flash._fwd's
+// log-sum-exp, which the backward (flash_attention_bwd.cu) reads.  f32 and
 // bf16 inputs.  Lq and Lk are arbitrary (ragged tiles are masked), the
 // window is a runtime argument, and the KV head of query head h is
 // h / (H / KV) (no repeat of K/V over the group).
@@ -259,9 +261,10 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ v,
                   const int* __restrict__ q_pos,
                   const int* __restrict__ k_pos,
-                  __nv_bfloat16* __restrict__ out, int Lq, int Lk, int H,
-                  int KV, int D, int causal, int window, float scale,
-                  float softcap, int vec) {
+                  __nv_bfloat16* __restrict__ out,
+                  float* __restrict__ lse, int Lq, int Lk, int H, int KV,
+                  int D, int causal, int window, float scale, float softcap,
+                  int vec) {
   constexpr int DS = DP + 8;
   constexpr int KSTEPS = DP / 16;  // k16 steps of Q K^T
   constexpr int NT = kBK / 8;      // n8 tiles of S
@@ -443,6 +446,10 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / (l0 + 1e-30f), inv1 = 1.f / (l1 + 1e-30f);
+  if (lse != nullptr && t4 == 0) {
+    if (r0 < Lq) lse[((size_t)b * H + h) * Lq + r0] = m0 + logf(l0 + 1e-30f);
+    if (r1 < Lq) lse[((size_t)b * H + h) * Lq + r1] = m1 + logf(l1 + 1e-30f);
+  }
 #pragma unroll
   for (int n = 0; n < DT; ++n) {
 #pragma unroll
@@ -471,8 +478,8 @@ __global__ void __launch_bounds__(kThreads32)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const int* __restrict__ q_pos,
                  const int* __restrict__ k_pos, float* __restrict__ out,
-                 int Lq, int Lk, int H, int KV, int D, int causal, int window,
-                 float scale, float softcap) {
+                 float* __restrict__ lse, int Lq, int Lk, int H, int KV,
+                 int D, int causal, int window, float scale, float softcap) {
   constexpr int DS = DP + 1;
   constexpr int DJ = DP / 16;  // output dims per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -622,6 +629,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       li += __shfl_xor_sync(0xffffffffu, li, o);
     const int r = q0 + 4 * tq + i;
     if (r >= Lq) continue;
+    if (lse != nullptr && tk == 0)
+      lse[((size_t)b * H + h) * Lq + r] = m[i] + logf(li + 1e-30f);
     const float inv = 1.f / (li + 1e-30f);
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
@@ -668,9 +677,9 @@ int copy_bytes(const void* k, const void* v, int D, int esize) {
 
 template <int DP>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        const void* qp, const void* kp, void* out, int B,
-                        int Lq, int Lk, int H, int KV, int D, int causal,
-                        int window, float scale, float softcap,
+                        const void* qp, const void* kp, void* out, void* lse,
+                        int B, int Lq, int Lk, int H, int KV, int D,
+                        int causal, int window, float scale, float softcap,
                         cudaStream_t st) {
   static size_t configured = 48 * 1024;
   const int warps = bf16_warps(B, Lq, H);
@@ -684,15 +693,16 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(qp),
-      static_cast<const int*>(kp), static_cast<__nv_bfloat16*>(out), Lq, Lk,
-      H, KV, D, causal, window, scale, softcap, copy_bytes(k, v, D, 2));
+      static_cast<const int*>(kp), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), Lq, Lk, H, KV, D, causal, window, scale,
+      softcap, copy_bytes(k, v, D, 2));
   return cudaGetLastError();
 }
 
 template <int DP>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       const void* qp, const void* kp, void* out, int B,
-                       int Lq, int Lk, int H, int KV, int D, int causal,
+                       const void* qp, const void* kp, void* out, void* lse,
+                       int B, int Lq, int Lk, int H, int KV, int D, int causal,
                        int window, float scale, float softcap,
                        cudaStream_t st) {
   static size_t configured = 48 * 1024;
@@ -705,8 +715,9 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   kernel<<<grid, kThreads32, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int*>(qp),
-      static_cast<const int*>(kp), static_cast<float*>(out), Lq, Lk, H, KV,
-      D, causal, window, scale, softcap);
+      static_cast<const int*>(kp), static_cast<float*>(out),
+      static_cast<float*>(lse), Lq, Lk, H, KV, D, causal, window, scale,
+      softcap);
   return cudaGetLastError();
 }
 
@@ -714,11 +725,12 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t.
-// The caller validates shapes (D <= 128, H % KV == 0).
+// dtype: 0 = float32, 1 = bfloat16.  lse: (B, H, Lq) f32 or null (not
+// written).  Returns the launch's cudaError_t.  The caller validates shapes
+// (D <= 128, H % KV == 0).
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         const void* q_pos, const void* k_pos, void* out,
-                        int B, int Lq, int Lk, int H, int KV, int D,
+                        void* lse, int B, int Lq, int Lk, int H, int KV, int D,
                         int causal, int window, float scale, float softcap,
                         int dtype, void* stream) {
   if (B == 0 || Lq == 0 || H == 0) return (int)cudaGetLastError();
@@ -726,12 +738,12 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
 #define REPRO_FLASH_CASE(DPV)                                                 \
   if (D <= DPV)                                                               \
     return (int)(dtype == 0                                                   \
-                     ? launch_f32<DPV>(q, k, v, q_pos, k_pos, out, B, Lq, Lk, \
-                                       H, KV, D, causal, window, scale,       \
-                                       softcap, st)                           \
-                     : launch_bf16<DPV>(q, k, v, q_pos, k_pos, out, B, Lq,    \
-                                        Lk, H, KV, D, causal, window, scale,  \
-                                        softcap, st));
+                     ? launch_f32<DPV>(q, k, v, q_pos, k_pos, out, lse, B,    \
+                                       Lq, Lk, H, KV, D, causal, window,      \
+                                       scale, softcap, st)                    \
+                     : launch_bf16<DPV>(q, k, v, q_pos, k_pos, out, lse, B,   \
+                                        Lq, Lk, H, KV, D, causal, window,     \
+                                        scale, softcap, st));
   REPRO_FLASH_CASE(16)
   REPRO_FLASH_CASE(32)
   REPRO_FLASH_CASE(48)

@@ -23,8 +23,8 @@ from typing import Dict, Iterable, List, Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
-SOURCES = ("decode_attention", "flash_attention", "paged_decode_attention",
-           "ssd_scan")
+SOURCES = ("decode_attention", "flash_attention", "flash_attention_bwd",
+           "paged_decode_attention", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -6,6 +6,12 @@ a CPU tensor takes the kernel's plain PyTorch version.  There is no
 switch that sends CUDA tensors to the plain versions and no fallback
 from a failed launch.  Every kernel counts its launches, the int8
 variants apart from the float ones (``repro_torch.runtime``).
+
+K2 is differentiable: with autograd on and an input that requires grad,
+:func:`flash_attention` runs through :class:`FlashAttention` (the
+``jax.custom_vjp`` of ``xla_flash.flash_attention``), whose forward also
+returns the rows' log-sum-exp and whose backward is K2's backward kernel
+(CUDA tensors) or its plain version (CPU tensors).
 """
 from __future__ import annotations
 
@@ -74,13 +80,52 @@ def paged_decode(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
                                            k_scale, v_scale)
 
 
+class FlashAttention(torch.autograd.Function):
+    """K2 with its backward: the forward saves q, k, v, the positions, its
+    output and the rows' log-sum-exp; the backward returns dq, dk, dv (dk
+    and dv summed over each KV head's group)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, causal, window, softcap):
+        if q.is_cuda:
+            o, lse = FA.flash_attention_cuda(q, k, v, q_pos, k_pos, causal,
+                                             window, softcap, return_lse=True)
+        else:
+            _plain_device(q, "flash_attention")
+            FA.COUNTER.plain += 1
+            o, lse = FA.flash_attention_plain(q, k, v, q_pos, k_pos, causal,
+                                              window, softcap,
+                                              return_lse=True)
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, o, lse)
+        ctx.flags = (causal, window, softcap)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, q_pos, k_pos, o, lse = ctx.saved_tensors
+        if q.is_cuda:
+            dq, dk, dv = FA.flash_attention_bwd_cuda(q, k, v, q_pos, k_pos, o,
+                                                     lse, do, *ctx.flags)
+        else:
+            _plain_device(q, "flash_attention_bwd")
+            FA.COUNTER_BWD.plain += 1
+            dq, dk, dv = FA.flash_attention_bwd_plain(q, k, v, q_pos, k_pos,
+                                                      o, lse, do, *ctx.flags)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_pos: torch.Tensor, k_pos: torch.Tensor,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
     """K2.  q (B, Lq, H, D); k/v (B, Lk, KV, D); q_pos (B, Lq), k_pos
     (B, Lk) with ``INVALID_POS`` marking dead keys.  Returns
-    (B, Lq, H, D)."""
+    (B, Lq, H, D); differentiable in q, k, v (:class:`FlashAttention`)
+    when autograd is on and one of them requires grad."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
+                                    v.requires_grad):
+        return FlashAttention.apply(q, k, v, q_pos, k_pos, causal, window,
+                                    softcap)
     if q.is_cuda:
         return FA.flash_attention_cuda(q, k, v, q_pos, k_pos, causal,
                                        window, softcap)

@@ -9,9 +9,11 @@ physical layout from :mod:`repro_torch.models.layouts`, slot surgery
 through the layout), per-slot sampling, the :class:`DecodeAPI` protocol,
 :func:`decode_chunk`, :class:`TConstDecode`, :class:`DenseDecode` (a
 growing KV cache or an O(1) recurrent state, no periodic resync),
-``build_decode`` and ``build_model``.  The hit step reads the cache
-through KVViews (``DecodeState.decode_views``); ``merged`` (the dense
-logical dict) is the oracle and the admission path's currency.
+``build_decode`` and ``build_model``; and the training side of the
+facade: ``cross_entropy``, ``ModelAPI.forward`` and ``ModelAPI.loss``.
+The hit step reads the cache through KVViews
+(``DecodeState.decode_views``); ``merged`` (the dense logical dict) is
+the oracle and the admission path's currency.
 
 Where the JAX package scans a decode chunk on device and decides each
 resync there, the port runs eagerly: the resync is decided from a
@@ -40,6 +42,20 @@ from repro_torch.models import lm as LM
 def _is_tconst(cfg: ModelConfig) -> bool:
     return cfg.attention_mode in ("tconst", "tlin") and \
         cfg.arch_type not in ("ssm", "audio")
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor
+                  ) -> torch.Tensor:
+    """Mean next-token CE.  logits (B, L, V) f32; targets (B, L) int."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets[..., None].long())[..., 0]
+    return (logz - gold).mean()
 
 
 # ---------------------------------------------------------------------------
@@ -569,7 +585,8 @@ def build_decode(cfg: ModelConfig, layout: Any = None,
 
 @dataclasses.dataclass
 class ModelAPI:
-    """Facade: the seeded init and the decode protocol, on one device."""
+    """Facade: the seeded init, the training forward and loss, and the
+    decode protocol, on one device."""
 
     cfg: ModelConfig
     device: torch.device
@@ -578,6 +595,41 @@ class ModelAPI:
         if _is_tconst(self.cfg):
             return TC.init_tconst_lm(self.cfg, seed, self.device)
         return LM.init_lm(self.cfg, seed, self.device)
+
+    # -- training -----------------------------------------------------------
+    def forward(self, params, batch: Dict[str, Any]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Teacher-forced forward of ``batch["tokens"]`` (B, L):
+        (logits (B, L, V) f32, aux loss); differentiable for the TConst
+        family and the dense attention LMs."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        if _is_tconst(cfg):
+            return TC.tconst_forward(params, tokens, cfg,
+                                     mode=cfg.attention_mode)
+        return LM.lm_forward(params, tokens, cfg)
+
+    def loss(self, params, batch: Dict[str, Any]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token CE plus ``router_aux_coef`` times the aux loss:
+        (total, {"ce", "aux"}).  The MoE and SSM families raise (their
+        training is not ported)."""
+        cfg = self.cfg
+        if cfg.is_moe:
+            raise NotImplementedError(
+                f"{cfg.name}: MoE training (the router aux loss through "
+                f"the expert routing) is not ported yet: ROADMAP Queue 1 "
+                f"item 10b")
+        if cfg.arch_type == "ssm":
+            raise NotImplementedError(
+                f"{cfg.name}: SSM training is not ported yet (K4 has no "
+                f"backward; JAX differentiates its scan): ROADMAP Queue 1 "
+                f"item 10c")
+        logits, aux = self.forward(params, batch)
+        tokens = batch["tokens"]
+        ce = cross_entropy(logits[:, :-1], tokens[:, 1:])
+        total = ce + cfg.router_aux_coef * aux
+        return total, {"ce": ce, "aux": aux}
 
     @property
     def decode(self) -> DecodeAPI:

@@ -16,8 +16,11 @@ in ``dense_k`` / ``dense_v`` of shape (n_dense, B, max_len, KV, hd),
 beside ``k`` / ``v`` over the ``n_layers - n_dense`` MoE layers.  Layers
 are kept unstacked, one dict per layer in a list (the JAX package stacks
 them for ``jax.lax.scan``; :func:`repro_torch.bridge.lm_params_from_jax`
-unstacks them).  Forward only: every entry point runs under
-``torch.no_grad``.
+unstacks them).  The teacher-forced :func:`lm_forward` is
+differentiable for the dense attention LMs (training: K2 with its
+backward); the serving entry points run under ``torch.no_grad``.
+Training the MoE and SSM families is not ported (``ModelAPI.loss``
+refuses them: ROADMAP Queue 1 items 10b and 10c).
 
 Attention runs on the port's kernels: every multi-query attention
 (forward, prefill) is K2, causal with the layer's window; the decode step
@@ -227,11 +230,12 @@ def embed_inputs(params: Params, tokens: torch.Tensor, cfg: ModelConfig
     return E.embed_tokens(params["embed"], tokens, getattr(torch, cfg.dtype))
 
 
-@torch.no_grad()
 def lm_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced forward.  tokens (B, L) -> (logits (B, L, V) f32,
-    the MoE layers' summed aux loss, 0 without MoE layers)."""
+    the MoE layers' summed aux loss, 0 without MoE layers).
+    Differentiable for the dense attention LMs (JAX remats its layer
+    scan; nothing is rematerialised here)."""
     check_family(cfg)
     x = embed_inputs(params, tokens, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -1,5 +1,7 @@
 """The port stands alone: importing every ``repro_torch`` module and
-``chip_smoke`` pulls in neither JAX nor any module of the JAX package, and
+``chip_smoke`` pulls in neither JAX nor any module of the JAX package nor
+``msgpack`` (the GPU machine has none: the checkpoints carry their own
+codec), and
 ``chip_smoke.py`` fails (printing no result) without a GPU or outside a
 checkout."""
 import os
@@ -20,7 +22,7 @@ for name in names:
 sys.path.insert(0, {root!r})
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack"))
 print(len(names), bad)
 sys.exit(1 if bad or len(names) < 15 else 0)
 """

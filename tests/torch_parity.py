@@ -18,9 +18,10 @@ import torch
 from repro import config as JC
 from repro.core import tconst as JT
 from repro.models import lm as JLM
+from repro.models.api import build_model as j_build_model
 from repro_torch import bridge
 from repro_torch import config as PC
-from repro_torch.models.api import build_decode
+from repro_torch.models.api import build_decode, build_model
 from repro_torch.serving.scheduler import SlotScheduler
 from repro_torch.serving.session import Session
 
@@ -120,3 +121,58 @@ def port_streams(cfg, params, prompts, layout=None, *, gen, slots=2,
             sched.step()
     sched.run()
     return [s.tokens for s in sessions], sched
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+TRAIN_SEQ = 16      # two windows of W_og 8: the first with no history
+
+
+def train_tokens(seed=0, batch=2):
+    return np.random.RandomState(seed).randint(0, 97, size=(
+        batch, TRAIN_SEQ)).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def train_pair(mode):
+    """(JAX api, JAX params, the port's api on the CPU, its params in the
+    JAX tree layout bridged from JAX's) for ``jax_tiny_cfg`` in
+    attention mode ``mode`` (tconst, tlin or full)."""
+    jcfg = jax_tiny_cfg(attention_mode=mode)
+    japi = j_build_model(jcfg)
+    jparams = japi.init(jax.random.PRNGKey(0))
+    api = build_model(port_cfg(jcfg), device="cpu")
+    tree = jax_to_numpy(jparams)
+    params = bridge.params_from_jax(tree) if mode != "full" else \
+        bridge.lm_params_from_jax(tree)
+    return japi, jparams, api, bridge.stack_params(params)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_loss_grads(mode):
+    """(loss, grads as numpy) of ``jax.value_and_grad(api.loss)`` at
+    :func:`train_pair`'s params on :func:`train_tokens`."""
+    japi, jparams = train_pair(mode)[:2]
+    (loss, _), grads = jax.value_and_grad(japi.loss, has_aux=True)(
+        jparams, {"tokens": jax.numpy.asarray(train_tokens())})
+    return float(loss), jax_to_numpy(grads)
+
+
+def assert_tree_close(port_np, jax_np, rel, atol=0.0, what=""):
+    """Leaf by leaf (the port's tree in JAX's layout, numpy leaves, in
+    JAX's flatten order): max |port - jax| <= atol + rel * max |jax|."""
+    from repro_torch.training.optim import tree_leaves
+    got = tree_leaves(port_np)
+    want = jax.tree_util.tree_flatten_with_path(jax_np)[0]
+    assert len(got) == len(want), (what, len(got), len(want))
+    for a, (path, b) in zip(got, want):
+        b = np.asarray(b, dtype=np.float32)
+        name = jax.tree_util.keystr(path)
+        assert a.shape == b.shape, (what, name, a.shape, b.shape)
+        if not a.size:
+            continue
+        err = float(np.abs(a.astype(np.float32) - b).max())
+        bound = atol + rel * float(np.abs(b).max())
+        assert err <= bound, (what, name, err, bound)
