@@ -10,7 +10,8 @@ Phases (any failure raises, so the exit code is non-zero):
 2. Build: compiles every kernel source from ``src/repro_torch/csrc/*.cu``
    with ``nvcc`` for ``sm_90a`` (one process per source, in parallel) and
    times it; ``cuobjdump -sass`` must show tensor-core instructions (HMMA
-   or HGMMA) in every bf16 entry of the flash_attention library.
+   or HGMMA) in every bf16 entry of K2's forward and backward libraries
+   (the backward's f32 entries, on the CUDA cores, are reported).
 3. Kernels: each kernel against its plain PyTorch version on the same
    CUDA tensors, in bf16 and f32, at the shapes ``tconst-41m`` serving
    gives it.  K1 (decode, split-KV): the step's self and cross attention
@@ -50,7 +51,8 @@ Phases (any failure raises, so the exit code is non-zero):
    (dead keys), the context self-attention, the restore, the generation
    window's self and cross attention and TLinFormer's history cross, a
    compress whose every query is fully masked, the base transformer's
-   causal 1024, and one case at G 3, D 64 with a softcap and a window;
+   causal 1024, one case at G 3, D 64 with a softcap and a window, and
+   deepseek-moe-16b's heads (D 128) on a causal 1024 at B 2;
    dq, dk and dv against the plain backward (TOL times max(1, max
    |plain|)), with SDPA's autograd backward as the yardstick.  Then the
    device launches one call of K1, K1-int8, K2, K3, K3-int8 and each K4
@@ -768,8 +770,10 @@ def k2_bwd_cases(torch, cfg, dev):
     self-attention, the restore (every history row over the tail), the
     generation window's self and cross attention and TLinFormer's history
     cross; window 0's compress (every query fully masked, every key
-    dead); the base transformer's causal 1024; and one case at G 3, D 64
-    (smollm-360m's heads) with a softcap and a window."""
+    dead); the base transformer's causal 1024; one case at G 3, D 64
+    (smollm-360m's heads) with a softcap and a window; and
+    deepseek-moe-16b's heads (16 over 16 KV heads, D 128) on a causal 1024
+    at B 2."""
     from repro_torch.kernels.flash_attention import INVALID_POS
     B, N = 8, 1024
     Wh, Wg = cfg.tconst.w_oh, cfg.tconst.w_og
@@ -786,7 +790,7 @@ def k2_bwd_cases(torch, cfg, dev):
     hist_kp = keys(pos, pos < j * Wg)
     tail, gen = ar(Wh, j * Wg - Wh), ar(Wg, j * Wg)
     heads = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
-    p600 = ar(600, rows=4)
+    p600, p1024 = ar(600, rows=4), ar(N, rows=2)
     return [
         ("compress", tail, hist_kp, True, 0, 0.0, heads),
         ("compress_masked", ar(Wh, -Wh), keys(pos, pos < 0), True, 0, 0.0,
@@ -798,6 +802,7 @@ def k2_bwd_cases(torch, cfg, dev):
         ("tlin_hist", gen, hist_kp, True, 0, 0.0, heads),
         ("base_causal", pos, pos, True, 0, 0.0, heads),
         ("g3_d64_cap_window", p600, p600, True, 256, 30.0, (15, 5, 64)),
+        ("d128_causal", p1024, p1024, True, 0, 0.0, (16, 16, 128)),
     ]
 
 
@@ -898,30 +903,43 @@ def k2_bwd_rows(torch, rows, cfg, dev, randn, dname: str):
 
 
 def sass_check(_build) -> dict:
-    """Tensor-core instructions in the SASS of the built flash_attention
-    library: every bf16 entry (``flash_bf16_kernel<DP>``) must hold HMMA
-    or HGMMA instructions.  Returns {function: count}."""
+    """Tensor-core instructions in the SASS of the built K2 libraries:
+    every bf16 entry of flash_attention (``flash_bf16_kernel<DP>``) and of
+    flash_attention_bwd (``bwd_dkdv_bf16_kernel<DP>``,
+    ``bwd_dq_bf16_kernel<DP>``) must hold HMMA or HGMMA instructions; the
+    backward's f32 entries (exact f32 on the CUDA cores by design) are
+    reported beside them.  Returns {"bf16": {entry: count}, "f32":
+    {entry: count}}, counts of HMMA/HGMMA instructions."""
     tool = Path(_build.nvcc()).parent / "cuobjdump"
-    res = subprocess.run([str(tool), "-sass",
-                          str(_build.target("flash_attention"))],
-                         capture_output=True, text=True, timeout=120)
-    check(res.returncode == 0, f"cuobjdump failed: {res.stderr.strip()}")
-    counts, fn = {}, None
-    for line in res.stdout.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = 0
-        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
-            counts[fn] += 1
-    bf16 = {}
-    for f, n in counts.items():
-        m = re.search(r"flash_bf16_kernelILi(\d+)E", f)
-        if m:
-            bf16[f"flash_bf16_kernel<{m.group(1)}>"] = n
-    check(len(bf16) > 0, "no bf16 flash entry in the library's SASS")
-    check(all(n > 0 for n in bf16.values()), f"a bf16 flash entry has no "
+    bf16, f32 = {}, {}
+    for lib, pats in (
+            ("flash_attention", ((r"(flash_bf16_kernel)ILi(\d+)E", bf16),)),
+            ("flash_attention_bwd",
+             ((r"(bwd_(?:dkdv|dq)_bf16_kernel)ILi(\d+)E", bf16),
+              (r"(bwd_(?:dkdv|dq)_kernel)IfLi(\d+)E", f32)))):
+        res = subprocess.run([str(tool), "-sass", str(_build.target(lib))],
+                             capture_output=True, text=True, timeout=120)
+        check(res.returncode == 0, f"cuobjdump failed on {lib}: "
+              f"{res.stderr.strip()}")
+        counts, fn = {}, None
+        for line in res.stdout.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :", 1)[1].strip()
+                counts[fn] = 0
+            elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+                counts[fn] += 1
+        for f, n in counts.items():
+            for pat, into in pats:
+                m = re.search(pat, f)
+                if m:
+                    into[f"{m.group(1)}<{m.group(2)}>"] = n
+    for name in ("flash_bf16_kernel", "bwd_dkdv_bf16_kernel",
+                 "bwd_dq_bf16_kernel"):
+        check(any(k.startswith(name + "<") for k in bf16),
+              f"no {name} entry in the K2 libraries' SASS")
+    check(all(n > 0 for n in bf16.values()), f"a bf16 K2 entry has no "
           f"HMMA/HGMMA instruction: {bf16}")
-    return bf16
+    return {"bf16": bf16, "f32": f32}
 
 
 def launches_per_call(torch, fn) -> int:
@@ -1392,8 +1410,9 @@ def window_phase(torch, runtime, serve) -> dict:
 
 def step_profile(torch, runtime, step_fn, params, opt, batch) -> dict:
     """One warm train step under torch.profiler: its device launches and
-    device ms (summed kernel time), and the K2 forward / backward
-    wrapper calls of the step (launch counters)."""
+    device ms (summed kernel time), K2's forward and backward device ms
+    (their kernels' names), and the K2 forward / backward wrapper calls
+    of the step (launch counters)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     runtime.reset_counters()
@@ -1411,9 +1430,13 @@ def step_profile(torch, runtime, step_fn, params, opt, batch) -> dict:
     def us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
+    def ms(marker):
+        return sum(us(e) for e in dev if marker in e.key) / 1e3
     top = sorted(dev, key=us, reverse=True)[:6]
     return {"launches": sum(e.count for e in dev),
             "device_ms": sum(us(e) for e in dev) / 1e3,
+            "k2_fwd_ms": ms("::flash_bf16_kernel"),
+            "k2_bwd_ms": ms("::bwd_"),
             "wall_ms_profiled": 1e3 * wall,
             "k2_fwd_calls": counts[K2]["kernel"],
             "k2_bwd_calls": counts[K2_BWD]["kernel"],
@@ -1594,8 +1617,9 @@ def main() -> int:
           f"{ {k: round(v, 2) for k, v in built.items()} } "
           f"(wall {build_s:.2f}s)")
     sass = sass_check(_build)
-    print(f"[sass] flash_attention bf16 entries, HMMA/HGMMA instructions: "
-          f"{sass}")
+    print(f"[sass] HMMA/HGMMA instructions of K2's bf16 entries (forward "
+          f"and backward): {sass['bf16']}; the backward's f32 entries: "
+          f"{sass['f32']}")
 
     from repro_torch.config import get_config
     from repro_torch.launch import serve
@@ -1695,7 +1719,8 @@ def main() -> int:
               f"{max(r['peak_mem_gb'] for r in recs):.2f} GB; one step: "
               f"{prof['launches']} device launches, {prof['device_ms']:.1f} "
               f"device ms, K2 fwd {prof['k2_fwd_calls']} / bwd "
-              f"{prof['k2_bwd_calls']} calls")
+              f"{prof['k2_bwd_calls']} calls, {prof['k2_fwd_ms']:.2f} / "
+              f"{prof['k2_bwd_ms']:.2f} device ms")
     t_phase = time.time()
     grads = grad_check_phase(torch, runtime)
     phase_s["train grad check"] = time.time() - t_phase

@@ -58,6 +58,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr float kNegInf = -2.3819763e38f;
@@ -74,25 +76,6 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// cp.async of N bytes; src_bytes 0 zero-fills the destination.
-template <int N>
-__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
-                                         int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
-               "l"(src), "n"(N), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Whether key position kp can be attended by some query of a block whose
@@ -224,25 +207,6 @@ __device__ __forceinline__ void query_span(const int* __restrict__ qp_row,
   atomicMin(span, mn);
   atomicMax(span + 1, mx);
   __syncthreads();
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // ---------------------------------------------------------------------------
@@ -425,14 +389,10 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
           vb + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * DS + (mi >> 1) * 8;
 #pragma unroll
       for (int dp = 0; dp < DP / 16; ++dp) {
-        uint32_t b0, b1, b2, b3;
-        asm volatile(
-            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-            "{%0,%1,%2,%3}, [%4];\n"
-            : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
-            : "r"(smem_addr(vrow + dp * 16)));
-        mma_bf16(acc[2 * dp], a0, a1, a2, a3, b0, b1);
-        mma_bf16(acc[2 * dp + 1], a0, a1, a2, a3, b2, b3);
+        uint32_t b[4];
+        ldsm_x4_trans(b, vrow + dp * 16);
+        mma_bf16(acc[2 * dp], a0, a1, a2, a3, b[0], b[1]);
+        mma_bf16(acc[2 * dp + 1], a0, a1, a2, a3, b[2], b[3]);
       }
     }
     __syncthreads();  // this buffer is refilled two tiles on

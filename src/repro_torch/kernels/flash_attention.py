@@ -16,9 +16,18 @@ call.  On request the forward also writes each row's log-sum-exp ``lse``
 The backward (``csrc/flash_attention_bwd.cu``, the counterpart of
 ``xla_flash._bwd``) takes q, k, v, the positions, the forward's output
 and ``lse`` and the output gradient, and returns dq, dk, dv (dk and dv
-summed over each KV head's group of query heads), in exact f32 on the
-CUDA cores: three launches a call (delta, dk/dv, dq), dead tiles skipped
-by :func:`tile_live` and its mirror :func:`query_tile_live`.
+summed over each KV head's group of query heads).  Bound by its
+operations (five products per attended pair, S and dP recomputed), it
+takes three launches a call (delta; dk/dv over key tiles, each block
+walking its KV head's G query heads, so no atomics; dq over query
+tiles), dead tiles skipped by :func:`tile_live` and its mirror
+:func:`query_tile_live`.  bf16 runs FlashAttention-2's backward on
+tensor cores (``mma.sync``, 16 rows a warp): the dk/dv pass holds blocks
+of 16-64 keys and walks query tiles of 32, the dq pass holds blocks of
+16-64 queries and walks key tiles of 64 (32 at head dim 128), both
+copying tiles through a three-stage cp.async ring.  Only the products'
+operands are bf16 -- P and dS rounded once each -- and every sum is f32,
+where ``xla_flash._bwd`` runs the bf16 backward in f32 throughout.  f32 stays exact f32 on the CUDA cores.
 
 Beside each kernel's wrapper sits its plain PyTorch version; only CPU
 tensors reach it (the dispatch is :func:`repro_torch.kernels.ops.flash_attention`).

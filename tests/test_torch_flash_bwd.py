@@ -5,9 +5,12 @@ and the forward's row log-sum-exp against ``xla_flash._fwd``'s.
 On the CPU the dispatch takes the plain versions (f32, atol 1e-5): dead
 keys, negative query positions, a fully masked row, a window, a softcap,
 G 1 and G > 1, ragged Lq / Lk.  The backward's tile-skip predicate for
-query tiles is held against the position mask.  The CUDA kernels (the
-forward's ``lse`` and the three-launch backward) are held against the
-plain versions by the ``cuda``-marked test, which skips without a GPU.
+query tiles is held against the position mask.  A plain mirror of the
+bf16 kernels' rounding points (P and dS rounded to bf16 once each, f32
+sums) is held against ``jax.vjp`` in f32 and against the plain backward
+within the card's bf16 tolerance.  The CUDA kernels (the forward's
+``lse`` and the three-launch backward) are held against the plain
+versions by the ``cuda``-marked test, which skips without a GPU.
 """
 import functools
 
@@ -39,6 +42,13 @@ CASES = {
     "window_softcap_g3_ragged": (2, 11, 17, 6, 2, 32, True, 4, 2.0,
                                  "dead"),
 }
+# the bf16 mirror's own case: the base transformer's causal 1024 (D 36),
+# reduced to one batch row and two heads
+MIRROR_CASES = {
+    "base_causal_1024_reduced": (1, 1024, 1024, 2, 2, 36, True, 0, 0.0,
+                                 "square"),
+}
+BF16_TOL = 2e-2     # the card's bf16 gate: TOL x max(1, max |reference|)
 
 
 def _positions(kind, B, Lq, Lk):
@@ -59,7 +69,8 @@ def _positions(kind, B, Lq, Lk):
 
 
 def _inputs(name):
-    B, Lq, Lk, H, KV, D, causal, window, cap, kind = CASES[name]
+    B, Lq, Lk, H, KV, D, causal, window, cap, kind = {**CASES,
+                                                     **MIRROR_CASES}[name]
     rs = np.random.RandomState(len(name))
     q = rs.randn(B, Lq, H, D).astype(np.float32)
     k = rs.randn(B, Lk, KV, D).astype(np.float32)
@@ -69,22 +80,33 @@ def _inputs(name):
     return (q, k, v, qp, kp, do), (causal, window, cap)
 
 
+def _bf16(a):
+    """numpy f32 values rounded to bf16 (the card's inputs), still f32."""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
 @functools.lru_cache(maxsize=None)
-def _jax(name):
-    """(o, lse (B, H, Lq), dq, dk, dv) of the JAX package, as numpy;
-    blocks of 8 so that Lq and Lk are ragged against them."""
+def _jax(name, bf16_inputs=False):
+    """(o, lse (B, H, Lq), dq, dk, dv) of the JAX package in f32, as
+    numpy; blocks of 8 so that Lq and Lk are ragged against them (128 past
+    512 rows).  ``bf16_inputs``: q, k, v and do rounded to bf16 first."""
     (q, k, v, qp, kp, do), (causal, window, cap) = _inputs(name)
+    if bf16_inputs:
+        q, k, v, do = (_bf16(a) for a in (q, k, v, do))
     B, Lq, H = q.shape[:3]
+    blk = 128 if Lq > 512 else 8
 
     def f(q_, k_, v_):
         return XF.flash_attention(q_, k_, v_, jnp.asarray(qp),
-                                  jnp.asarray(kp), window, causal, cap, 8, 8)
+                                  jnp.asarray(kp), window, causal, cap, blk,
+                                  blk)
 
     o, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     dq, dk, dv = vjp(jnp.asarray(do))
     _, res = XF._flash_fwd_rule(jnp.asarray(q), jnp.asarray(k),
                                 jnp.asarray(v), jnp.asarray(qp),
-                                jnp.asarray(kp), window, causal, cap, 8, 8)
+                                jnp.asarray(kp), window, causal, cap, blk,
+                                blk)
     lse = np.asarray(res[-1]).reshape(B, H, Lq)
     return tuple(np.asarray(a) for a in (o, lse, dq, dk, dv))
 
@@ -143,6 +165,64 @@ def test_autograd_function_matches_jax_vjp_and_counts(name):
         np.testing.assert_allclose(g.numpy(), w, atol=ATOL)
 
 
+def _bwd_bf16_mirror(q, k, v, q_pos, k_pos, o, lse, do, causal, window,
+                     softcap):
+    """The bf16 kernels' rounding points on the plain backward's
+    arithmetic: products of the bf16 inputs summed in f32, p and ds in
+    f32, then P and dS rounded to bf16 once each before the products that
+    take them (dV = P^T dO, dK = dS^T Q, dQ = dS K, f32 sums), the
+    gradients rounded to bf16."""
+    B, Lq, H, D = q.shape
+    Lk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = D ** -0.5
+    qf = q.reshape(B, Lq, KV, G, D).float()
+    kf, vf = k.float(), v.float()
+    dof = do.reshape(B, Lq, KV, G, D).float()
+    s = torch.einsum("blkgd,bskd->bklgs", qf, kf) * scale
+    dcap = 1.0
+    if softcap > 0.0:
+        t = torch.tanh(s / softcap)
+        s, dcap = t * softcap, 1.0 - t * t
+    mask = FA.position_mask(q_pos, k_pos, causal, window)[:, None, :, None]
+    lse_r = lse.reshape(B, KV, G, Lq).permute(0, 1, 3, 2)[..., None]
+    p = torch.where(mask, torch.exp(s - lse_r), torch.zeros_like(s))
+    delta = (dof * o.reshape(B, Lq, KV, G, D).float()).sum(-1)
+    delta = delta.permute(0, 2, 1, 3)[..., None]
+    ds = p * (torch.einsum("blkgd,bskd->bklgs", dof, vf) - delta) * dcap
+    pb, dsb = (a.to(torch.bfloat16).float() for a in (p, ds))
+    dv = torch.einsum("bklgs,blkgd->bskd", pb, dof)
+    dq = torch.einsum("bklgs,bskd->blkgd", dsb, kf) * scale
+    dk = torch.einsum("bklgs,blkgd->bskd", dsb, qf) * scale
+    return tuple(a.to(torch.bfloat16) for a in
+                 (dq.reshape(B, Lq, H, D), dk, dv))
+
+
+@pytest.mark.parametrize("name", ["causal_g2_dead_keys", "softcap_cross_g4",
+                                  "window_softcap_g3_ragged",
+                                  "base_causal_1024_reduced"])
+def test_bf16_rounding_mirror_within_tol(name):
+    """Rounding P and dS to bf16 (the kernels' design) keeps the gradients
+    within the card's bf16 gate of both references: JAX's f32 backward
+    and the plain backward, on the same bf16 inputs."""
+    _need_jax()
+    (q, k, v, qp, kp, do), flags = _inputs(name)
+    q, k, v, do = (_t(a).to(torch.bfloat16) for a in (q, k, v, do))
+    qp, kp = _t(qp), _t(kp)
+    o, lse = FA.flash_attention_plain(q, k, v, qp, kp, *flags,
+                                      return_lse=True)
+    got = _bwd_bf16_mirror(q, k, v, qp, kp, o, lse, do, *flags)
+    plain = FA.flash_attention_bwd_plain(q, k, v, qp, kp, o, lse, do,
+                                         *flags)
+    for grad, g, p, w in zip(("dq", "dk", "dv"), got, plain,
+                             _jax(name, bf16_inputs=True)[2:]):
+        assert g.dtype == torch.bfloat16
+        for ref_name, ref in (("plain", p.float().numpy()), ("jax", w)):
+            scale = max(1.0, float(np.abs(ref).max()))
+            err = float(np.abs(g.float().numpy() - ref).max())
+            assert err <= BF16_TOL * scale, (grad, ref_name, err, scale)
+
+
 def test_serving_calls_take_no_autograd_path():
     (q, k, v, qp, kp, _), flags = _inputs("causal_g2_dead_keys")
     qt = _t(q).requires_grad_()
@@ -181,7 +261,9 @@ def test_bwd_cuda_wrapper_refuses_cpu_tensors():
 # the kernels' own edges (GPU only): D 16 / 36 / 64 / 128 (DP 16, 48, 64,
 # 128), G 1 / 3 / 4, ragged tiles, dead keys, negative query positions and
 # a fully masked batch row, a window, a softcap, Lq and Lk past one tile
-# walk of 32 tiles (1100 > 32 * 32)
+# walk of 32 tiles (f32 tiles of 32: 1100 > 32 * 32; bf16 key tiles of 64:
+# 2100 > 32 * 64), G 4 at D 128 with dead keys, and rows of 36 and 34 bytes
+# (D 18 and 17: 4-byte and element copies)
 CUDA_CASES = [
     # B, Lq, Lk, H, KV, D, causal, window, softcap, positions
     (2, 37, 45, 4, 2, 16, True, 0, 0.0, "dead"),
@@ -190,12 +272,16 @@ CUDA_CASES = [
     (2, 33, 64, 4, 1, 128, False, 0, 0.0, "dead"),
     (1, 1100, 1100, 2, 2, 36, True, 0, 0.0, "square"),
     (2, 5, 1100, 3, 3, 32, True, 64, 0.0, "dead"),
+    (1, 2100, 2100, 2, 2, 36, True, 0, 0.0, "square"),
+    (2, 70, 150, 8, 2, 128, True, 0, 0.0, "dead"),
+    (2, 45, 77, 4, 2, 18, True, 0, 0.0, "dead"),
+    (1, 40, 40, 3, 1, 17, True, 9, 4.0, "square"),
 ]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, BF16_TOL)])
 def test_cuda_bwd_vs_plain(dtype, tol):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no "

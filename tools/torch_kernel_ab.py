@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Time the port's K1, K2, K3 and K4 kernels of two source trees on one GPU,
-in turns (A B B A), at the cases of this checkout's ``chip_smoke.py``.
+"""Time the port's K1, K2, K3, K4 and K2-backward kernels of two source trees
+on one GPU, in turns (A B B A), at the cases of this checkout's
+``chip_smoke.py``.
 
     python tools/torch_kernel_ab.py --parent DIR [--out FILE]
 
 ``DIR`` is a checkout of an earlier commit (for example unpacked with
 ``git archive``).  Each turn is a child process that puts one tree's
 ``src`` first on ``sys.path``, builds that tree's kernels and runs
-``chip_smoke.k1_rows``, ``k3_rows`` and ``k2_rows`` (every case in bf16
-and f32, each checked against the tree's plain version) -- so both trees
-see the same cases and the same seeded inputs.  A K1 case that a tree's
-wrapper refuses (an earlier K1 kept its scores in shared memory, so it
-took no more than ~57.9k slots) is printed as refused.  K4 is timed
+``chip_smoke.k1_rows``, ``k3_rows``, ``k2_rows`` and ``k2_bwd_rows``
+(every case in bf16 and f32, each checked against the tree's plain
+version; the backward through ``flash_attention_bwd_cuda``, the wrapper
+both trees have since it was written) -- so both trees see the same cases
+and the same seeded inputs.  A K1 case that a tree's wrapper refuses (an
+earlier K1 kept its scores in shared memory, so it took no more than
+~57.9k slots) is printed as refused.  K4 is timed
 through ``kernels.ssd_scan.ssd_scan``, the wrapper both trees have with
 one signature, at mamba2-130m's admission shapes (batch 4 x 1024 tokens,
 one 605-token prompt; f32 and bf16 inputs, made from one seed), each tree
@@ -46,7 +49,8 @@ def child(src: str) -> int:
         raise RuntimeError(f"imported {check}, not the tree under {src}")
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build(["decode_attention", "flash_attention",
-                  "paged_decode_attention", "ssd_scan"])
+                  "flash_attention_bwd", "paged_decode_attention",
+                  "ssd_scan"])
     cfg = get_config("tconst-41m")
     dev = torch.device("cuda")
     max_len = serve.sessions_max_len(serve.parse_args(CS.SESSIONS_ARGS))
@@ -71,6 +75,7 @@ def child(src: str) -> int:
         CS.k3_rows(torch, rows, cfg, dev, randn, gen, dname, max_len)
         CS.k2_rows(torch, rows, cfg, dev, randn, dname, max_len)
         k4_rows(torch, CS, rows, dev, dname)
+        CS.k2_bwd_rows(torch, rows, cfg, dev, randn, dname)
     print(TAG + json.dumps(rows), flush=True)
     return 0
 
