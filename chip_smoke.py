@@ -41,7 +41,10 @@ Phases (any failure raises, so the exit code is non-zero):
    library yardstick is SDPA with ``is_causal``.  deepseek-moe-16b's
    shapes (H 16 over 16 KV heads, head_dim 128): K2's prefill of 600 and
    1024 tokens (its first runs at D 128, bf16 and f32), K1 and K3 at B 2,
-   S 999, hi 600 and 935, G 1.  Prints the kernel's,
+   S 999, hi 600 and 935, G 1; in tconst mode K2's compress (B 2, 256 x
+   999) and restore (999 x 256) and K1 over the 256-slot window and
+   context slots.  minicpm-2b's (36 heads over 36 KV heads, head_dim 64):
+   K1 at S 999 and K2's causal prefill of 1024.  Prints the kernel's,
    the plain version's and ``F.scaled_dot_product_attention``'s times (a
    yardstick only, with the gather or dequantisation it needs; the port
    never calls it; no one PyTorch call computes K4) and the least time
@@ -86,14 +89,22 @@ Phases (any failure raises, so the exit code is non-zero):
    at full width and depth 3 (the dense layer and two MoE layers) in f32
    (streams equal their solo runs); at that depth its f32 and bf16 logits
    are held against one CPU f32 reference, with the count of routed
-   tokens whose expert set differs.  Prints one bf16 slot's KV bytes at
-   max_len for tconst, the base, smollm and deepseek.
+   tokens whose expert set differs.  Then deepseek-moe-16b in tconst mode
+   (MoE FFNs inside the TConst core: 7 blocks of depth 4, 16.9 B
+   parameters) on dense (K1, K2): bf16 at full width and depth, f32 at 8
+   layers (2 blocks), both at ``--prompt-len 700 --gen 96`` so every
+   session crosses a resync; f32 streams equal their solo runs, both
+   dtypes' logits at 8 layers against one CPU f32 reference.  Prints one
+   bf16 slot's KV bytes at max_len for tconst, the base, smollm and
+   deepseek (LM and tconst mode).
    A window phase serves reduced gemma3 (6 layers: 5 local : 1 global),
-   tconst-41m in sliding mode (window 8) and reduced mixtral (window 8,
-   two MoE layers, G 4) on all four layouts in f32:
-   K1 with ``lo > 0`` and K3 with ``window > 0`` through a model, the
-   card's logits against the CPU plain path's, the streams equal on the
-   float layouts.
+   tconst-41m in sliding mode (window 8, 8 layers) and reduced mixtral
+   (window 8, two MoE layers, G 4) on all four layouts in f32: K1 with
+   ``lo > 0`` and K3 with ``window > 0`` through a model; and reduced
+   deepseek in tconst mode, mixtral in tlin mode (MoE FFNs in the TConst
+   core, W 8: resyncs inside the logit checks) and minicpm-2b the same
+   way.  The card's logits against the CPU plain path's, the streams
+   equal on the float layouts.
 5. Training (``launch.train``, ``--batch 8 --seq 1024 --steps 6``):
    tconst-41m at full width in bf16 in modes tconst, tlin and full (the
    base transformer) on one seeded init, in turns A B C C B A over the
@@ -169,6 +180,7 @@ SESSIONS_ARGS = ["--sessions", "4", "--slots", "2", "--prompt-len", "600",
 SSM = "mamba2_130m"
 SMOLLM = "smollm-360m"
 DEEPSEEK = "deepseek_moe_16b"
+MINICPM = "minicpm_2b"
 # deepseek's f32 runs and its logit checks: the dense layer and two MoE
 # layers at full width (the only cut: 16.4 B parameters are 65.6 GB in
 # f32, and the CPU reference reads every expert's weights each step)
@@ -177,6 +189,12 @@ DEEPSEEK_CHECK_DEPTH = 3
 # session but the last decodes while the next is admitted, and the paged
 # run's third session waits for pages (12 + 12 of 31 held)
 DEEPSEEK_BF16_ARGS = ["--gen", "96"]
+# deepseek in tconst mode (MoE FFNs inside the TConst core: 7 blocks of
+# depth 4, every layer MoE): bf16 at full depth; f32, its streams and both
+# dtypes' logits at 2 blocks (8 layers: a restore feeds the next block;
+# 20.5 GB of f32 weights), with F32_ARGS in both dtypes, so every session
+# crosses a resync
+DEEPSEEK_TCONST_CHECK_DEPTH = 8
 # a run's model: mode -> (arch, config overrides).  "full" is the paper's
 # base transformer: tconst-41m's config and weights in full attention
 MODELS = {"tconst": ("tconst-41m", {"attention_mode": "tconst"}),
@@ -184,8 +202,14 @@ MODELS = {"tconst": ("tconst-41m", {"attention_mode": "tconst"}),
           "full": ("tconst-41m", {"attention_mode": "full"}),
           "smollm": (SMOLLM, {}),
           "mamba2": (SSM, {}),
-          "deepseek": (DEEPSEEK, {})}
-RESYNCING = ("tconst", "tlin")       # the modes with a periodic resync
+          "deepseek": (DEEPSEEK, {}),
+          "deepseek-tconst": (DEEPSEEK, {"attention_mode": "tconst"})}
+# the TConst core's attention modes, and the runs with a periodic resync
+TCONST_MODES = ("tconst", "tlin")
+RESYNCING = TCONST_MODES + ("deepseek-tconst",)
+# the MoE runs: bf16 at full depth (finite logits), f32 at a cut depth
+# whose logits both dtypes hold against one CPU f32 reference
+MOE_MODES = ("deepseek", "deepseek-tconst")
 # paged runs: 3 slots, a pool below the full 3 x 16 pages: sessions need
 # 15, 15, 16, 16 pages of 64 (prompt + gen + one chunk), so two decode
 # together and the third waits for pages with a slot free
@@ -229,6 +253,9 @@ SESSION_RUNS = [
     # and f32 at DEEPSEEK_CHECK_DEPTH (routing and expert GEMMs PyTorch)
     ("deepseek", "dense", (K1, K2)),
     ("deepseek", "paged", (K2, K3)),
+    # deepseek-moe-16b in tconst mode: the O(1) cache, K1 over the window
+    # and context slots, K2 in the resync and the admission
+    ("deepseek-tconst", "dense", (K1, K2)),
 ]
 # config overrides of a run by (mode, dtype).  The f32 runs of mamba2 and
 # smollm check greedy streams against their solo runs only (their logits
@@ -237,6 +264,8 @@ SESSION_RUNS = [
 SSM_F32_DEPTH = 6
 SMOLLM_F32_DEPTH = 8
 RUN_OVERRIDES = {("deepseek", "float32"): {"n_layers": DEEPSEEK_CHECK_DEPTH},
+                 ("deepseek-tconst", "float32"): {
+                     "n_layers": DEEPSEEK_TCONST_CHECK_DEPTH},
                  ("mamba2", "float32"): {"n_layers": SSM_F32_DEPTH},
                  ("smollm", "float32"): {"n_layers": SMOLLM_F32_DEPTH}}
 # the window phase (f32, reduced widths): gemma3's 5 local : 1 global
@@ -245,9 +274,17 @@ RUN_OVERRIDES = {("deepseek", "float32"): {"n_layers": DEEPSEEK_CHECK_DEPTH},
 # MoE layers).  Every layout; streams against the CPU plain path's.
 WINDOW_MODELS = {"gemma3": ("gemma3_4b", {"n_layers": 6}),
                  "sliding": ("tconst-41m", {"attention_mode": "sliding",
-                                            "sliding_window": 8}),
+                                            "sliding_window": 8,
+                                            "n_layers": 8}),
                  # an MoE model (top-2 of 4 experts, G 4) on windows
-                 "mixtral": ("mixtral_8x22b", {})}
+                 "mixtral": ("mixtral_8x22b", {}),
+                 # MoE FFNs inside the TConst core (reduced: 2 blocks, W 8)
+                 "deepseek-tconst": ("deepseek_moe_16b",
+                                     {"attention_mode": "tconst"}),
+                 "mixtral-tlin": ("mixtral_8x22b",
+                                  {"attention_mode": "tlin"}),
+                 # minicpm-2b (G 1, tied head), reduced
+                 "minicpm": (MINICPM, {})}
 WINDOW_ARGS = ["--reduced", "--dtype", "float32", "--sessions", "3",
                "--slots", "2", "--prompt-len", "20", "--gen", "24",
                "--chunk", "4", "--page-size", "16"]
@@ -1053,7 +1090,10 @@ def lm_rows(torch, rows, dev, randn, gen, dname: str, max_len: int):
     causal prefill of 600 and 1024 tokens (and 1024 under a 256 window);
     the base transformer (G 1, head_dim 36) K1-int8 and K3-int8 over its
     cache and K2's 1024-token prefill; deepseek-moe-16b (G 1, head_dim
-    128) K1 and K3 over its cache and K2's prefill of 600 and 1024."""
+    128) K1 and K3 over its cache and K2's prefill of 600 and 1024, and
+    in tconst mode K2's compress and restore and K1 over the window and
+    the context slots; minicpm-2b (G 1, head_dim 64) K1 over its cache
+    and K2's prefill of 1024."""
     from repro_torch.config import get_config
     t = lambda xs: torch.tensor(xs, dtype=torch.int32, device=dev)  # noqa
 
@@ -1102,6 +1142,26 @@ def lm_rows(torch, rows, dev, randn, gen, dname: str, max_len: int):
             cases=[("deepseek_hist", hist, 0, max_len)], quants=(False,))
     k2_rows(torch, rows, deepseek, dev, randn, dname, max_len,
             cases=prefills("deepseek", [600, 1024]))
+    # deepseek in tconst mode: the resync's compress (256 tail queries
+    # over the 999-slot history) and restore (999 queries over the 256
+    # slots), K1 over the 256-slot generation window and context slots
+    tc = {c[0]: c for c in k2_cases(torch, deepseek, dev, max_len)}
+    k2_rows(torch, rows, deepseek, dev, randn, dname, max_len,
+            cases=[(f"deepseek_{n}",) + tc[n][1:]
+                   for n in ("compress", "restore")])
+    k1_rows(torch, rows, deepseek, dev, randn, gen, dname, max_len,
+            cases=[(f"deepseek_{c[0]}",) + c[1:]
+                   for c in k1_cases(torch, deepseek, dev, max_len)
+                   if c[0] in ("self_full", "cross_partial")],
+            int8_cases=[])
+    # minicpm-2b (36 heads over 36 KV heads, head_dim 64): K1 over its KV
+    # cache and K2's 1024-token causal prefill
+    minicpm = get_config(MINICPM)
+    k1_rows(torch, rows, minicpm, dev, randn, gen, dname, max_len,
+            cases=[("minicpm_step", 2, max_len, t([0, 0]), t(hist[:2]))],
+            int8_cases=[])
+    k2_rows(torch, rows, minicpm, dev, randn, dname, max_len,
+            cases=prefills("minicpm", [1024]))
 
 
 def kernel_phase(torch, cfg, dev, max_len: int):
@@ -1138,10 +1198,13 @@ def session_argv(mode: str, layout: str, dtype: str):
     """The launcher's argv of one sessions run (f32 runs of the layouts
     added after the first slice at the shorter F32_ARGS, of the dense LMs
     and deepseek at F32_LM_ARGS; deepseek's bf16 runs at
-    DEEPSEEK_BF16_ARGS)."""
+    DEEPSEEK_BF16_ARGS; deepseek in tconst mode at F32_ARGS in both
+    dtypes)."""
     argv = SESSIONS_ARGS + ["--arch", MODELS[mode][0], "--dtype", dtype,
                             "--layout", layout]
-    if dtype == "float32" and mode in ("smollm", "full", "deepseek"):
+    if mode == "deepseek-tconst":
+        argv += F32_ARGS
+    elif dtype == "float32" and mode in ("smollm", "full", "deepseek"):
         argv += F32_LM_ARGS
     elif dtype == "float32" and layout != "dense":
         argv += F32_ARGS
@@ -1226,6 +1289,14 @@ def route_log():
         moe.route_topk = orig
 
 
+def synced(dec, params, st):
+    """``st`` after the resync of its rows whose window is full (TConst:
+    a reduced model's W_og 8 fills within ``LOGIT_STEPS``), as the decode
+    loop runs it before a step."""
+    rows = dec.sync_candidates(st)
+    return dec.sync_rows(params, st, rows) if rows.any() else st
+
+
 def cpu_reference(torch, serve, cfg, args, params, n_prompts=None):
     """The plain path on the CPU in f32, same weights and layout (full
     pool), on the first ``n_prompts`` session prompts: per prompt, the
@@ -1243,6 +1314,7 @@ def cpu_reference(torch, serve, cfg, args, params, n_prompts=None):
         steps = [(logits, routes)]
         for _ in range(LOGIT_STEPS):
             with route_log() as routes:
+                st = synced(dec, ref_params, st)
                 logits, st = dec.raw_step(
                     ref_params, st, logits.argmax(dim=-1).to(torch.int32))
             steps.append((logits, routes))
@@ -1278,6 +1350,7 @@ def logits_phase(torch, serve, cfg, args, params, tol, n_prompts=None,
                                                {"tokens": p[None]}, max_len)
                 else:
                     tok = steps[step - 1][0].argmax(dim=-1).to(torch.int32)
+                    st = synced(card_dec, card_params, st)
                     got, st = card_dec.raw_step(card_params, st,
                                                 tok.to(device))
             check(bool(torch.isfinite(got).all()), f"non-finite {what} "
@@ -1341,7 +1414,7 @@ def kv_bytes_per_slot(torch, serve, max_len: int) -> dict:
     from repro_torch.config import get_config
     from repro_torch.models.api import build_decode
     out = {}
-    for mode in ("tconst", "full", "smollm", "deepseek"):
+    for mode in ("tconst", "full", "smollm", "deepseek", "deepseek-tconst"):
         arch, over = MODELS[mode]
         dec = build_decode(get_config(arch, **over), device="cpu")
         meta = dataclasses.replace(dec, device=torch.device("meta"))
@@ -1350,10 +1423,24 @@ def kv_bytes_per_slot(torch, serve, max_len: int) -> dict:
     return out
 
 
+def layout_kernels(cfg, layout: str):
+    """The kernels a served model launches on ``layout``: an LM's
+    (``LAYOUT_KERNELS``), or the TConst core's -- K1 / K1-int8 over the
+    window and the context slots, K2, and in tlin mode K3 / K3-int8 over
+    the paged history."""
+    if cfg.attention_mode not in TCONST_MODES:
+        return LAYOUT_KERNELS[layout]
+    quant = "int8" in layout
+    hist = (K3_INT8 if quant else K3,) if cfg.attention_mode == "tlin" \
+        and layout.startswith("paged") else ()
+    return (K1_INT8 if quant else K1, K2) + hist
+
+
 def window_phase(torch, runtime, serve) -> dict:
     """Sliding windows through a served model on every layout (f32,
-    reduced widths).  Each card run must launch exactly its layout's
-    kernels and no plain version.  The card's logits along the CPU plain
+    reduced widths), and reduced models the full-width runs do not reach
+    on every layout (MoE FFNs in the TConst core, minicpm-2b).  Each card
+    run must launch exactly its layout's kernels and no plain version.  The card's logits along the CPU plain
     path's greedy tokens (``logits_phase``: the admission and
     ``LOGIT_STEPS`` steps, every one past the window) must be within the
     f32 ``LOGIT_TOL``; the greedy session streams must equal the CPU's on
@@ -1362,18 +1449,20 @@ def window_phase(torch, runtime, serve) -> dict:
     devices (their GEMMs sum in other orders), which moves the logits by
     ~3e-4 while the window holds it and can flip a near-tied greedy token
     of these random weights: there the streams are recorded, not
-    required equal."""
+    required equal, and a TConst model's logits are held from the card's
+    stored cache (:func:`adopted_logits`)."""
     from repro_torch.models.api import build_model
     from repro_torch.models.lm import layer_windows
     out = {}
     for name, (arch, over) in WINDOW_MODELS.items():
-        for layout, kernels in LAYOUT_KERNELS.items():
+        for layout in LAYOUT_KERNELS:
             argv = WINDOW_ARGS + ["--arch", arch, "--layout", layout]
             streams, counts = {}, None
             # one set of weights: the MoE family draws its own on the card
             # (a CUDA generator), so the CPU run takes the card's
             cfg, _, params = serve.load(
                 serve.parse_args(argv + ["--device", "cuda"]), **over)
+            kernels = layout_kernels(cfg, layout)
             for device in ("cuda", "cpu"):
                 args = serve.parse_args(argv + ["--device", device])
                 runtime.reset_counters()
@@ -1389,8 +1478,9 @@ def window_phase(torch, runtime, serve) -> dict:
             for n, c in counts.items():
                 check((c["kernel"] > 0) == (n in kernels) and
                       c["plain"] == 0, f"{what}: launches {counts}")
-            errs = logits_phase(torch, serve, cfg, args, params,
-                                LOGIT_TOL["float32"])
+            adopt = "int8" in layout and cfg.attention_mode in TCONST_MODES
+            errs = (adopted_logits if adopt else logits_phase)(
+                torch, serve, cfg, args, params, LOGIT_TOL["float32"])
             same = streams["cuda"] == streams["cpu"]
             check(same or "int8" in layout, f"{what}: greedy streams "
                   f"differ from the CPU plain path's")
@@ -1399,8 +1489,76 @@ def window_phase(torch, runtime, serve) -> dict:
                 "launches": {n: c["kernel"] for n, c in counts.items()
                              if c["kernel"]},
                 "streams_equal": same,
-                "logit_max_err": max(e["err"] for e in errs)}
+                "logit_max_err": max(e["err"] for e in errs),
+                "codes_adopted": sum(e.get("codes_adopted", 0)
+                                     for e in errs)}
     return out
+
+
+def adopted_logits(torch, serve, cfg, args, params, tol):
+    """``logits_phase`` for a TConst model on an int8 layout, with the
+    card and the CPU plain path in lockstep, the CPU stepping on from the
+    card's stored codes and scales after each call.  A reduced model has
+    W_oh = 8 context slots, which every later token reads at every layer,
+    and a resync re-quantizes all of them: one code stored one apart (a
+    K/V at a .5 boundary of x / scale, the two devices' GEMMs summing in
+    other orders) moves the next tokens' K/V across more boundaries, and
+    the logits apart by more than the f32 tolerance within a few steps,
+    with no routing change (reduced deepseek in tconst mode, int8: 2.1e-3
+    against 2e-3 when the CPU kept its own codes).  Each step is held to
+    ``tol`` from the same stored cache; each record counts the codes the
+    CPU adopted."""
+    from repro_torch.models.api import build_decode
+    spec = serve.layout_spec(args, full_pool=True)
+    max_len = serve.sessions_max_len(args)
+    cpu = build_decode(cfg.replace(dtype="float32"), spec, device="cpu")
+    card = build_decode(cfg, spec, device="cuda")
+    ref_params, card_params = cpu.prepare_params(params), \
+        card.prepare_params(params)
+    errs = []
+    for p in serve.session_prompts(cfg, args):
+        for step in range(LOGIT_STEPS + 1):
+            with route_log() as want_routes:
+                if step == 0:
+                    want, ref = cpu.prefill(ref_params, {"tokens": p[None]},
+                                            max_len)
+                else:
+                    tok = want.argmax(dim=-1).to(torch.int32)
+                    ref = synced(cpu, ref_params, ref)
+                    want, ref = cpu.raw_step(ref_params, ref, tok)
+            with route_log() as routes:
+                if step == 0:
+                    got, st = card.prefill(card_params, {"tokens": p[None]},
+                                           max_len)
+                else:
+                    st = synced(card, card_params, st)
+                    got, st = card.raw_step(card_params, st,
+                                            tok.to(card.device))
+            what = "first-token" if step == 0 else f"step-{step}"
+            check(bool(torch.isfinite(got).all()), f"non-finite {what} "
+                  f"logits")
+            err = (got.float().cpu() - want).abs().max().item()
+            check(err <= tol, f"{cfg.name} {cfg.attention_mode}/"
+                  f"{args.layout} {cfg.dtype} {what} logits differ from "
+                  f"the CPU plain path (from the card's stored cache) by "
+                  f"{err} > {tol}")
+            adopted = 0
+            for f, v in st.kv.items():
+                v = v.cpu()
+                if f.endswith("__q"):
+                    adopted += int((v != ref.kv[f]).sum())
+                ref.kv[f].copy_(v)
+            check(all(torch.equal(v.cpu(), ref.bookkeeping[f])
+                      for f, v in st.bookkeeping.items()),
+                  f"{cfg.name} {args.layout}: the card's bookkeeping "
+                  f"differs from the CPU's")
+            errs.append({"prompt_len": len(p), "step": step, "err": err,
+                         "routed": sum(r.shape[0] for r in want_routes),
+                         "route_flips": sum(
+                             int((a != b).any(dim=-1).sum())
+                             for a, b in zip(routes, want_routes)),
+                         "codes_adopted": adopted})
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -1647,15 +1805,16 @@ def main() -> int:
             cfg, args, params, rep = serve_phase(
                 torch, runtime, serve, mode, layout, dtype, kernels,
                 **RUN_OVERRIDES.get((mode, dtype), {}))
-            tol = LOGIT_TOL_MOE if mode == "deepseek" else \
+            tol = LOGIT_TOL_MOE if mode in MOE_MODES else \
                 {"mamba2": LOGIT_TOL_SSM, **LOGIT_TOL_LM}.get(
                     mode, LOGIT_TOL).get(dtype)
-            if mode == "deepseek" and dtype == "bfloat16":
+            if mode in MOE_MODES and dtype == "bfloat16":
                 rep["finite_logits"] = finite_logits(torch, serve, cfg, args,
                                                      params)
-            elif mode == "deepseek":
+            elif mode in MOE_MODES:
                 # both dtypes' logits at the checked depth, on the bf16
-                # runs' prompts (600 and 605: those of LOGIT_TOL_MOE)
+                # runs' prompts (600 and 605: those of LOGIT_TOL_MOE; 700
+                # and 705 in tconst mode)
                 rep["logit_max_err"] = moe_logits_phase(
                     torch, serve, cfg, serve.parse_args(
                         session_argv(mode, layout, "bfloat16")), params)
@@ -1688,7 +1847,7 @@ def main() -> int:
         f"{k}: " + str({n: c["kernel"] for n, c in r["launches"].items()
                         if c["kernel"]})
         for k, r in runs.items()
-        if k.split("/")[0] in ("smollm", "full", "deepseek")))
+        if k.split("/")[0] in ("smollm", "full") + MOE_MODES))
     kv_slot = kv_bytes_per_slot(torch, serve, max_len)
     print(f"[serve] KV bytes of one slot at max_len {max_len}, bf16, dense "
           f"layout (DecodeState.kv_bytes, paper Fig 8g): " + ", ".join(
@@ -1703,7 +1862,8 @@ def main() -> int:
               f"launches {v['launches']}, logits max err vs the CPU f32 "
               f"plain path {v['logit_max_err']:.3g} (tol "
               f"{LOGIT_TOL['float32']}), greedy streams equal the CPU's: "
-              f"{v['streams_equal']}")
+              f"{v['streams_equal']}; int8 codes adopted from the card: "
+              f"{v['codes_adopted']}")
     print(f"[windows] {phase_s['windows']:.1f}s")
 
     # 5. training at full width: the paper's three variants on one init

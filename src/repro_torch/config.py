@@ -206,7 +206,8 @@ def register_arch(name: str) -> Callable:
 # MoE family are ported so far; the other families are ROADMAP Queue 1
 # item 9.
 _ARCH_MODULES = ["tconst_41m", "mamba2_130m", "smollm_360m", "llama3_405b",
-                 "gemma3_4b", "deepseek_moe_16b", "mixtral_8x22b"]
+                 "gemma3_4b", "minicpm_2b", "deepseek_moe_16b",
+                 "mixtral_8x22b"]
 
 
 def _load_all() -> None:

@@ -12,9 +12,20 @@ hit step reads it -- the one field the paged layouts page.  The
 teacher-forced :func:`tconst_forward` is differentiable (training: its
 attentions run K2 with its backward); the serving entry points
 (``resync``, ``decode_step*``, ``prefill``) run under ``torch.no_grad``.
-The forward skips the last block's RESTORE, whose output nothing reads,
-so those parameters get no gradient where JAX's gives zeros; the
-training step treats a missing gradient as zeros.
+For a dense FFN the forward skips the last block's RESTORE, whose output
+nothing reads, so those parameters get no gradient where JAX's gives
+zeros; the training step treats a missing gradient as zeros.
+
+MoE configs (deepseek, mixtral) put the MoE FFN of
+:mod:`repro_torch.layers.moe` in every layer, as JAX's TConst init does
+(no dense first layer).  The forward then returns JAX's aux loss, the sum
+over chunks, blocks and layers, which counts the last block's RESTORE:
+for MoE configs that restore runs.  Every FFN routes the token set JAX's
+routes, since GShard's capacity drops depend on which tokens share a
+group: the compress FFN all W_oh tail slots (negative positions too), the
+restore FFN the whole (B, max_len) history buffer (past ``hist_len``
+too), the decode step all B rows (live or not), the prefill pass its
+whole window.  Nothing on this path drops or compacts rows or positions.
 
 Attention routing: every multi-query attention (compress, context self,
 restore, the teacher-forced generation window and its history
@@ -47,6 +58,7 @@ from repro_torch.layers import embed as E
 from repro_torch.layers import rope as R
 from repro_torch.layers.common import Params, rmsnorm, to_device
 from repro_torch.layers.mlp import init_swiglu, swiglu
+from repro_torch.layers.moe import init_moe, moe_ffn
 from repro_torch.models import layouts as LT
 
 MODES = ("tconst", "tlin")
@@ -65,33 +77,61 @@ def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def _init_layer(cfg: ModelConfig, gen: torch.Generator) -> Params:
-    """One layer: attention, then the SwiGLU FFN, drawn from ``gen`` in
-    that order (the dense LM's attention layers draw the same way)."""
+def _init_layer(cfg: ModelConfig, gen: torch.Generator,
+                dtype: Optional[torch.dtype] = None) -> Params:
+    """One layer: attention, then the FFN (SwiGLU, or the MoE FFN of an
+    MoE config), drawn from ``gen`` in that order (the dense LM's
+    attention layers draw the same way) and cast to ``dtype`` as drawn."""
     d = cfg.d_model
-    return {"attn": A.init_attention(cfg, gen),
-            "ffn": init_swiglu(d, cfg.d_ff, gen),
-            "ln1": {"scale": torch.ones(d)},
-            "ln2": {"scale": torch.ones(d)}}
+    attn = A.init_attention(cfg, gen, dtype)
+    ffn = init_moe(cfg, gen, dtype) if cfg.is_moe else \
+        init_swiglu(d, cfg.d_ff, gen, dtype)
+    return {"attn": attn, "ffn": ffn,
+            "ln1": {"scale": torch.ones(d, device=gen.device)},
+            "ln2": {"scale": torch.ones(d, device=gen.device)}}
 
 
 def init_tconst_lm(cfg: ModelConfig, seed: int = 0,
                    device: Optional[torch.device] = None) -> Params:
-    """The port's own seeded init (float32 params, drawn on the CPU from
-    one ``torch.Generator`` so every device gets the same weights).  It
-    does not reproduce ``jax.random``: parity tests load the JAX weights
-    through :func:`repro_torch.bridge.params_from_jax` instead."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE FFNs inside the TConst core are not "
-                                  "ported (ROADMAP Queue 1 item 7c)")
-    gen = torch.Generator().manual_seed(seed)
-    embed = E.init_embed(cfg, gen)
-    blocks = [{"layers": [_init_layer(cfg, gen)
+    """The port's own seeded init from one ``torch.Generator``.  It does
+    not reproduce ``jax.random``: parity tests load the JAX weights
+    through :func:`repro_torch.bridge.params_from_jax` instead.
+
+    Dense configs draw float32 on the CPU, so every device gets the same
+    weights.  MoE configs draw on ``device`` with a generator of that
+    device and cast each tensor to the activation dtype as it is drawn
+    (norm scales stay float32), as ``models/lm.py:init_lm`` does:
+    deepseek-moe-16b in tconst mode is 16.9 B parameters, which drawn in
+    float32 on the host would take ~68 GB and minutes.  Their weights
+    then depend on the device's generator."""
+    moe = cfg.is_moe
+    dev = torch.device("cpu") if device is None or not moe \
+        else torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dtype = _dtype(cfg.dtype) if moe else None
+    embed = E.init_embed(cfg, gen, dtype)
+    blocks = [{"layers": [_init_layer(cfg, gen, dtype)
                           for _ in range(cfg.tconst.block_depth)]}
               for _ in range(cfg.tconst_blocks)]
     params = {"embed": embed, "blocks": blocks,
-              "final_norm": {"scale": torch.ones(cfg.d_model)}}
+              "final_norm": {"scale": torch.ones(cfg.d_model, device=dev)}}
     return to_device(params, device)
+
+
+def _ffn_apply(layer: Params, x: torch.Tensor, cfg: ModelConfig
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's FFN: (output, the MoE aux loss, or None for a
+    SwiGLU)."""
+    if cfg.is_moe:
+        return moe_ffn(layer["ffn"], x, cfg)
+    return swiglu(layer["ffn"], x), None
+
+
+def _add_aux(total: Optional[torch.Tensor], aux: Optional[torch.Tensor]
+             ) -> Optional[torch.Tensor]:
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
 
 
 # ---------------------------------------------------------------------------
@@ -112,11 +152,13 @@ def context_path(block: Params, hist: torch.Tensor, hist_pos: torch.Tensor,
                  hist_valid: torch.Tensor, tail_pos: torch.Tensor,
                  tail_valid: torch.Tensor, cfg: ModelConfig,
                  restore: bool = True
-                 ) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
+                 ) -> Tuple[List[torch.Tensor], Optional[torch.Tensor],
+                            Optional[torch.Tensor]]:
     """Context path of one block.  hist (B, N, D); hist_pos/hist_valid
     (B, N); tail_pos/tail_valid (B, W_oh).  Returns (c_states [C_0..C_h]
     each (B, W_oh, D), restored history (B, N, D) -- None when
-    ``restore`` is False, for a last block whose restore nothing reads).
+    ``restore`` is False, for a last block whose restore nothing reads --
+    and the summed MoE aux loss of the layers run, None for SwiGLUs).
 
     Compress queries at negative tail positions are rotated at position 0
     but masked at their raw position: they have no valid key and give 0.
@@ -141,7 +183,8 @@ def context_path(block: Params, hist: torch.Tensor, hist_pos: torch.Tensor,
         l0["attn"], rmsnorm(l0["ln1"], tail_x, eps),
         rmsnorm(l0["ln1"], hist, eps), tail_pos, hist_kp,
         cos_t, sin_t, cos_h, sin_h, cap)
-    c = c + swiglu(l0["ffn"], rmsnorm(l0["ln2"], c, eps))
+    f, aux = _ffn_apply(l0, rmsnorm(l0["ln2"], c, eps), cfg)
+    c = c + f
     c_states = [c]
 
     # layers 1..h: context self-attention over the W_oh slots
@@ -150,19 +193,21 @@ def context_path(block: Params, hist: torch.Tensor, hist_pos: torch.Tensor,
         cn = rmsnorm(li["ln1"], c, eps)
         c = c + A.attention_block(li["attn"], cn, cn, tail_pos, tail_kp,
                                   cos_t, sin_t, cos_t, sin_t, cap)
-        c = c + swiglu(li["ffn"], rmsnorm(li["ln2"], c, eps))
+        f, a = _ffn_apply(li, rmsnorm(li["ln2"], c, eps), cfg)
+        c = c + f
+        aux = _add_aux(aux, a)
         c_states.append(c)
 
     if not restore:
-        return c_states, None
+        return c_states, None, aux
     # layer h+1: RESTORE (Fig 2d) -- history queries over the W_oh slots
     lf = layers[h + 1]
     r = hist + A.attention_block(
         lf["attn"], rmsnorm(lf["ln1"], hist, eps),
         rmsnorm(lf["ln1"], c, eps), hist_pos, tail_kp,
         cos_h, sin_h, cos_t, sin_t, cap)
-    restored = r + swiglu(lf["ffn"], rmsnorm(lf["ln2"], r, eps))
-    return c_states, restored
+    f, a = _ffn_apply(lf, rmsnorm(lf["ln2"], r, eps), cfg)
+    return c_states, r + f, _add_aux(aux, a)
 
 
 # ---------------------------------------------------------------------------
@@ -174,12 +219,13 @@ def gen_path(block: Params, hg: torch.Tensor, gen_pos: torch.Tensor,
              c_states: List[torch.Tensor], tail_pos: torch.Tensor,
              tail_valid: torch.Tensor, cfg: ModelConfig,
              hist: Optional[torch.Tensor] = None,
-             hist_kp: Optional[torch.Tensor] = None) -> torch.Tensor:
+             hist_kp: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Generation-window pass of one block: hg (B, G, D).  When ``hist``
     (B, N, D) is given (mode="tlin"), layer 0 also cross-attends the raw
     history -- the TLinFormer pathway the paper severs -- at key positions
     ``hist_kp`` (B, N) (``INVALID_POS`` for keys outside the history).
-    Returns hg."""
+    Returns (hg, the summed MoE aux loss, None for SwiGLUs)."""
     eps = cfg.norm_eps
     h = cfg.tconst.h
     cap = cfg.logit_softcap
@@ -187,6 +233,7 @@ def gen_path(block: Params, hg: torch.Tensor, gen_pos: torch.Tensor,
     cos_g, sin_g = _rope(gen_pos, cfg)
     cos_t, sin_t = _rope(tail_pos.clamp(min=0), cfg)
     tail_kp = _key_pos(tail_pos, tail_valid)
+    aux = None
     for i in range(h + 2):
         li = layers[i]
         xn = rmsnorm(li["ln1"], hg, eps)
@@ -205,8 +252,10 @@ def gen_path(block: Params, hg: torch.Tensor, gen_pos: torch.Tensor,
                 li["attn"], xn, rmsnorm(li["ln1"], hist, eps), gen_pos,
                 hist_kp, cos_g, sin_g, cos_h, sin_h, cap)
         hg = hg + out
-        hg = hg + swiglu(li["ffn"], rmsnorm(li["ln2"], hg, eps))
-    return hg
+        f, a = _ffn_apply(li, rmsnorm(li["ln2"], hg, eps), cfg)
+        hg = hg + f
+        aux = _add_aux(aux, a)
+    return hg, aux
 
 
 def tconst_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
@@ -214,7 +263,9 @@ def tconst_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     """Teacher-forced forward (differentiable).  tokens (B, N), N % W_og == 0;
     chunk j sees chunks 0..j-1 as compressed history (and, in tlin mode,
     its block's raw history at layer 0).  Returns (logits (B, N, V)
-    float32, aux loss -- always 0 here, no MoE)."""
+    float32, aux loss () float32: JAX's sum over chunks, blocks and
+    layers of the MoE aux losses, the last block's RESTORE included; 0
+    for SwiGLUs)."""
     _check_mode(mode)
     tc = cfg.tconst
     B, N = tokens.shape
@@ -226,7 +277,9 @@ def tconst_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     pos = torch.arange(N, device=dev).expand(B, N)
     nb = len(params["blocks"])
     use_tlin = mode == "tlin"
-    out = []
+    # an MoE config runs the last RESTORE for its aux loss, as JAX does
+    last_restore = cfg.is_moe
+    out, aux = [], torch.zeros((), device=dev)
     for j in range(N // tc.w_og):
         hist_valid = pos < j * tc.w_og
         hist_kp = _key_pos(pos, hist_valid) if use_tlin else None
@@ -238,16 +291,18 @@ def tconst_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
         hist = X
         hg = X[:, j * tc.w_og:(j + 1) * tc.w_og]
         for ib, block in enumerate(params["blocks"]):
-            c_states, restored = context_path(
+            c_states, restored, a_ctx = context_path(
                 block, hist, pos, hist_valid, tail_pos, tail_valid, cfg,
-                restore=ib + 1 < nb)
-            hg = gen_path(block, hg, gen_pos, c_states, tail_pos,
-                          tail_valid, cfg, hist=hist if use_tlin else None,
-                          hist_kp=hist_kp)
+                restore=last_restore or ib + 1 < nb)
+            hg, a_gen = gen_path(block, hg, gen_pos, c_states, tail_pos,
+                                 tail_valid, cfg,
+                                 hist=hist if use_tlin else None,
+                                 hist_kp=hist_kp)
+            aux = _add_aux(_add_aux(aux, a_ctx), a_gen)
             hist = restored
         hg = rmsnorm(params["final_norm"], hg, cfg.norm_eps)
         out.append(E.lm_head(params["embed"], hg, cfg.logit_softcap))
-    return torch.cat(out, dim=1), torch.zeros((), device=dev)
+    return torch.cat(out, dim=1), aux
 
 
 # ---------------------------------------------------------------------------
@@ -326,6 +381,18 @@ def pending_resync_rows(cache: Dict[str, torch.Tensor], cfg: ModelConfig
     return needs_resync(cache, cfg) & ~cache["done"]
 
 
+def resync_buckets(batch: int) -> Tuple[int, ...]:
+    """Static gather sizes of JAX's compacted resync: 0, powers of two,
+    and the full batch.  The pending count is rounded UP to the nearest
+    bucket (a copy of ``repro.core.tconst.resync_buckets``)."""
+    sizes = {0, batch}
+    k = 1
+    while k < batch:
+        sizes.add(k)
+        k *= 2
+    return tuple(sorted(sizes))
+
+
 @torch.no_grad()
 def resync(params: Params, cache: Dict[str, torch.Tensor], cfg: ModelConfig,
            mode: str = "tconst") -> Dict[str, torch.Tensor]:
@@ -357,9 +424,9 @@ def resync(params: Params, cache: Dict[str, torch.Tensor], cfg: ModelConfig,
     cks, cvs, hks, hvs = [], [], [], []
     hist = X
     for ib, block in enumerate(params["blocks"]):
-        c_states, restored = context_path(block, hist, pos, hist_valid,
-                                          tail_pos, tail_valid, cfg,
-                                          restore=ib + 1 < nb)
+        c_states, restored, _ = context_path(block, hist, pos, hist_valid,
+                                             tail_pos, tail_valid, cfg,
+                                             restore=ib + 1 < nb)
         ks, vs = [], []
         for i in range(1, tc.h + 2):
             li = block["layers"][i]
@@ -449,7 +516,7 @@ def decode_step_views(params: Params, cache: Dict[str, Any],
                     li["attn"], q, cache["hist_k"].layer(ib),
                     cache["hist_v"].layer(ib), None, cache["hist_len"], cap)
             x = x + out
-            x = x + swiglu(li["ffn"], rmsnorm(li["ln2"], x, eps))
+            x = x + _ffn_apply(li, rmsnorm(li["ln2"], x, eps), cfg)[0]
 
     x = rmsnorm(params["final_norm"], x, eps)
     logits = E.lm_head(params["embed"], x, cap)[:, 0]
@@ -531,7 +598,7 @@ def _prefill_window_pass(params: Params, cache: Dict[str, torch.Tensor],
                     cache["hist_v"][ib].to(dtype), gen_pos, hist_kp,
                     causal=False, softcap=cap), dtype)
             hg = hg + out
-            hg = hg + swiglu(li["ffn"], rmsnorm(li["ln2"], hg, eps))
+            hg = hg + _ffn_apply(li, rmsnorm(li["ln2"], hg, eps), cfg)[0]
         gks.append(torch.stack(ks))
         gvs.append(torch.stack(vs))
     return hg, torch.stack(gks), torch.stack(gvs)

@@ -357,13 +357,15 @@ def parse_args(argv=None, ap: argparse.ArgumentParser = None
 def load(args, **overrides):
     """(cfg, api, params) for parsed ``args``: the port's seeded init.
     ``overrides`` replace config fields (e.g. ``attention_mode="tlin"``,
-    the TLinFormer baseline on the same weights)."""
+    the TLinFormer baseline on the same weights).  With ``--reduced`` they
+    go into ``reduced``, which sizes the model by its attention mode (a
+    full-mode config reduced into tconst mode is 2 blocks at W 8)."""
     cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = reduced(cfg)
     if args.dtype:
-        cfg = cfg.replace(dtype=args.dtype)
-    if overrides:
+        overrides = {"dtype": args.dtype, **overrides}
+    if args.reduced:
+        cfg = reduced(cfg, **overrides)
+    elif overrides:
         cfg = cfg.replace(**overrides)
     api = build_model(cfg, device=args.device)
     return cfg, api, api.init(args.seed)

@@ -304,8 +304,8 @@ def _check_prefill_layout(layout: Any, cache: Dict[str, torch.Tensor]
 @dataclasses.dataclass(frozen=True)
 class TConstDecode:
     """Paper §4 serving on any cache layout: O(1) cache-hit steps (tlin:
-    plus the O(N) history read) and a periodic O(N) resync of exactly the
-    rows whose window is full.
+    plus the O(N) history read) and a periodic O(N) resync of the rows
+    whose window is full (an MoE config's batch padded as JAX pads it).
 
     Layout-native: ``raw_step`` hands the step ``state.decode_views()`` --
     the physical buffers plus page-table / scale metadata -- so the hit
@@ -418,33 +418,50 @@ class TConstDecode:
 
     def sync_rows(self, params, state: DecodeState, rows: np.ndarray
                   ) -> DecodeState:
-        """Compacted row-wise resync: gather only the listed rows'
+        """Compacted row-wise resync: gather only the resynced rows'
         ``RESYNC_INPUT_KEYS`` bookkeeping, run one O(N) resync at that
         batch size, and write the results back IN PLACE -- the KV through
         the layout's views (``scatter_rows``), the rest per field.  Rows
-        not listed are never computed; listed rows that are not pending
-        on device (EOS-finished) get their own values back,
-        bit-identical."""
+        that are not pending on device (EOS-finished) get their own
+        values back, bit-identical.
+
+        Dense FFNs resync exactly the listed rows: a row's result does not
+        depend on the others.  MoE FFNs route in groups that span rows,
+        so the batch is JAX's (``compacted_rows_switch``): the pending
+        rows (window full, not ``done``; read from the device), ascending,
+        padded with the lowest non-pending rows up to the bucket of
+        :func:`~repro_torch.core.tconst.resync_buckets`."""
         idx_np = np.nonzero(np.asarray(rows, bool))[0]
         if not len(idx_np):
             return state
-        idx = torch.as_tensor(idx_np, device=self.device)
         bk = state.bookkeeping
         axes = state.axes
-        row_in = {f: take_rows(bk[f], idx, axes[f])
-                  for f in TC.RESYNC_INPUT_KEYS}
-        sel = (row_in["gen_len"] >= self.cfg.tconst.w_og) & \
-            ~take_rows(bk["done"], idx, axes["done"])
-        new = TC.resync(params, row_in, self.cfg, self.mode)
-        views = state.kv_views()
-        for f, val in new.items():
-            if f in views:
-                views[f].scatter_rows(idx, sel, val)
-                continue
-            dst = bk[f]
-            old = take_rows(dst, idx, axes[f])
-            put_rows(dst, idx, where_rows(sel, val.to(dst.dtype), old,
-                                          axes[f]), axes[f])
+        if self.cfg.is_moe:
+            pending = TC.pending_resync_rows(bk, self.cfg).cpu().numpy()
+            count = int(pending.sum())
+            kb = min(b for b in TC.resync_buckets(len(pending))
+                     if b >= count)
+            order = np.argsort(~pending, kind="stable")[:kb]
+            idx = torch.as_tensor(order, device=self.device)
+            sel = torch.as_tensor(np.arange(kb) < count, device=self.device)
+        else:
+            idx = torch.as_tensor(idx_np, device=self.device)
+            sel = (take_rows(bk["gen_len"], idx, axes["gen_len"]) >=
+                   self.cfg.tconst.w_og) & \
+                ~take_rows(bk["done"], idx, axes["done"])
+        if len(idx):
+            row_in = {f: take_rows(bk[f], idx, axes[f])
+                      for f in TC.RESYNC_INPUT_KEYS}
+            new = TC.resync(params, row_in, self.cfg, self.mode)
+            views = state.kv_views()
+            for f, val in new.items():
+                if f in views:
+                    views[f].scatter_rows(idx, sel, val)
+                    continue
+                dst = bk[f]
+                old = take_rows(dst, idx, axes[f])
+                put_rows(dst, idx, where_rows(sel, val.to(dst.dtype), old,
+                                              axes[f]), axes[f])
         state.host["gen_len"][idx_np] = 0
         return state
 

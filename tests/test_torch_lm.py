@@ -9,7 +9,7 @@ package, on the CPU, f32.
   at 1e-5.  Configs: reduced smollm (G 4), llama3 (MQA), gemma3 at 6
   layers (5 local : 1 global, window 8), tconst-41m in ``full`` (the
   paper's base transformer) and ``sliding`` (window 8) modes, smollm with
-  a logit softcap, and the MoE family: deepseek (one dense layer with its
+  a logit softcap, minicpm-2b (G 1, tied head), and the MoE family: deepseek (one dense layer with its
   own ``dense_k`` / ``dense_v`` cache, then an MoE layer with a shared
   expert) and mixtral (window 8, top-2).  Windows of 8 under prompts of 9
   and 13 tokens reach K1's ``lo > 0`` and K3's ``window > 0``.

@@ -162,12 +162,3 @@ def test_group_size_and_capacity_of_deepseek():
     assert PM.CAPACITY_FACTOR == JM.CAPACITY_FACTOR
     assert PM.GROUP_SIZE == JM.GROUP_SIZE
 
-
-def test_tconst_core_with_moe_ffns_raises_item_7c():
-    """The MoE layer serves the decoder-only LM; inside the TConst core
-    (tconst / tlin mode on an MoE config) it is not ported yet."""
-    from repro_torch.core import tconst as PT
-    cfg = PC.reduced(PC.get_config("deepseek_moe_16b"),
-                     attention_mode="tconst")
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        PT.init_tconst_lm(cfg)

@@ -71,7 +71,8 @@ def ssm_pair(tiny: bool = False):
 
 # the attention LMs of the parity suites: name -> (registry arch,
 # reduced() overrides); gemma3 at 6 layers holds its 5 local : 1 global
-# pattern (2 layers would both be local).  The MoE family: deepseek (one
+# pattern (2 layers would both be local); minicpm-2b (G 1, tied head) as
+# reduced by JAX.  The MoE family: deepseek (one
 # dense layer, then an MoE layer with a shared expert; 4 experts, top-2)
 # and mixtral (two MoE layers, window 8, top-2, G 4)
 LM_CONFIGS = {
@@ -82,6 +83,7 @@ LM_CONFIGS = {
     "sliding": ("tconst_41m", {"attention_mode": "sliding",
                                "sliding_window": 8}),
     "softcap": ("smollm_360m", {"logit_softcap": 2.0}),
+    "minicpm": ("minicpm_2b", {}),
     "deepseek": ("deepseek_moe_16b", {}),
     "mixtral": ("mixtral_8x22b", {}),
 }

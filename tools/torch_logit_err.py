@@ -4,11 +4,13 @@
     PYTHONPATH=src python tools/torch_logit_err.py [--arch mamba2_130m]
         [--arch smollm-360m] [--arch tconst-41m --mode full]
         [--arch deepseek_moe_16b --layers 3]
+        [--arch deepseek_moe_16b --mode tconst --layers 8 --prompt-len 700]
 
 Runs ``chip_smoke.py``'s logit check with both sides on the CPU: the
 plain PyTorch path in bf16 against the same path in f32, same weights
 (the port's seeded init in f32; the bf16 path casts them), on the first
-``--prompts`` session prompts of the smoke (600 and 605 tokens), for the
+``--prompts`` session prompts of the smoke (600 and 605 tokens; 700 and
+705 with ``--prompt-len 700``, those of deepseek's tconst runs), for the
 first token and ``LOGIT_STEPS`` decode steps fed the f32 path's greedy
 tokens.  It prints the largest error of each -- the floor a card's bf16
 logits cannot beat, from which the smoke's bf16 tolerance of a family is
@@ -41,10 +43,13 @@ def main(argv=None) -> int:
                     help="CPU threads (many threads slow CPU bf16 down)")
     ap.add_argument("--layers", type=int, default=0,
                     help="model depth (default: the config's)")
+    ap.add_argument("--prompt-len", default="600",
+                    help="the first session prompt's length")
     args_ = ap.parse_args(argv)
     torch.set_num_threads(args_.threads)
     args = serve.parse_args(CS.SESSIONS_ARGS + [
-        "--arch", args_.arch, "--dtype", "float32", "--device", "cpu"])
+        "--arch", args_.arch, "--dtype", "float32", "--device", "cpu",
+        "--prompt-len", args_.prompt_len])
     over = {"attention_mode": args_.mode} if args_.mode else {}
     if args_.layers:
         over["n_layers"] = args_.layers
