@@ -75,14 +75,17 @@ Phases (any failure raises, so the exit code is non-zero):
    96``: every session still crosses a resync).  bf16 logits after the
    prefill and after a few decode steps are held against the f32 plain
    path on the CPU, same layout.  mamba2-130m's f32 run (streams only)
-   is cut to 6 of its 24 layers.  Then the dense attention LMs at full
-   width: smollm-360m (32 layers, d 960, 15 heads over 5 KV heads) on
-   the dense layout (K1, K2) and the paged one (K2, K3), and the paper's
-   base transformer (tconst-41m in full attention, on the tconst
-   weights) on int8 (K1-int8, K2) and paged_int8 (K2, K3-int8), same
-   argv, bf16 and f32 (f32 at ``--prompt-len 700 --gen 72``, smollm at 8
-   of its 32 layers); their bf16 logits held at 3x the CPU plain path's
-   own bf16 error.  Then the MoE
+   is cut to 6 of its 24 layers.  The runs of the families without a
+   resync (mamba2, the attention LMs, deepseek) generate 96 tokens
+   where no f32 argv below applies (``--gen 96``: a paged run's third
+   session still waits for pages).  Then the dense attention LMs at
+   full width: smollm-360m (32 layers, d 960, 15 heads over 5 KV heads)
+   on the dense layout (K1, K2) and the paged one (K2, K3), and the
+   paper's base transformer (tconst-41m in full attention, on the
+   tconst weights) on int8 (K1-int8, K2) and paged_int8 (K2, K3-int8),
+   same argv, bf16 and f32 (f32 at ``--prompt-len 700 --gen 72``,
+   smollm at 8 of its 32 layers); their bf16 logits held at 3x the CPU
+   plain path's own bf16 error.  Then the MoE
    family: deepseek-moe-16b (16.4 B parameters, drawn on the card in bf16
    from a seed) at full width and depth on dense (K1, K2) and paged (K2,
    K3, the under-sized pool) in bf16 (``--gen 96``; finite logits), and
@@ -97,6 +100,20 @@ Phases (any failure raises, so the exit code is non-zero):
    dtypes' logits at 8 layers against one CPU f32 reference.  Prints one
    bf16 slot's KV bytes at max_len for tconst, the base, smollm and
    deepseek (LM and tconst mode).
+   A prefix-sharing phase serves the same argv with ``--prefix-sharing``
+   (prompts: one system prompt of 600 tokens plus an 8-token tail each,
+   admitted up front; f32 at 700 + 8): TLinFormer on paged and paged_int8
+   (bf16 and f32, a pool of 31 pages: 8 shared pages of 64, and the fork
+   reserve lets two sessions in and makes the third wait) and smollm-360m
+   on paged (bf16 at full depth, f32 at 8 of 32 layers, pools of 16: 9
+   and 10 shared pages, no reserve).  Each run must share at
+   least one page after the first admissions, hold fewer assigned KV
+   bytes than the same admissions without sharing, leave every page that
+   is shared when a decode chunk starts bit-identical through it (read
+   on the card, every chunk), fork at least its shared pages before a
+   resync (TLinFormer; smollm forks none), launch exactly its layout's
+   kernels and no plain version, match its solo runs in f32, and end
+   with every refcount 0, the prefix map empty and every page free.
    A window phase serves reduced gemma3 (6 layers: 5 local : 1 global),
    tconst-41m in sliding mode (window 8, 8 layers) and reduced mixtral
    (window 8, two MoE layers, G 4) on all four layouts in f32: K1 with
@@ -185,10 +202,14 @@ MINICPM = "minicpm_2b"
 # layers at full width (the only cut: 16.4 B parameters are 65.6 GB in
 # f32, and the CPU reference reads every expert's weights each step)
 DEEPSEEK_CHECK_DEPTH = 3
-# deepseek's bf16 runs at full depth: gen 96 (three chunks), so each
-# session but the last decodes while the next is admitted, and the paged
-# run's third session waits for pages (12 + 12 of 31 held)
-DEEPSEEK_BF16_ARGS = ["--gen", "96"]
+# the bf16 runs of the families without a resync (the attention LMs,
+# deepseek and mamba2) at full depth: gen 96 (three chunks), so each
+# session but the last decodes while the next is admitted, and a paged
+# run's third session waits for pages (12 + 12 of 31 held).  Their
+# eager steps are host-bound (30-70 ms a step at full depth): gen 320
+# made smollm's two runs alone ~110 s of the smoke on a slow host
+LM_BF16_ARGS = ["--gen", "96"]
+LM_MODES = ("smollm", "full", "mamba2", "deepseek")
 # deepseek in tconst mode (MoE FFNs inside the TConst core: 7 blocks of
 # depth 4, every layer MoE): bf16 at full depth; f32, its streams and both
 # dtypes' logits at 2 blocks (8 layers: a restore feeds the next block;
@@ -257,6 +278,19 @@ SESSION_RUNS = [
     # and context slots, K2 in the resync and the admission
     ("deepseek-tconst", "dense", (K1, K2)),
 ]
+# the prefix-sharing phase: sessions whose prompts are one system prompt of
+# --prompt-len tokens plus an 8-token tail each, admitted up front.
+# TLinFormer: a 608-token prompt's stable prefix is 512 tokens (the last
+# 96 sit in the window), 8 shared pages of 64; a session takes 15 pages
+# (f32: 14), and an adoption reserves a page for each page it will fork,
+# so a pool of 31 admits two sessions and makes the third wait.  smollm:
+# the whole prompt is stable, but a page that holds a tail token is not
+# shared: 9 shared pages of 12 (gen 96; f32: 10 of 13), no reserve (an LM
+# never forks): a pool of 16 holds two sessions, not three
+SHARING_RUNS = [("tlin", "paged"), ("tlin", "paged_int8"),
+                ("smollm", "paged")]
+SHARING_POOL = {("tlin", "bfloat16"): 31, ("tlin", "float32"): 31,
+                ("smollm", "bfloat16"): 16, ("smollm", "float32"): 16}
 # config overrides of a run by (mode, dtype).  The f32 runs of mamba2 and
 # smollm check greedy streams against their solo runs only (their logits
 # are checked in bf16 at full depth): they run at a cut depth, the same
@@ -1197,8 +1231,8 @@ def kernel_phase(torch, cfg, dev, max_len: int):
 def session_argv(mode: str, layout: str, dtype: str):
     """The launcher's argv of one sessions run (f32 runs of the layouts
     added after the first slice at the shorter F32_ARGS, of the dense LMs
-    and deepseek at F32_LM_ARGS; deepseek's bf16 runs at
-    DEEPSEEK_BF16_ARGS; deepseek in tconst mode at F32_ARGS in both
+    and deepseek at F32_LM_ARGS; the other runs of ``LM_MODES`` at
+    LM_BF16_ARGS; deepseek in tconst mode at F32_ARGS in both
     dtypes)."""
     argv = SESSIONS_ARGS + ["--arch", MODELS[mode][0], "--dtype", dtype,
                             "--layout", layout]
@@ -1208,27 +1242,81 @@ def session_argv(mode: str, layout: str, dtype: str):
         argv += F32_LM_ARGS
     elif dtype == "float32" and layout != "dense":
         argv += F32_ARGS
-    elif mode == "deepseek":
-        argv += DEEPSEEK_BF16_ARGS
+    elif mode in LM_MODES:
+        argv += LM_BF16_ARGS
     if layout.startswith("paged"):
         argv += F32_PAGED_ARGS if dtype == "float32" else PAGED_ARGS
     return argv
 
 
+def sharing_argv(mode: str, layout: str, dtype: str):
+    """A sessions run's argv with ``--prefix-sharing`` and the pool of
+    ``SHARING_POOL``."""
+    return session_argv(mode, layout, dtype) + [
+        "--prefix-sharing", "--pool-pages", str(SHARING_POOL[mode, dtype])]
+
+
+@contextlib.contextmanager
+def cow_watch(torch):
+    """While active, every decode chunk of a prefix-sharing scheduler is
+    checked on the card: the pool pages at refcount > 1 when the chunk
+    starts (after the scheduler's copy-on-write pass, which names the
+    scheduler to the watch) must come out of it bit-identical.  Yields
+    the record (chunks, chunks with shared pages, pages checked)."""
+    import numpy as np
+    from repro_torch.serving import scheduler as S
+    orig, orig_cow = S.decode_chunk, S.SlotScheduler._cow_before_chunk
+    rec = {"chunks": 0, "chunks_with_shared": 0, "pages_checked": 0}
+
+    def cow(sched):
+        rec["sched"] = sched
+        return orig_cow(sched)
+
+    def watched(decode, params, state, *a, **kw):
+        sched = rec["sched"]
+        shared = np.nonzero(sched.page_refcounts() > 1)[0]
+        idx = torch.as_tensor(shared, device=sched.device)
+        before = sched.layout.gather_pages(state.kv, idx)
+        out = orig(decode, params, state, *a, **kw)
+        after = sched.layout.gather_pages(out[1].kv, idx)
+        check(all(torch.equal(after[f], v) for f, v in before.items()),
+              f"a decode chunk wrote a shared page (of {list(shared)})")
+        rec["chunks"] += 1
+        rec["chunks_with_shared"] += bool(len(shared))
+        rec["pages_checked"] += len(shared)
+        return out
+
+    S.decode_chunk, S.SlotScheduler._cow_before_chunk = watched, cow
+    try:
+        yield rec
+    finally:
+        S.decode_chunk, S.SlotScheduler._cow_before_chunk = orig, orig_cow
+
+
 def serve_phase(torch, runtime, serve, mode: str, layout: str, dtype: str,
-                kernels, **overrides):
+                kernels, sharing: bool = False, **overrides):
     """One sessions run of the main path: counters reset right before
-    the scheduler, read right after it; then the checks.  ``overrides``
-    replace config fields of the run's model (deepseek's depth)."""
-    args = serve.parse_args(session_argv(mode, layout, dtype))
+    the scheduler, read right after it; then the checks: exactly
+    ``kernels`` launch (None: ``layout_kernels``), no plain version.
+    ``sharing``: the run with ``--prefix-sharing`` (``sharing_argv``),
+    its chunks under :func:`cow_watch`.  ``overrides`` replace config
+    fields of the run's model (deepseek's depth)."""
+    args = serve.parse_args((sharing_argv if sharing else session_argv)(
+        mode, layout, dtype))
     cfg, api, params = serve.load(args, **MODELS[mode][1], **overrides)
     torch.cuda.synchronize()
-    runtime.reset_counters()
-    served = serve.serve_sessions(cfg, api, params, args)
-    torch.cuda.synchronize()
-    counts = runtime.read_counters()
+    with (cow_watch(torch) if sharing else contextlib.nullcontext()) \
+            as watch:
+        runtime.reset_counters()
+        served = serve.serve_sessions(cfg, api, params, args)
+        torch.cuda.synchronize()
+        counts = runtime.read_counters()
     sched = served["sched"]
     what = f"{mode}/{layout} {dtype} sessions"
+    if kernels is None:
+        kernels = layout_kernels(cfg, layout)
+    check(set(kernels) <= set(counts), f"{what}: a kernel of {kernels} "
+          f"has no counter ({counts})")
     for name, c in counts.items():
         if name in kernels:
             check(c["kernel"] > 0, f"{what}: kernel {name} was never "
@@ -1254,6 +1342,24 @@ def serve_phase(torch, runtime, serve, mode: str, layout: str, dtype: str,
     rep = {"seconds": served["seconds"], "launches": counts,
            "page_waits": sched.page_waits, "peak_active": sched.peak_active,
            "kv_bytes": sched.kv_bytes()}
+    if sharing:
+        share = served["sharing"]
+        check(share["shared"] >= 1, f"{what}: no page was shared after the "
+              f"first admissions ({share})")
+        check(share["assigned_kv_bytes"] < share["unshared_kv_bytes"],
+              f"{what}: sharing saved no assigned KV bytes ({share})")
+        check(watch["chunks_with_shared"] >= 1, f"{what}: no chunk ran "
+              f"with shared pages ({watch})")
+        resyncing = mode in RESYNCING
+        check((sched.pages_forked >= share["shared"]) if resyncing
+              else sched.pages_forked == 0, f"{what}: {sched.pages_forked} "
+              f"pages forked for {share['shared']} shared")
+        check(not sched.page_refcounts().any() and not sched._prefix_map,
+              f"{what}: refcounts or prefix map left after the run")
+        rep.update(sharing=share, cow_watch={k: v for k, v in watch.items()
+                                             if k != "sched"},
+                   pages_forked=sched.pages_forked,
+                   fork_pauses=sched.fork_pauses)
     # the solo runs the streams are checked against come after the read;
     # the first slice's tconst/dense run keeps its own in bf16 too
     if dtype == "float32" or (mode, layout) == ("tconst", "dense"):
@@ -1853,7 +1959,31 @@ def main() -> int:
           f"layout (DecodeState.kv_bytes, paper Fig 8g): " + ", ".join(
               f"{k} {v}" for k, v in kv_slot.items()))
 
-    # 4b. sliding windows through the models: K1 lo > 0, K3 window > 0
+    # 4b. prefix sharing and copy-on-write pages on the paged layouts
+    sharing = {}
+    for mode, layout in SHARING_RUNS:
+        for dtype in ("bfloat16", "float32"):
+            t_phase = time.time()
+            rep = serve_phase(torch, runtime, serve, mode, layout, dtype,
+                              None, sharing=True,
+                              **RUN_OVERRIDES.get((mode, dtype), {}))[3]
+            key = f"{mode}/{layout}/{dtype}"
+            sharing[key] = rep
+            torch.cuda.empty_cache()
+            phase_s[f"sharing {key}"] = time.time() - t_phase
+            share = rep["sharing"]
+            launched = {n: c["kernel"] for n, c in rep["launches"].items()
+                        if c["kernel"]}
+            print(f"[sharing] {key}: {share['shared']} shared pages after "
+                  f"the first admissions ({share['assigned']} assigned); "
+                  f"assigned KV bytes {share['assigned_kv_bytes']} (without "
+                  f"sharing {share['unshared_kv_bytes']}); "
+                  f"{rep['pages_forked']} pages forked, "
+                  f"{rep['fork_pauses']} fork pauses, {rep['page_waits']} "
+                  f"page waits; chunks watched {rep['cow_watch']}; launches "
+                  f"{launched} (plain 0); {phase_s[f'sharing {key}']:.1f}s")
+
+    # 4c. sliding windows through the models: K1 lo > 0, K3 window > 0
     t_phase = time.time()
     windows = window_phase(torch, runtime, serve)
     phase_s["windows"] = time.time() - t_phase
@@ -1952,7 +2082,8 @@ def main() -> int:
         "card": card, "kind": kind, "torch": torch.__version__,
         "cuda": torch.version.cuda, "build_s": built,
         "kernel_rows": rows, "sass_tensor_core_ops": sass,
-        "launches_per_call": per_call, "sessions": runs, "engines": engines,
+        "launches_per_call": per_call, "sessions": runs,
+        "sharing": sharing, "engines": engines,
         "training": training, "grad_check": grads,
         "phase_s": phase_s, "total_s": time.time() - t_start,
     }

@@ -41,6 +41,17 @@ mixtral-8x22b only ``--reduced``)::
       --arch deepseek_moe_16b --reduced --sessions 3 --slots 2 --gen 24 \\
       --device cpu
 
+``--prefix-sharing`` (with ``--sessions`` and a paged layout) serves
+sessions whose prompts share one system prompt of ``--prompt-len``
+tokens plus a distinct 8-token tail each: they are admitted up front,
+map the resident pages of the shared prefix (refcounted, copy-on-write
+before a resync) and print how many pages are shared::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_405b \\
+      --reduced --device cpu --sessions 3 --slots 3 --gen 8 \\
+      --prompt-len 32 --layout paged --page-size 16 --prefix-sharing \\
+      --chunk 4
+
 ``--layout dense|int8|paged|paged_int8`` picks the cache layout
 (``--page-size``, ``--pool-pages``: a pool below ``slots x pages_per_slot``
 needs ``--sessions``, whose scheduler allocates pages).  The tconst
@@ -72,7 +83,6 @@ from repro_torch.serving.session import Session
 _FEATURES = "ROADMAP Queue 1 item 8 (serving features)"
 # flag dest -> (default, where it is ported)
 UNPORTED = {
-    "prefix_sharing": (False, _FEATURES + ": prefix sharing"),
     "prefill_chunk": (0, _FEATURES + ": chunked admission"),
     "spill_capacity_mb": (0.0, _FEATURES + ": session tiering"),
     "spill_dir": ("", _FEATURES + ": session tiering"),
@@ -87,14 +97,26 @@ UNPORTED = {
 
 def session_prompt_lens(args) -> List[int]:
     """Prompt lengths the sessions demo submits: they vary per session so
-    slots sit at staggered resync phases."""
+    slots sit at staggered resync phases.  Under prefix sharing: one
+    common system prompt plus an 8-token tail each, all of one length
+    (equal lengths keep prefill bit-reproducible, so greedy streams
+    match their solo runs exactly)."""
+    if args.prefix_sharing:
+        return [args.prompt_len + 8] * args.sessions
     return [args.prompt_len + 5 * i for i in range(args.sessions)]
 
 
 def session_prompts(cfg, args) -> List[np.ndarray]:
     rng = np.random.RandomState(args.seed)
+    lens = session_prompt_lens(args)
+    if args.prefix_sharing:
+        common = rng.randint(1, cfg.vocab_size,
+                             size=args.prompt_len).astype(np.int32)
+        return [np.concatenate([common, rng.randint(
+            1, cfg.vocab_size, size=n - args.prompt_len).astype(np.int32)])
+            for n in lens]
     return [rng.randint(1, cfg.vocab_size, size=n).astype(np.int32)
-            for n in session_prompt_lens(args)]
+            for n in lens]
 
 
 def sessions_max_len(args) -> int:
@@ -118,6 +140,14 @@ def validate_layout_args(ap, args, max_len: int) -> None:
     """Startup validation of the paged-layout knobs against the launch
     geometry, so a mis-sized pool fails with a clear message instead of a
     shape error (or a scheduler rejection) at the first admission."""
+    if args.prefix_sharing:
+        if not args.sessions:
+            ap.error("--prefix-sharing needs --sessions N: the session "
+                     "scheduler owns the prefix map and the page refcounts "
+                     "(a uniform batch has no admission path)")
+        if args.layout not in ("paged", "paged_int8"):
+            ap.error(f"--prefix-sharing shares pool pages; --layout "
+                     f"{args.layout} has none (use paged or paged_int8)")
     if args.layout not in ("paged", "paged_int8") or not args.pool_pages:
         return                       # full pool: always valid, no allocator
     if args.page_size < 1 or args.pool_pages < 0:
@@ -163,15 +193,19 @@ def paged_layout_note(cfg, args) -> None:
 
 def serve_sessions(cfg, api, params, args) -> Dict[str, Any]:
     """Continuous-batching demo: N sessions with different prompt lengths
-    admitted at staggered times into a fixed-slot batch.  Returns a
-    report: ``prompts``, the served ``Session``s, the scheduler and the
-    seconds it took.  Runs nothing but the scheduler's own path."""
+    admitted at staggered times into a fixed-slot batch (under prefix
+    sharing: shared-prefix prompts admitted up front).  Returns a report:
+    ``prompts``, the served ``Session``s, the scheduler, the seconds it
+    took and ``sharing``, the :func:`sharing_report` of the first
+    admissions (None without prefix sharing).  Runs nothing but the
+    scheduler's own path."""
     prompts = session_prompts(cfg, args)
     paged_layout_note(cfg, args)
     decode = build_decode(cfg, layout_spec(args), device=api.device)
     sched = SlotScheduler(decode, params, slots=args.slots,
                           max_len=sessions_max_len(args),
-                          chunk_size=args.chunk, seed=args.seed)
+                          chunk_size=args.chunk, seed=args.seed,
+                          prefix_sharing=args.prefix_sharing)
 
     def stream(sess, tok):
         print(f"[serve]   session {sess.sid}: token[{len(sess.tokens) - 1}]"
@@ -179,14 +213,20 @@ def serve_sessions(cfg, api, params, args) -> Dict[str, Any]:
 
     t0 = time.time()
     sessions = []
+    sharing = None
     for p in prompts:
         sessions.append(sched.submit(Session(
             p, max_new_tokens=args.gen, temperature=args.temperature,
             eos_id=args.eos if args.eos >= 0 else None,
             on_token=stream if args.verbose else None)))
         # staggered admission: one chunk between submissions, so slots sit
-        # at different W_og resync phases
-        sched.step()
+        # at different W_og resync phases.  Prefix sharing admits up front
+        # instead: sessions in flight together keep the prefix resident
+        if not args.prefix_sharing:
+            sched.step()
+    if args.prefix_sharing:
+        sched.admit_pending()
+        sharing = sharing_report(sched)
     sched.run()
     device_sync(sched.device)
     dt = time.time() - t0
@@ -216,7 +256,36 @@ def serve_sessions(cfg, api, params, args) -> Dict[str, Any]:
               f"{sched.page_waits} admission round(s) waited for pages; "
               f"up to {sched.peak_active} sessions decoded at once")
     return {"prompts": prompts, "sessions": sessions, "sched": sched,
-            "seconds": dt}
+            "seconds": dt, "sharing": sharing}
+
+
+def sharing_report(sched) -> Dict[str, Any]:
+    """Print the prefix-sharing line of the admissions so far (or, where
+    the cache stores nothing in pages, the inert note) and return its
+    numbers: ``shared`` pages (refcount > 1), ``assigned`` pages, the
+    ``assigned_kv_bytes`` with the shared prefix counted once, and
+    ``unshared_kv_bytes``, what the same table rows would hold with every
+    reference its own page."""
+    if not sched.prefix_sharing:
+        print("[serve] note: this config stores nothing in pages -- prefix "
+              "sharing is inert (see the paged-layout note)")
+        return {"shared": 0, "assigned": 0}
+    refs = sched.page_refcounts()
+    assigned = int((refs > 0).sum())
+    kv = sched.assigned_kv_bytes()
+    page_bytes = 0                   # one page of every paged field
+    for f, t in sched.state.kv.items():
+        ax = sched.layout.page_axis(f)
+        if ax is not None:
+            page_bytes += t.numel() * t.element_size() // t.shape[ax]
+    rep = {"shared": int((refs > 1).sum()), "assigned": assigned,
+           "assigned_kv_bytes": kv,
+           "unshared_kv_bytes": kv + (int(refs.sum()) - assigned) *
+           page_bytes}
+    print(f"[serve] prefix sharing: {rep['shared']} shared pages (refcount "
+          f"> 1), {assigned} assigned of {sched.layout.pool_pages} pool "
+          f"pages; assigned KV bytes (shared prefix counted once): {kv}")
+    return rep
 
 
 def check_sessions(api, params, served, args) -> Dict[str, Any]:

@@ -144,10 +144,16 @@ class DecodeState:
         reads the page table."""
         return LT.assigned_kv_bytes(self.kv_views())
 
-    def with_slot(self, slot: int, row: "DecodeState") -> "DecodeState":
+    def with_slot(self, slot: int, row: "DecodeState",
+                  page_write_mask: Optional[torch.Tensor] = None
+                  ) -> "DecodeState":
         """Write a single-row state (batch size 1) into slot ``slot``, IN
         PLACE; returns self.  Bookkeeping is a per-field row write; kv
-        goes through the layout (paged: only the slot's own pages)."""
+        goes through the layout (paged: only the slot's own pages).
+        ``page_write_mask`` (pages_per_slot,) bool restricts the paged
+        write to the unshared tail of the slot's table row: a page whose
+        content is already resident (prefix sharing, refcount > 1) is
+        mapped, never rewritten."""
         for name, val in row.bookkeeping.items():
             if name.startswith(LT.LAYOUT_BK_PREFIX):
                 continue
@@ -155,7 +161,7 @@ class DecodeState:
             self.bookkeeping[name].select(ax, slot).copy_(val.select(ax, 0))
         dense_row = row.layout.unpack(row.kv, row.bookkeeping, row.axes)
         self.layout.write_slot(self.kv, self.bookkeeping, slot, dense_row,
-                               self.axes)
+                               self.axes, page_mask=page_write_mask)
         for name, val in row.host.items():
             self.host[name][slot] = val[0]
         return self
@@ -218,8 +224,9 @@ class DecodeAPI(Protocol):
                 ) -> Tuple[torch.Tensor, DecodeState]: ...
 
     def prefill_into_slot(self, params, state: DecodeState, slot: int,
-                          tokens: Any) -> Tuple[torch.Tensor,
-                                                DecodeState]: ...
+                          tokens: Any,
+                          page_write_mask: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, DecodeState]: ...
 
     def raw_step(self, params, state: DecodeState, token: torch.Tensor,
                  live: Optional[torch.Tensor] = None,
@@ -234,6 +241,11 @@ class DecodeAPI(Protocol):
                   ) -> DecodeState: ...
 
     def refresh_host(self, state: DecodeState) -> None: ...
+
+    def stable_prefix_len(self, prompt_len: int) -> int: ...
+
+    def sync_anticipated(self, state: DecodeState, n_steps: int
+                         ) -> np.ndarray: ...
 
 
 def decode_chunk(decode: DecodeAPI, params: Any, state: DecodeState,
@@ -374,15 +386,39 @@ class TConstDecode:
         return logits, self._wrap(cache, np.full((B,), g0), layout)
 
     def prefill_into_slot(self, params, state: DecodeState, slot: int,
-                          tokens: Any) -> Tuple[torch.Tensor, DecodeState]:
+                          tokens: Any,
+                          page_write_mask: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, DecodeState]:
         """Admit one request: prefill prompt ``tokens`` (L,) as a dense
         batch-1 row and write it into ``slot`` through the state's layout
         (in place; paged: the slot's own pages, which the scheduler has
-        assigned).  Returns (logits (V,), state)."""
+        assigned, only those ``page_write_mask`` selects).  Returns
+        (logits (V,), state)."""
         max_len = state.bookkeeping["tokens"].shape[1]
         logits, cache, g0 = self._prefill(
             params, np.asarray(tokens, np.int32).reshape(1, -1), max_len)
-        return logits[0], state.with_slot(slot, self._wrap(cache, [g0]))
+        return logits[0], state.with_slot(slot, self._wrap(cache, [g0]),
+                                          page_write_mask=page_write_mask)
+
+    def stable_prefix_len(self, prompt_len: int) -> int:
+        """The prompt prefix whose paged KV admission writes and which is
+        a function of the prompt ids alone: the trailing 1..W_og tokens
+        live in the dense generation window, not the paged history,
+        until the first resync."""
+        g0 = ((prompt_len - 1) % self.cfg.tconst.w_og) + 1
+        return prompt_len - g0
+
+    def sync_anticipated(self, state: DecodeState, n_steps: int
+                         ) -> np.ndarray:
+        """(B,) host bool: slots whose resync may fire within the next
+        ``n_steps`` steps.  ``gen_len`` grows by at most one a step, so
+        ``gen_len + n_steps >= W_og`` bounds every resync of the chunk.
+        Read from the host mirror, the same one ``sync_candidates``
+        reads, never from the device.  JAX also leaves out EOS-finished
+        rows; here they are anticipated too (an early fork loses some
+        sharing, never correctness), and the scheduler releases them at
+        the chunk boundary, before its copy-on-write pass."""
+        return state.host["gen_len"] + n_steps >= self.cfg.tconst.w_og
 
     def raw_step(self, params, state: DecodeState, token: torch.Tensor,
                  live: Optional[torch.Tensor] = None,
@@ -430,7 +466,11 @@ class TConstDecode:
         so the batch is JAX's (``compacted_rows_switch``): the pending
         rows (window full, not ``done``; read from the device), ascending,
         padded with the lowest non-pending rows up to the bucket of
-        :func:`~repro_torch.core.tconst.resync_buckets`."""
+        :func:`~repro_torch.core.tconst.resync_buckets`.  A pending row
+        that is not listed in ``rows`` (a slot the scheduler paused for
+        copy-on-write) rides in that batch as JAX's does, but its result
+        is masked out of the write-back like the padding's, so it keeps
+        every page it shares bit-identical."""
         idx_np = np.nonzero(np.asarray(rows, bool))[0]
         if not len(idx_np):
             return state
@@ -443,7 +483,9 @@ class TConstDecode:
                      if b >= count)
             order = np.argsort(~pending, kind="stable")[:kb]
             idx = torch.as_tensor(order, device=self.device)
-            sel = torch.as_tensor(np.arange(kb) < count, device=self.device)
+            listed = np.asarray(rows, bool)[order]
+            sel = torch.as_tensor((np.arange(kb) < count) & listed,
+                                  device=self.device)
         else:
             idx = torch.as_tensor(idx_np, device=self.device)
             sel = (take_rows(bk["gen_len"], idx, axes["gen_len"]) >=
@@ -544,15 +586,30 @@ class DenseDecode:
         return LT.field_length(views["k"]) if "k" in views else fallback
 
     def prefill_into_slot(self, params, state: DecodeState, slot: int,
-                          tokens: Any) -> Tuple[torch.Tensor, DecodeState]:
+                          tokens: Any,
+                          page_write_mask: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, DecodeState]:
         """Admit one request: prefill prompt ``tokens`` (L,) as a batch-1
         row as long as the state's K/V buffers and write it into ``slot``
         through the state's layout (in place; paged: the slot's own pages,
-        which the scheduler has assigned).  Returns (logits (V,), state)."""
+        which the scheduler has assigned, only those ``page_write_mask``
+        selects).  Returns (logits (V,), state)."""
         toks = self._tokens(tokens).reshape(1, -1)
         logits, cache = LM.lm_prefill(params, toks, self.cfg,
                                       self._max_len(state, toks.shape[1]))
-        return logits[0], state.with_slot(slot, self._wrap(cache))
+        return logits[0], state.with_slot(slot, self._wrap(cache),
+                                          page_write_mask=page_write_mask)
+
+    def stable_prefix_len(self, prompt_len: int) -> int:
+        """Admission writes the K/V of every prompt position, a function
+        of the prompt ids alone: the whole prompt is stable."""
+        return prompt_len
+
+    def sync_anticipated(self, state: DecodeState, n_steps: int
+                         ) -> np.ndarray:
+        """No periodic sync rewrites resident pages: nothing is
+        anticipated."""
+        return np.zeros((state.bookkeeping["done"].shape[0],), bool)
 
     def raw_step(self, params, state: DecodeState, token: torch.Tensor,
                  live: Optional[torch.Tensor] = None,

@@ -26,15 +26,22 @@ Layouts:
   int8 vectors and their scales ride in a parallel scale pool.
 
 Writes go IN PLACE (the port's dense decode path already updates its
-cache in place): ``write_token``, ``scatter_rows``, ``set_layer`` and
-``write_slot`` mutate the physical tensors the views alias and return
-the view (or the kv dict) for symmetry with the JAX functions, which
-return new arrays.  ``pack`` / ``unpack`` / ``dense`` build new tensors.
+cache in place): ``write_token``, ``scatter_rows``, ``set_layer``,
+``write_slot``, ``scatter_pages`` and ``fork_pages`` mutate the physical
+tensors the views alias and return the view (or the kv dict) for
+symmetry with the JAX functions, which return new arrays.  ``pack`` /
+``unpack`` / ``dense`` / ``read_slot`` / ``gather_pages`` build new
+tensors.
 
-Not ported yet (ROADMAP Queue 1 item 8, serving features): ``read_slot``,
-``write_span``, ``snapshot_slot`` / ``restore_slot`` and
-``gather_pages`` / ``scatter_pages`` / ``fork_pages`` -- chunked prefill,
-session tiering and prefix sharing.
+Prefix sharing: two page-table rows may name one pool page.  Such a page
+keeps its bytes: admission masks it out of ``write_slot``
+(``page_mask``), the scheduler forks it (``fork_pages``) before a resync
+could rewrite it, and a masked write puts back, in rows that do not
+write, the values it read.
+
+Not ported yet (ROADMAP Queue 1 item 8, serving features): ``write_span``
+and ``snapshot_slot`` / ``restore_slot`` -- chunked prefill and session
+tiering.
 """
 from __future__ import annotations
 
@@ -480,10 +487,13 @@ class DenseLayout:
                               self._axis(f, axes)) for f in new_kv}
 
     def write_slot(self, kv: Dict[str, Any], bk: Dict[str, Any], slot: int,
-                   dense_row: Dict[str, Any], axes: Dict[str, int]
+                   dense_row: Dict[str, Any], axes: Dict[str, int],
+                   page_mask: Optional[torch.Tensor] = None
                    ) -> Dict[str, Any]:
         """Scatter a 1-slot dense row into physical slot ``slot``, IN
-        PLACE.  Returns ``kv``."""
+        PLACE.  Returns ``kv``.  ``page_mask`` is a paged-layout concern
+        (tail-only admission under prefix sharing), ignored here: these
+        slots are owned by one row each."""
         packed = self.pack(dense_row, bk, axes)
         for f, dst in kv.items():
             ax = self._axis(f, axes)
@@ -694,10 +704,18 @@ class PagedLayout(DenseLayout):
                 out[f] = where_rows(page_rows, new_kv[f], old_kv[f], la - 1)
         return out
 
-    def write_slot(self, kv, bk, slot, dense_row, axes):
+    def write_slot(self, kv, bk, slot, dense_row, axes, page_mask=None):
         """Page-map surgery, IN PLACE: only the slot's own pages (its
-        table row) are written; entries at TRASH take dead writes."""
+        table row) are written; entries at TRASH take dead writes.
+        ``page_mask`` (pps,) bool selects which of the row's entries are
+        written: the others are sent to TRASH, so a prefix-shared page
+        (already resident, refcount > 1) is never written by admission.
+        Several entries at TRASH in one indexed write land in no fixed
+        order; TRASH is never read as valid."""
         pt_row = bk[PAGE_TABLE][slot].long()                  # (pps,)
+        if page_mask is not None:
+            pt_row = torch.where(page_mask.to(pt_row.device), pt_row,
+                                 torch.full_like(pt_row, self.trash))
         packed = self._quant_pack(dense_row)
         for f, dst in kv.items():
             la = self._length_axis(f)
@@ -709,4 +727,69 @@ class PagedLayout(DenseLayout):
             pages = _to_pages(src, la, self.pages_per_slot, self.page)
             dst[(slice(None),) * (la - 1) + (pt_row,)] = \
                 pages.select(la - 1, 0)
+        return kv
+
+    def read_slot(self, kv, bk, axes, slot):
+        """Dense logical row of slot ``slot``, gathered through its OWN
+        table row only (adopted shared pages included); entries at TRASH
+        read garbage past the slot's valid length."""
+        pt_row = bk[PAGE_TABLE][slot].long()                  # (pps,)
+        staged = {}
+        for f, v in kv.items():
+            la = self._length_axis(f)
+            if la is None:
+                staged[f] = v.narrow(self._axis(f, axes), slot, 1)
+                continue
+            g = v.index_select(la - 1, pt_row).unsqueeze(la - 1)
+            g = g.reshape(g.shape[:la] + (-1,) + g.shape[la + 2:])
+            staged[f] = g.narrow(la, 0, self.max_len)
+        out = {}
+        for f, v in staged.items():
+            if f.endswith("__q"):
+                out[f[:-3]] = dequantize_int8(v, staged[f[:-3] + "__scale"],
+                                              _dtype(self.dtype))
+            elif not f.endswith("__scale"):
+                out[f] = v
+        return out
+
+    def page_axis(self, field: str) -> Optional[int]:
+        """The pool's page axis of physical field ``field`` (None when it
+        is not paged)."""
+        la = self._length_axis(field)
+        return None if la is None else la - 1
+
+    def gather_pages(self, kv: Dict[str, Any], pages: torch.Tensor
+                     ) -> Dict[str, Any]:
+        """Pool pages ``pages`` (k,) of every paged field (int8 pools with
+        their scale pools) as new page stacks.  Pad ``pages`` with TRASH
+        for a fixed arity; the padding gathers garbage."""
+        pages = pages.long()
+        return {f: v.index_select(self.page_axis(f), pages.to(v.device))
+                for f, v in kv.items() if self.page_axis(f) is not None}
+
+    def scatter_pages(self, kv: Dict[str, Any], pages: torch.Tensor,
+                      contents: Dict[str, Any]) -> Dict[str, Any]:
+        """Inverse of :meth:`gather_pages`, IN PLACE: write page stacks
+        ``contents`` onto pool pages ``pages`` (k,).  TRASH-padded entries
+        are dead writes."""
+        for f, v in contents.items():
+            ax = self.page_axis(f)
+            assert ax is not None, (f, "scatter_pages takes paged fields")
+            dst = kv[f]
+            dst[(slice(None),) * ax + (pages.long().to(dst.device),)] = \
+                v.to(dst.dtype)
+        return kv
+
+    def fork_pages(self, kv: Dict[str, Any], src: torch.Tensor,
+                   dst: torch.Tensor) -> Dict[str, Any]:
+        """Copy-on-write fork, IN PLACE: copy pool pages ``src`` (k,) onto
+        fresh pages ``dst`` (k,) in every paged field (int8 pools with
+        their scale pools).  Pad both with TRASH for a fixed arity:
+        TRASH -> TRASH copies are dead writes."""
+        for f, pool in kv.items():
+            ax = self.page_axis(f)
+            if ax is None:
+                continue
+            taken = pool.index_select(ax, src.long().to(pool.device))
+            pool[(slice(None),) * ax + (dst.long().to(pool.device),)] = taken
         return kv

@@ -19,25 +19,41 @@ The scheduler owns one fixed-shape multi-slot ``DecodeState`` and admits
   slot at the chunk boundary (the slot is cleared, so a stale counter
   can never fire a resync of an empty row).
 * **pages** -- on a paged layout whose cache has paged fields (tlin's
-  history KV) the scheduler owns page assignment: the table starts
-  all-TRASH with every pool page free, an admission takes the pages its
-  session can ever need (prompt + budget + one chunk of headroom) or
-  waits, and a release retargets the slot's table row at the trash page
-  before clearing the slot, then frees its pages.  A page-blocked queue
-  head may be overtaken by at most ``max_head_skips`` admissions, after
-  which admission is strictly in arrival order until the head admits.
+  history KV, an attention LM's K/V) the scheduler owns page assignment:
+  the table starts all-TRASH with every pool page free, an admission
+  takes the pages its session can ever need (prompt + budget + one chunk
+  of headroom) or waits, and a release retargets the slot's table row at
+  the trash page before clearing the slot, then drops its page
+  references.  A page-blocked queue head may be overtaken by at most
+  ``max_head_skips`` admissions, after which admission is strictly in
+  arrival order until the head admits.
+* **prefix sharing (copy-on-write)** -- with ``prefix_sharing=True`` the
+  scheduler keeps a host-side map from page-aligned prompt chunks (sha1
+  keys rolling over the prompt) to resident pool pages, and a refcount
+  per page.  A session whose prompt prefix matches resident pages maps
+  them into its table row instead of writing them again (the admission
+  write is masked to the unshared tail), so S sessions sharing a system
+  prompt store its KV once.  A page is writable only at refcount 1:
+  before a chunk in which a slot's resync may fire
+  (``DecodeAPI.sync_anticipated``), the slot's shared pages are forked
+  to fresh pages (``fork_pages``, a device copy, then table surgery); a
+  slot that cannot fork for lack of pages is paused for the chunk.
+  Token appends never reach a shared page: only pages wholly inside
+  ``stable_prefix_len`` enter the map.  A page returns to the free pool,
+  and leaves the map, only at refcount 0.
 
 Sampling: each session draws from its own ``torch.Generator`` seeded from
 ``Session.seed`` (or the scheduler seed and ``sid``), so a session's
 stream depends on the session alone.  Left out of the port so far (ROADMAP
-Queue 1 item 8): prefix sharing (page refcounts above 1, copy-on-write),
-chunked admission, session tiering, policies, telemetry and speculative
-decoding.
+Queue 1 item 8): chunked admission, session tiering (and with it the
+retiring of refcount-0 prefix pages into a store), policies, telemetry
+and speculative decoding.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import time
 from typing import Any, Deque, Dict, List, Optional
 
@@ -54,6 +70,7 @@ from repro_torch.serving.session import Session
 class SlotScheduler:
     def __init__(self, decode: DecodeAPI, params: Any, slots: int,
                  max_len: int, chunk_size: int = 8, seed: int = 0,
+                 prefix_sharing: bool = False,
                  max_head_skips: Optional[int] = None):
         # accept a ModelAPI facade too (its dense-layout decode)
         if isinstance(decode, ModelAPI):
@@ -89,6 +106,19 @@ class SlotScheduler:
             self.state.bookkeeping[LT.PAGE_TABLE].fill_(self.layout.trash)
             self.free_pages = list(range(self.layout.pool_pages))
             self._page_ref = np.zeros((self.layout.pool_pages,), np.int32)
+        # prefix sharing: chunk key -> page, page -> key, sid -> keys
+        self.prefix_sharing = bool(prefix_sharing) and self._paged
+        self._prefix_map: Dict[bytes, int] = {}
+        self._page_key: Dict[int, bytes] = {}
+        self._key_cache: Dict[int, List[bytes]] = {}
+        # a resyncing model forks every page it adopted before its first
+        # resync, so a sharing admission reserves those copies up front
+        # (the LM families never fork)
+        self._fork_reserve = self.prefix_sharing and bool(
+            np.any(decode.sync_anticipated(self.state, 1 << 30)))
+        # pages forked, and chunks a slot sat out for lack of fork pages
+        self.pages_forked = 0
+        self.fork_pauses = 0
         # bounded skip-ahead past a page-blocked queue head (then strict
         # arrival order until the head admits: no starvation)
         self.max_head_skips = 4 * slots if max_head_skips is None \
@@ -149,6 +179,51 @@ class SlotScheduler:
         """Physical KV bytes of the state (pools in full)."""
         return self.state.kv_bytes()
 
+    def assigned_kv_bytes(self) -> int:
+        """KV bytes the live page tables reference; a prefix-shared page
+        counts once."""
+        return self.state.assigned_kv_bytes()
+
+    def page_refcounts(self) -> np.ndarray:
+        """Host-side per-page refcounts (a copy); all zeros when idle."""
+        return self._page_ref.copy()
+
+    # ------------------------------------------------------------------
+    # prefix sharing: content-addressed page map + refcounts
+    # ------------------------------------------------------------------
+    def _chunk_keys(self, session: Session) -> List[bytes]:
+        """Rolling keys of the page-aligned prompt chunks inside the
+        session's stable prefix: key i covers ``prompt[:(i+1)*page]`` (KV
+        at a position is a causal function of every token before it),
+        salted with the per-request extras."""
+        cached = self._key_cache.get(session.sid)
+        if cached is not None:
+            return cached
+        page = self.layout.page
+        stable = self.decode.stable_prefix_len(len(session.prompt))
+        n = min(stable, len(session.prompt)) // page
+        h = hashlib.sha1()
+        if session.extras:
+            for name in sorted(session.extras):
+                h.update(name.encode())
+                h.update(np.asarray(session.extras[name]).tobytes())
+        prompt = np.ascontiguousarray(session.prompt, np.int32)
+        keys = []
+        for i in range(n):
+            h.update(prompt[i * page:(i + 1) * page].tobytes())
+            keys.append(h.copy().digest())
+        self._key_cache[session.sid] = keys
+        return keys
+
+    def _register(self, key: bytes, page: int) -> None:
+        self._prefix_map[key] = page
+        self._page_key[page] = key
+
+    def _unregister(self, page: int) -> None:
+        key = self._page_key.pop(page, None)
+        if key is not None:
+            self._prefix_map.pop(key, None)
+
     def _set_table_row(self, slot: int, pages: List[int]) -> None:
         self._slot_pages[slot] = list(pages)
         row = np.full((self.layout.pages_per_slot,), self.layout.trash,
@@ -157,14 +232,27 @@ class SlotScheduler:
         self.state.bookkeeping[LT.PAGE_TABLE][slot] = torch.as_tensor(
             row, device=self.device)
 
-    def _admission_plan(self, session: Session) -> Optional[int]:
-        """How many pool pages this admission takes, or None while the
-        free pool is short (the session waits for running sessions to
-        retire)."""
+    def _admission_plan(self, session: Session
+                        ) -> Optional[Dict[str, Any]]:
+        """The pages this admission takes, or None while the free pool is
+        short (the session waits for running sessions to retire).  With
+        prefix sharing, resident pages matching the prompt's chunk keys
+        are adopted instead of drawn from the free pool; a resyncing
+        model reserves a free page for each adopted one (its fork)."""
         if not self._paged:
-            return 0
+            return {"total": 0, "adopted": [], "keys": []}
         total = self._pages_needed(session)
-        return total if total <= len(self.free_pages) else None
+        keys = self._chunk_keys(session) if self.prefix_sharing else []
+        adopted: List[int] = []
+        for key in keys:
+            page = self._prefix_map.get(key)
+            if page is None:
+                break
+            adopted.append(page)
+        reserve = len(adopted) if self._fork_reserve else 0
+        if total - len(adopted) + reserve > len(self.free_pages):
+            return None
+        return {"total": total, "adopted": adopted, "keys": keys}
 
     def _session_generator(self, session: Session) -> torch.Generator:
         seed = session.seed if session.seed is not None else int(
@@ -172,20 +260,41 @@ class SlotScheduler:
                 1)[0])
         return torch.Generator(device=self.device).manual_seed(seed)
 
-    def _admit(self, session: Session, slot: int, n_pages: int) -> None:
+    def _admit(self, session: Session, slot: int,
+               plan: Dict[str, Any]) -> None:
+        mask = None
         if self._paged:
-            pages = [self.free_pages.pop() for _ in range(n_pages)]
-            for p in pages:
+            adopted = plan["adopted"]
+            fresh = [self.free_pages.pop()
+                     for _ in range(plan["total"] - len(adopted))]
+            pages = list(adopted) + fresh
+            for p in adopted:
+                self._page_ref[p] += 1
+            for p in fresh:
                 self._page_ref[p] = 1
             self._set_table_row(slot, pages)
+            if self.prefix_sharing:
+                # this prompt's freshly written stable pages become
+                # adoptable (the adopted ones are in the map already)
+                for i, key in enumerate(plan["keys"]):
+                    if key not in self._prefix_map:
+                        self._register(key, pages[i])
+                if adopted:
+                    # tail-only write: adopted pages hold this prompt's KV
+                    # already, and a page at refcount > 1 is never written
+                    host_mask = np.ones((self.layout.pages_per_slot,), bool)
+                    host_mask[:len(adopted)] = False
+                    mask = torch.as_tensor(host_mask, device=self.device)
         t0 = time.perf_counter()
         logits, self.state = self.decode.prefill_into_slot(
-            self.params, self.state, slot, session.prompt)
+            self.params, self.state, slot, session.prompt,
+            page_write_mask=mask)
         device_sync(self.device)
+        self._key_cache.pop(session.sid, None)
         self.admit_stats.append(StepStats(
             "admit", time.perf_counter() - t0, tokens=len(session.prompt),
             compiled=tag_compiled(self._warm, "admit",
-                                  len(session.prompt))))
+                                  (len(session.prompt), mask is not None))))
         gen = self._session_generator(session)
         t0k = sample_tokens(logits[None], np.array([session.temperature]),
                             [gen])[0]
@@ -235,6 +344,60 @@ class SlotScheduler:
             self._head_skips = 0
         return admitted
 
+    # ------------------------------------------------------------------
+    # copy-on-write forking (chunk boundary)
+    # ------------------------------------------------------------------
+    def _cow_before_chunk(self) -> np.ndarray:
+        """A page is writable only at refcount 1.  The only writes that
+        can reach resident prefix pages are a resync's history rebuild
+        (token appends land past the stable prefix), so every active slot
+        whose resync may fire within the coming chunk is made page-
+        private now, by the same host mirror and the same ``n_steps``
+        the chunk's resync decisions use.  A slot that cannot fork for
+        lack of free pages is paused for this chunk (masked out of it,
+        frozen bit-identically) and retried once retiring sessions free
+        pages.  Returns the (B,) mask of the slots that decode."""
+        run_mask = self.active.copy()
+        anticipated = self.decode.sync_anticipated(self.state,
+                                                   self.chunk_size)
+        for slot in np.nonzero(self.active)[0]:
+            if anticipated[slot] and not self._make_slot_private(int(slot)):
+                run_mask[slot] = False
+                self.fork_pauses += 1
+        return run_mask
+
+    def _make_slot_private(self, slot: int) -> bool:
+        """Fork the slot's shared pages to fresh ones.  True on success;
+        False, with nothing changed, when the free pool cannot hold the
+        copies."""
+        pages = self._slot_pages[slot]
+        shared = [j for j, p in enumerate(pages) if self._page_ref[p] > 1]
+        if len(shared) > len(self.free_pages):
+            return False
+        for p in pages:
+            if self._page_ref[p] == 1:
+                # the sole owner is about to rewrite the page: its content
+                # may stop matching its key
+                self._unregister(p)
+        if not shared:
+            return True
+        fresh = [self.free_pages.pop() for _ in shared]
+        pps = self.layout.pages_per_slot
+        src = np.full((pps,), self.layout.trash, np.int32)
+        dst = np.full((pps,), self.layout.trash, np.int32)
+        for k, (j, p_new) in enumerate(zip(shared, fresh)):
+            src[k], dst[k] = pages[j], p_new
+        self.layout.fork_pages(self.state.kv,
+                               torch.as_tensor(src, device=self.device),
+                               torch.as_tensor(dst, device=self.device))
+        for j, p_new in zip(shared, fresh):
+            self._page_ref[pages[j]] -= 1
+            self._page_ref[p_new] = 1
+            pages[j] = p_new
+        self._set_table_row(slot, pages)
+        self.pages_forked += len(shared)
+        return True
+
     def _release(self, slot: int) -> None:
         self.sessions[slot] = None
         self.active[slot] = False
@@ -243,13 +406,16 @@ class SlotScheduler:
         self.generators[slot] = None
         if self._paged:
             # retarget the table row at TRASH before the clearing write
-            # below, so the clearing zeros land on the trash page; then
-            # free the slot's pages
+            # below, so the clearing zeros land on the trash page and never
+            # on a page another slot still maps; then drop the slot's
+            # references: a page is freed, and leaves the prefix map, only
+            # at refcount 0
             pages = self._slot_pages[slot]
             self._set_table_row(slot, [])
             for p in pages:
                 self._page_ref[p] -= 1
                 if self._page_ref[p] == 0:
+                    self._unregister(p)
                     self.free_pages.append(p)
         # clear the slot so stale phase counters can't fire a resync of an
         # empty row
@@ -258,13 +424,17 @@ class SlotScheduler:
 
     def step(self) -> bool:
         """Admit pending sessions, then decode ONE chunk for the active
-        slots.  Returns False when no progress was made."""
+        slots (under prefix sharing, those not paused for copy-on-write
+        fork pages).  Returns False when no progress was made."""
         self.clock += 1
         admitted = self.admit_pending()
         if not self.active.any():
             return admitted
-        run_mask = self.active.copy()
-        self.peak_active = max(self.peak_active, self.n_active)
+        run_mask = self._cow_before_chunk() if self.prefix_sharing \
+            else self.active.copy()
+        if not run_mask.any():
+            return admitted            # every active slot fork-paused
+        self.peak_active = max(self.peak_active, int(run_mask.sum()))
         t0 = time.perf_counter()
         toks, self.state, resyncs = decode_chunk(
             self.decode, self.params, self.state, self.last_token,
@@ -296,6 +466,7 @@ class SlotScheduler:
             need = self._pages_needed(head) if head and self._paged else 0
             pool = self.layout.pool_pages if self._paged else 0
             raise RuntimeError(
-                f"scheduler stuck: {len(self.pending)} pending, "
-                f"{self.n_active} active, nothing could run (head needs "
-                f"{need} pages; free {len(self.free_pages)}/{pool})")
+                f"scheduler stuck: {len(self.pending)} pending and "
+                f"{self.n_active} fork-paused session(s), nothing could "
+                f"run (head needs {need} pages; free "
+                f"{len(self.free_pages)}/{pool})")
