@@ -62,17 +62,17 @@ Phases (any failure raises, so the exit code is non-zero):
    launch makes (torch.profiler): one each, and K2, K1 and K3 at
    deepseek's shapes too; K2's backward three (delta, dk/dv, dq).
 4. Serve ``tconst-41m`` at full width with the port's seeded init
-   (``--sessions 4 --prompt-len 600 --gen 320 --chunk 32``), each run's
+   (``--sessions 4 --prompt-len 600 --gen 192 --chunk 32``), each run's
    launch counters reset before the scheduler and read right after it:
    tconst on the dense layout (the first slice's main path, bf16 and f32)
    and, in bf16 and f32, TLinFormer on the paged and paged_int8 layouts
-   (3 slots, a pool of 31 pages of 64 below the full 48, so an admission
+   (3 slots, a pool of 31 pages of 64 below the full 42, so an admission
    waits for pages a finished session frees while two sessions decode)
    and tconst on the int8 layout.  Each run must launch exactly its
    kernels (K3 on the paged runs, K1-int8 on the int8 runs) and no plain
    version.  f32 greedy streams must equal their solo runs on the same
-   layout (the f32 runs of the new layouts use ``--prompt-len 700 --gen
-   96``: every session still crosses a resync).  bf16 logits after the
+   layout (the f32 runs use ``--prompt-len 700 --gen 96``: every session
+   still crosses a resync).  bf16 logits after the
    prefill and after a few decode steps are held against the f32 plain
    path on the CPU, same layout.  mamba2-130m's f32 run (streams only)
    is cut to 6 of its 24 layers.  The runs of the families without a
@@ -114,6 +114,23 @@ Phases (any failure raises, so the exit code is non-zero):
    resync (TLinFormer; smollm forks none), launch exactly its layout's
    kernels and no plain version, match its solo runs in f32, and end
    with every refcount 0, the prefix map empty and every page free.
+   A chunked-admission phase (4c) serves smollm-360m on paged with
+   ``--prefix-sharing --prefill-chunk 128`` (f32: 4b's argv; bf16 at gen
+   32 on a pool of 14): the cold admissions forward their prompt padded
+   to the chunk grid, each sharer its tail plus one chunk at most, and
+   no admission writes a resident prefix page (read back on the card);
+   tconst-41m on dense and TLinFormer on paged_int8 with
+   ``--prefill-chunk 64`` (the bucketed admission: max_len forwarded;
+   bf16 logits through it against the CPU f32 plain path); mamba2-130m
+   in f32 at 6 layers in chunks of 64 (K4 once a layer a chunk, from the
+   carried state).  Each run launches exactly its kernels, no plain
+   version; f32 streams equal the same argv's one-shot run.  It also
+   profiles smollm's bf16 admission of a 608-token prompt: one-shot,
+   chunked cold and chunked sharing (tokens forwarded, device launches,
+   device ms, K2's device ms, wall ms).  K2 at the chunk shape (64
+   queries at 576 and 960 over keys ``[0, start + 64)``; smollm's and
+   deepseek's heads, one case under a 256 window) is a case of phase 3,
+   with SDPA under a lower-right causal mask as its yardstick.
    A window phase serves reduced gemma3 (6 layers: 5 local : 1 global),
    tconst-41m in sliding mode (window 8, 8 layers) and reduced mixtral
    (window 8, two MoE layers, G 4) on all four layouts in f32: K1 with
@@ -121,7 +138,9 @@ Phases (any failure raises, so the exit code is non-zero):
    deepseek in tconst mode, mixtral in tlin mode (MoE FFNs in the TConst
    core, W 8: resyncs inside the logit checks) and minicpm-2b the same
    way.  The card's logits against the CPU plain path's, the streams
-   equal on the float layouts.
+   equal on the float layouts.  gemma3 and mixtral run again on the card
+   with ``--prefill-chunk 16`` on every layout: the streams equal its
+   one-shot run's.
 5. Training (``launch.train``, ``--batch 8 --seq 1024 --steps 6``):
    tconst-41m at full width in bf16 in modes tconst, tlin and full (the
    base transformer) on one seeded init, in turns A B C C B A over the
@@ -133,7 +152,7 @@ Phases (any failure raises, so the exit code is non-zero):
    width, B 1 x 512, on the card against the CPU plain path on the same
    f32 params: f32 within a relative L2 error of 1e-4, bf16 within 3x
    the CPU plain path's own bf16 error.
-6. Uniform-batch Engine (``--batch 4 --prompt-len 1024 --gen 800``): the
+6. Uniform-batch Engine (``--batch 4 --prompt-len 1024 --gen 544``): the
    paper's three variants on one set of weights -- tconst/dense,
    tlin/paged and the base transformer (full/dense) -- in one call, in
    turns (A, B, C, C, B, A): the mean cache-hit step (O(1) against O(N))
@@ -192,8 +211,13 @@ LOGIT_TOL_LM = {"smollm": {"bfloat16": 0.16},   # 0.046 first, 0.053 steps
 # routed tokens there, nearly all in the admissions); f32 as LOGIT_TOL
 LOGIT_TOL_MOE = {"bfloat16": 1.26, "float32": LOGIT_TOL["float32"]}
 
+# gen 192 (six chunks): every session crosses a resync (g0 88-103 of
+# W_og 256), and the smoke stays clear of its limit on a slow host
 SESSIONS_ARGS = ["--sessions", "4", "--slots", "2", "--prompt-len", "600",
-                 "--gen", "320", "--chunk", "32"]
+                 "--gen", "192", "--chunk", "32"]
+# the kernel phase's and the KV-bytes line's max_len: the sessions argv's
+# at gen 320 (615 + 320 + 64), the shapes the kernel table records
+KERNEL_MAX_LEN = 999
 SSM = "mamba2_130m"
 SMOLLM = "smollm-360m"
 DEEPSEEK = "deepseek_moe_16b"
@@ -231,11 +255,11 @@ RESYNCING = TCONST_MODES + ("deepseek-tconst",)
 # the MoE runs: bf16 at full depth (finite logits), f32 at a cut depth
 # whose logits both dtypes hold against one CPU f32 reference
 MOE_MODES = ("deepseek", "deepseek-tconst")
-# paged runs: 3 slots, a pool below the full 3 x 16 pages: sessions need
-# 15, 15, 16, 16 pages of 64 (prompt + gen + one chunk), so two decode
+# paged runs: 3 slots, a pool below the full 3 x 14 pages: sessions need
+# 13, 13, 14, 14 pages of 64 (prompt + gen + one chunk), so two decode
 # together and the third waits for pages with a slot free
 PAGED_ARGS = ["--slots", "3", "--page-size", "64", "--pool-pages", "31"]
-# f32 runs of the new layouts: shorter, every session still crosses a
+# f32 runs of the TConst core: shorter, every session still crosses a
 # resync (g0 = 188..203 of W_og = 256); paged pool 27 of 3 x 14 pages
 F32_ARGS = ["--prompt-len", "700", "--gen", "96"]
 F32_PAGED_ARGS = ["--slots", "3", "--page-size", "64", "--pool-pages", "27"]
@@ -243,9 +267,9 @@ F32_PAGED_ARGS = ["--slots", "3", "--page-size", "64", "--pool-pages", "27"]
 # which the first session still decodes when the third arrives, so the
 # paged pool of 27 makes it wait (13 + 13 pages held)
 F32_LM_ARGS = ["--prompt-len", "700", "--gen", "72"]
-# gen 800 from a 1024-token prompt: four resyncs, three of them warm
+# gen 544 from a 1024-token prompt: three resyncs, two of them warm
 ENGINE_ARGS = ["--arch", "tconst-41m", "--batch", "4", "--prompt-len",
-               "1024", "--gen", "800"]
+               "1024", "--gen", "544"]
 ENGINE_TURNS = (("tconst", "dense"), ("tlin", "paged"), ("full", "dense"))
 # mamba2: K4 at Q = 64 on admission, 255 warm steps
 SSM_ENGINE_ARGS = ["--arch", SSM, "--batch", "4", "--prompt-len", "1024",
@@ -281,7 +305,7 @@ SESSION_RUNS = [
 # the prefix-sharing phase: sessions whose prompts are one system prompt of
 # --prompt-len tokens plus an 8-token tail each, admitted up front.
 # TLinFormer: a 608-token prompt's stable prefix is 512 tokens (the last
-# 96 sit in the window), 8 shared pages of 64; a session takes 15 pages
+# 96 sit in the window), 8 shared pages of 64; a session takes 13 pages
 # (f32: 14), and an adoption reserves a page for each page it will fork,
 # so a pool of 31 admits two sessions and makes the third wait.  smollm:
 # the whole prompt is stable, but a page that holds a tail token is not
@@ -322,6 +346,32 @@ WINDOW_MODELS = {"gemma3": ("gemma3_4b", {"n_layers": 6}),
 WINDOW_ARGS = ["--reduced", "--dtype", "float32", "--sessions", "3",
                "--slots", "2", "--prompt-len", "20", "--gen", "24",
                "--chunk", "4", "--page-size", "16"]
+# the chunked-admission phase (4c): the 4b and phase-4 argv with chunks.
+# smollm on paged with --prefix-sharing --prefill-chunk 128 (4b's prompts
+# 600 + 8; f32 700 + 8 at 8 layers and 4b's argv): a cold admission
+# forwards its prompt padded to the chunk grid (640; f32 768), a sharer
+# one chunk (bf16: 9 adopted pages, resident 576, the loop starts at 512
+# and sends its write of adopted page 8 to TRASH; f32: 10 adopted, start
+# 640).  bf16 at gen 32 (admission is the path) on a pool of 14: 11 pages
+# a session, so two admit together and the third waits for pages.
+# tconst-41m / dense and TLinFormer / paged_int8 with --prefill-chunk 64:
+# the bucketed admission (forwards max_len), at F32_ARGS in both dtypes,
+# so every session crosses a resync.  mamba2 / dense in f32 at 6 layers:
+# 10 chunks of 64 a prompt, K4 from the carried state.  Each f32 run
+# shares its argv with a phase-4 / 4b run and is held to that run's
+# streams (checked there against the solo runs).
+SHARING_CHUNK_BF16 = ["--gen", "32", "--pool-pages", "14"]
+SHARING_CHUNK = 128
+BUCKET_CHUNK = 64
+CHUNKED_RUNS = [("smollm", "paged", ("bfloat16", "float32")),
+                ("tconst", "dense", ("bfloat16", "float32")),
+                ("tlin", "paged_int8", ("bfloat16", "float32")),
+                ("mamba2", "dense", ("float32",))]
+# the window phase's chunked runs (card only, streams against the card's
+# one-shot runs): chunks of one page, a per-layer window on K2's chunk
+# shape and MoE routing per chunk
+WINDOW_CHUNK_MODELS = ("gemma3", "mixtral")
+WINDOW_CHUNK = 16
 LAYOUT_KERNELS = {"dense": (K1, K2), "int8": (K1_INT8, K2),
                   "paged": (K2, K3), "paged_int8": (K2, K3_INT8)}
 # the kernels line: kernel -> (representative case, source, TPU kernel,
@@ -553,7 +603,7 @@ def sdpa_k3(torch, q, pk, pv, pt, lo, hi, k_scale=None, v_scale=None):
     return fn
 
 
-def sdpa_k2(torch, q, k, v, mask, square_causal=False):
+def sdpa_k2(torch, q, k, v, mask, square_causal=False, window=0):
     """SDPA with the boolean mask, or (a square causal prompt) with
     ``is_causal`` and no mask, which lets it take its fused kernels."""
     import torch.nn.functional as F
@@ -564,6 +614,24 @@ def sdpa_k2(torch, q, k, v, mask, square_causal=False):
     m = mask[:, None]
     return lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=m, enable_gqa=True)
+
+
+def sdpa_chunk(torch, q, k, v, mask, square_causal=False, window=0):
+    """SDPA at a chunk's shape: C queries over keys ``[0, start + C)``,
+    the KV heads expanded to the query heads (before the timed call), a
+    lower-right causal mask (``causal_lower_right``, which the fused
+    kernels take) or, under a window, the boolean mask."""
+    import torch.nn.functional as F
+    G = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    if window:
+        m = mask[:, None]
+    else:
+        from torch.nn.attention.bias import causal_lower_right
+        m = causal_lower_right(q.shape[1], k.shape[1])
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m)
 
 
 def int8_codes(torch, gen, shape, dev):
@@ -795,10 +863,10 @@ def k3_rows(torch, rows, cfg, dev, randn, gen, dname: str, max_len: int,
 
 
 def k2_rows(torch, rows, cfg, dev, randn, dname: str, max_len: int,
-            cases=None):
+            cases=None, library=sdpa_k2):
     """K2 against its plain version at the resync / admission shapes
     (``cases``: (label, q_pos, k_pos, causal[, window]), default
-    :func:`k2_cases`)."""
+    :func:`k2_cases`; ``library``: makes the SDPA yardstick's call)."""
     from repro_torch.kernels import flash_attention as FA
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     dt = getattr(torch, dname)
@@ -826,7 +894,7 @@ def k2_rows(torch, rows, cfg, dev, randn, dname: str, max_len: int,
                    FA.flash_attention_plain(*args),
                    lambda: FA.flash_attention_cuda(*args),
                    lambda: FA.flash_attention_plain(*args),
-                   sdpa_k2(torch, q, k, v, mask, square),
+                   library(torch, q, k, v, mask, square, window),
                    nbytes(q, qp, kp, out) + 2 * used, 4 * H * D * pairs,
                    plain_reps=5 if Lk > 4096 else 20)
         del q, k, v, mask, out
@@ -1198,6 +1266,29 @@ def lm_rows(torch, rows, dev, randn, gen, dname: str, max_len: int):
             cases=prefills("minicpm", [1024]))
 
 
+def chunk_rows(torch, rows, dev, randn, dname: str):
+    """K2 at a chunked admission's shape: one batch-1 chunk of 64 queries
+    at positions ``[start, start + 64)``, start 576 and 960 of a 1088-slot
+    row, over its live keys ``[0, start + 64)``, at smollm-360m's heads
+    (15 over 5, D 64; and one case under a 256 window) and at
+    deepseek-moe-16b's (16 over 16, D 128); SDPA over the same keys with
+    a lower-right causal mask as the yardstick."""
+    from repro_torch.config import get_config
+
+    def chunk(prefix, start, window=0):
+        qp = start + torch.arange(64, dtype=torch.int32, device=dev)[None]
+        kp = torch.arange(start + 64, dtype=torch.int32, device=dev)[None]
+        label = f"{prefix}_chunk_{start}" + (f"_w{window}" if window else "")
+        return (label, qp, kp, True) + ((window,) if window else ())
+
+    k2_rows(torch, rows, get_config(SMOLLM), dev, randn, dname, 1088,
+            cases=[chunk("smollm", 576), chunk("smollm", 960),
+                   chunk("smollm", 960, 256)], library=sdpa_chunk)
+    k2_rows(torch, rows, get_config(DEEPSEEK), dev, randn, dname, 1088,
+            cases=[chunk("deepseek", 576), chunk("deepseek", 960)],
+            library=sdpa_chunk)
+
+
 def kernel_phase(torch, cfg, dev, max_len: int):
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
@@ -1211,6 +1302,7 @@ def kernel_phase(torch, cfg, dev, max_len: int):
         k3_rows(torch, rows, cfg, dev, randn, gen, dname, max_len)
         k2_rows(torch, rows, cfg, dev, randn, dname, max_len)
         lm_rows(torch, rows, dev, randn, gen, dname, max_len)
+        chunk_rows(torch, rows, dev, randn, dname)
         k2_bwd_rows(torch, rows, cfg, dev, randn, dname)
     ssd_phase(torch, rows, dev, gen)
     for r in rows:
@@ -1229,18 +1321,18 @@ def kernel_phase(torch, cfg, dev, max_len: int):
 
 
 def session_argv(mode: str, layout: str, dtype: str):
-    """The launcher's argv of one sessions run (f32 runs of the layouts
-    added after the first slice at the shorter F32_ARGS, of the dense LMs
-    and deepseek at F32_LM_ARGS; the other runs of ``LM_MODES`` at
-    LM_BF16_ARGS; deepseek in tconst mode at F32_ARGS in both
-    dtypes)."""
+    """The launcher's argv of one sessions run (f32 runs of the TConst
+    core at the shorter F32_ARGS (tconst/dense's too), of
+    the dense LMs and deepseek at F32_LM_ARGS; the other runs of
+    ``LM_MODES`` at LM_BF16_ARGS; deepseek in tconst mode at F32_ARGS in
+    both dtypes)."""
     argv = SESSIONS_ARGS + ["--arch", MODELS[mode][0], "--dtype", dtype,
                             "--layout", layout]
     if mode == "deepseek-tconst":
         argv += F32_ARGS
     elif dtype == "float32" and mode in ("smollm", "full", "deepseek"):
         argv += F32_LM_ARGS
-    elif dtype == "float32" and layout != "dense":
+    elif dtype == "float32" and mode in TCONST_MODES:
         argv += F32_ARGS
     elif mode in LM_MODES:
         argv += LM_BF16_ARGS
@@ -1251,9 +1343,14 @@ def session_argv(mode: str, layout: str, dtype: str):
 
 def sharing_argv(mode: str, layout: str, dtype: str):
     """A sessions run's argv with ``--prefix-sharing`` and the pool of
-    ``SHARING_POOL``."""
-    return session_argv(mode, layout, dtype) + [
-        "--prefix-sharing", "--pool-pages", str(SHARING_POOL[mode, dtype])]
+    ``SHARING_POOL``.  TLinFormer's bf16 runs keep gen 320: at the
+    sessions argv's 192 a session takes 13 pages, the third admission
+    fits the pool of 31 and none waits for pages."""
+    argv = session_argv(mode, layout, dtype)
+    if mode in TCONST_MODES and dtype == "bfloat16":
+        argv += ["--gen", "320"]
+    return argv + ["--prefix-sharing", "--pool-pages",
+                   str(SHARING_POOL[mode, dtype])]
 
 
 @contextlib.contextmanager
@@ -1261,16 +1358,33 @@ def cow_watch(torch):
     """While active, every decode chunk of a prefix-sharing scheduler is
     checked on the card: the pool pages at refcount > 1 when the chunk
     starts (after the scheduler's copy-on-write pass, which names the
-    scheduler to the watch) must come out of it bit-identical.  Yields
-    the record (chunks, chunks with shared pages, pages checked)."""
+    scheduler to the watch) must come out of it bit-identical.  So must,
+    through every admission, the pages of the prefix map that live
+    sessions hold (adopted or not, an admission writes none of them).
+    Yields the record (chunks, chunks with shared pages, pages checked;
+    admissions, the pages each adopted, resident pages checked)."""
     import numpy as np
     from repro_torch.serving import scheduler as S
     orig, orig_cow = S.decode_chunk, S.SlotScheduler._cow_before_chunk
-    rec = {"chunks": 0, "chunks_with_shared": 0, "pages_checked": 0}
+    orig_admit = S.SlotScheduler._admit
+    rec = {"chunks": 0, "chunks_with_shared": 0, "pages_checked": 0,
+           "adopted": [], "resident_pages_checked": 0}
 
     def cow(sched):
         rec["sched"] = sched
         return orig_cow(sched)
+
+    def admit(sched, session, slot, plan):
+        resident = [p for p in sched._page_key if sched._page_ref[p] > 0]
+        idx = torch.as_tensor(resident, dtype=torch.long,
+                              device=sched.device)
+        before = sched.layout.gather_pages(sched.state.kv, idx)
+        orig_admit(sched, session, slot, plan)
+        after = sched.layout.gather_pages(sched.state.kv, idx)
+        check(all(torch.equal(after[f], v) for f, v in before.items()),
+              f"an admission wrote a resident prefix page (of {resident})")
+        rec["adopted"].append(len(plan["adopted"]))
+        rec["resident_pages_checked"] += len(resident)
 
     def watched(decode, params, state, *a, **kw):
         sched = rec["sched"]
@@ -1287,22 +1401,29 @@ def cow_watch(torch):
         return out
 
     S.decode_chunk, S.SlotScheduler._cow_before_chunk = watched, cow
+    S.SlotScheduler._admit = admit
     try:
         yield rec
     finally:
         S.decode_chunk, S.SlotScheduler._cow_before_chunk = orig, orig_cow
+        S.SlotScheduler._admit = orig_admit
 
 
 def serve_phase(torch, runtime, serve, mode: str, layout: str, dtype: str,
-                kernels, sharing: bool = False, **overrides):
+                kernels, sharing: bool = False, extra=(), ref_streams=None,
+                **overrides):
     """One sessions run of the main path: counters reset right before
     the scheduler, read right after it; then the checks: exactly
     ``kernels`` launch (None: ``layout_kernels``), no plain version.
     ``sharing``: the run with ``--prefix-sharing`` (``sharing_argv``),
-    its chunks under :func:`cow_watch`.  ``overrides`` replace config
-    fields of the run's model (deepseek's depth)."""
+    its chunks and admissions under :func:`cow_watch`.  ``extra``: argv
+    appended (``--prefill-chunk``).  ``ref_streams``: the streams of a
+    run of the same argv whose streams were held to their solo runs; an
+    f32 run is then held to them instead of running its own solo runs.
+    ``overrides`` replace config fields of the run's model (deepseek's
+    depth)."""
     args = serve.parse_args((sharing_argv if sharing else session_argv)(
-        mode, layout, dtype))
+        mode, layout, dtype) + list(extra))
     cfg, api, params = serve.load(args, **MODELS[mode][1], **overrides)
     torch.cuda.synchronize()
     with (cow_watch(torch) if sharing else contextlib.nullcontext()) \
@@ -1341,7 +1462,9 @@ def serve_phase(torch, runtime, serve, mode: str, layout: str, dtype: str,
             sched.layout.pool_pages)), f"{what}: pages leaked")
     rep = {"seconds": served["seconds"], "launches": counts,
            "page_waits": sched.page_waits, "peak_active": sched.peak_active,
-           "kv_bytes": sched.kv_bytes()}
+           "kv_bytes": sched.kv_bytes(),
+           "streams": [list(s.tokens) for s in served["sessions"]],
+           "forward_tokens": [s.forward_tokens for s in sched.admit_stats]}
     if sharing:
         share = served["sharing"]
         check(share["shared"] >= 1, f"{what}: no page was shared after the "
@@ -1358,11 +1481,18 @@ def serve_phase(torch, runtime, serve, mode: str, layout: str, dtype: str,
               f"{what}: refcounts or prefix map left after the run")
         rep.update(sharing=share, cow_watch={k: v for k, v in watch.items()
                                              if k != "sched"},
+                   adopted=watch["adopted"],
                    pages_forked=sched.pages_forked,
                    fork_pauses=sched.fork_pauses)
     # the solo runs the streams are checked against come after the read;
     # the first slice's tconst/dense run keeps its own in bf16 too
-    if dtype == "float32" or (mode, layout) == ("tconst", "dense"):
+    if ref_streams is not None:
+        rep["streams_equal_ref"] = rep["streams"] == ref_streams
+        check(dtype != "float32" or rep["streams_equal_ref"], f"{what}: "
+              f"f32 greedy streams differ from the same argv's run "
+              f"without {list(extra)}")
+    elif dtype == "float32" or ((mode, layout) == ("tconst", "dense")
+                                and not extra):
         chk = serve.check_sessions(api, params, served, args)
         rep["sessions"] = [{k: s[k] for k in ("sid", "prompt_len",
                                               "resyncs", "matches")}
@@ -1429,16 +1559,19 @@ def cpu_reference(torch, serve, cfg, args, params, n_prompts=None):
 
 
 def logits_phase(torch, serve, cfg, args, params, tol, n_prompts=None,
-                 device="cuda", ref=None):
+                 device="cuda", ref=None, chunk=None):
     """Logits of session prompts on the card (kernels) against the plain
     path on the CPU in f32, same weights and layout (full pool): the
     first token (the admission: K2, or K4 for mamba2) and
     ``LOGIT_STEPS`` cache-hit steps after it (K1 / K1-int8 / K3; mamba2's
     plain recurrent step), both fed the reference's greedy tokens.
     ``tol``: the largest error allowed; ``ref``: a
-    :func:`cpu_reference` of these weights to reuse.  Each record counts
-    the routed tokens (token x MoE layer) and those whose expert set
-    differs from the reference's."""
+    :func:`cpu_reference` of these weights to reuse; ``chunk``: the card
+    admits through ``prefill_into_slot_chunked`` at that chunk (a TConst
+    model: the bucketed admission) into a one-slot state, against the
+    reference's one-shot prefill.  Each record counts the routed tokens
+    (token x MoE layer) and those whose expert set differs from the
+    reference's."""
     from repro_torch.models.api import build_decode
     if ref is None:
         ref = cpu_reference(torch, serve, cfg, args, params, n_prompts)
@@ -1451,7 +1584,12 @@ def logits_phase(torch, serve, cfg, args, params, tol, n_prompts=None,
         for step, (want, want_routes) in enumerate(steps):
             what = "first-token" if step == 0 else f"step-{step}"
             with route_log() as routes:
-                if step == 0:
+                if step == 0 and chunk:
+                    got, st, _ = card_dec.prefill_into_slot_chunked(
+                        card_params, card_dec.init_state(1, max_len), 0, p,
+                        chunk=chunk)
+                    got = got[None]
+                elif step == 0:
                     got, st = card_dec.prefill(card_params,
                                                {"tokens": p[None]}, max_len)
                 else:
@@ -1529,6 +1667,140 @@ def kv_bytes_per_slot(torch, serve, max_len: int) -> dict:
     return out
 
 
+def chunked_phase(torch, runtime, serve, runs, sharing) -> dict:
+    """Phase 4c: chunked admission (``CHUNKED_RUNS``) on the main path,
+    each run counted alone by :func:`serve_phase`.  Checks beyond it: the
+    tokens each admission forwarded (a sharer at most its tail plus one
+    chunk, a cold admission its prompt padded to the chunk grid, the
+    bucketed one ``max_len``); K4 launches once a layer a chunk; the f32
+    streams against the same argv's one-shot run where a phase-4 / 4b run
+    shares it (else their solo runs); the TConst bf16 logits through the
+    bucketed admission against the CPU f32 plain path; the smollm bf16
+    admissions' profile (:func:`admission_profile`).  The bf16 streams are
+    not held to a one-shot run (the same bf16 product summed in chunks
+    may round apart)."""
+    out = {}
+    for mode, layout, dtypes in CHUNKED_RUNS:
+        for dtype in dtypes:
+            t_phase = time.time()
+            key = f"{mode}/{layout}/{dtype}"
+            share = mode == "smollm"
+            chunk = SHARING_CHUNK if share else BUCKET_CHUNK
+            extra = ["--prefill-chunk", str(chunk)]
+            if mode in TCONST_MODES:
+                extra = F32_ARGS + extra
+            if share and dtype == "bfloat16":
+                extra += SHARING_CHUNK_BF16
+            ref = sharing if share else runs
+            kernels = (K4_INTRA, K4_SCAN) if mode == "mamba2" else None
+            cfg, args, params, rep = serve_phase(
+                torch, runtime, serve, mode, layout, dtype, kernels,
+                sharing=share, extra=extra, ref_streams=ref[key]["streams"]
+                if dtype == "float32" else None,
+                **RUN_OVERRIDES.get((mode, dtype), {}))
+            what = f"chunked {key}"
+            lens = [len(p) for p in serve.session_prompts(cfg, args)]
+            fwd = rep["forward_tokens"]
+            grid = [-(-n // chunk) * chunk for n in lens]
+            if share:
+                tail = lens[0] - args.prompt_len
+                for n, g, f, adopted in zip(lens, grid, fwd, rep["adopted"]):
+                    check(f <= tail + chunk if adopted else f == g >= n,
+                          f"{what}: forwarded {fwd} of prompts {lens} "
+                          f"(adopted pages {rep['adopted']})")
+                check(any(rep["adopted"]), f"{what}: no sharer")
+            elif mode in TCONST_MODES:
+                max_len = serve.sessions_max_len(args)
+                check(fwd == [max_len] * len(lens), f"{what}: the bucketed "
+                      f"admissions forwarded {fwd}, not max_len {max_len}")
+            else:
+                check(fwd == grid, f"{what}: forwarded {fwd}, grid {grid}")
+                k4 = cfg.n_layers * sum(g // chunk for g in grid)
+                check(all(rep["launches"][n]["kernel"] == k4
+                          for n in (K4_INTRA, K4_SCAN)), f"{what}: K4 "
+                      f"launches {rep['launches']}, expected {k4} each")
+            if mode in TCONST_MODES and dtype == "bfloat16":
+                rep["logit_max_err"] = summarize(logits_phase(
+                    torch, serve, cfg, args, params, LOGIT_TOL[dtype],
+                    n_prompts=2, chunk=chunk))
+            if share and dtype == "bfloat16":
+                rep["admission_profile"] = admission_profile(
+                    torch, serve, cfg, args, params, chunk)
+            out[key] = rep
+            params = None
+            torch.cuda.empty_cache()
+            rep["phase_s"] = time.time() - t_phase
+    return out
+
+
+def admission_profile(torch, serve, cfg, args, params, chunk) -> dict:
+    """smollm's admissions of its first two session prompts (one system
+    prompt plus a tail each) on a two-slot paged state, the full pool:
+    the one-shot admission of prompt 0, its chunked (cold) admission, and
+    prompt 1's chunked admission into slot 1 with the system prompt's
+    whole pages adopted from slot 0 (tail-only).  Each: tokens forwarded,
+    device launches, device ms and K2's device ms of one warm call
+    (torch.profiler), the wall ms (host clock to a synchronize, median of
+    5 warm calls) and its logits' largest distance from the one-shot
+    admission's."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import layouts as LT
+    from repro_torch.models.api import build_decode
+    dec = build_decode(cfg, serve.layout_spec(args, full_pool=True),
+                       device="cuda")
+    p = dec.prepare_params(params)
+    prompts = serve.session_prompts(cfg, args)[:2]
+    st = dec.init_state(2, serve.sessions_max_len(args))
+    page = st.layout.page
+    n = args.prompt_len // page
+    pt = st.bookkeeping[LT.PAGE_TABLE]
+    pt[1, :n] = pt[0, :n]
+    cases = {
+        "one-shot": (len(prompts[0]), lambda: dec.prefill_into_slot(
+            p, st, 0, prompts[0])[0]),
+        "chunked cold": (-(-len(prompts[0]) // chunk) * chunk,
+                         lambda: dec.prefill_into_slot_chunked(
+                             p, st, 0, prompts[0], chunk=chunk)[0]),
+        "chunked sharing": (None, lambda: dec.prefill_into_slot_chunked(
+            p, st, 1, prompts[1], resident_len=n * page, chunk=chunk)[0]),
+    }
+    ref = cases["one-shot"][1]().float()
+    out = {}
+    for name, (fwd, fn) in cases.items():
+        logits = fn()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        def us(e):
+            return getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0))
+        if fwd is None:
+            start0 = min(n * page, (len(prompts[1]) - 1) // chunk * chunk)
+            fwd = -(-(len(prompts[1]) - start0) // chunk) * chunk
+        out[name] = {"forward_tokens": fwd,
+                     "launches": sum(e.count for e in dev),
+                     "device_ms": sum(us(e) for e in dev) / 1e3,
+                     "k2_ms": sum(us(e) for e in dev
+                                  if "flash" in e.key) / 1e3,
+                     "wall_ms": float(np.median(walls)),
+                     "logits_vs_one_shot": (logits.float() - ref).abs()
+                     .max().item() if name != "chunked sharing" else None}
+        check(bool(torch.isfinite(logits).all()), f"admission profile "
+              f"{name}: non-finite logits")
+    return out
+
+
 def layout_kernels(cfg, layout: str):
     """The kernels a served model launches on ``layout``: an LM's
     (``LAYOUT_KERNELS``), or the TConst core's -- K1 / K1-int8 over the
@@ -1598,7 +1870,43 @@ def window_phase(torch, runtime, serve) -> dict:
                 "logit_max_err": max(e["err"] for e in errs),
                 "codes_adopted": sum(e.get("codes_adopted", 0)
                                      for e in errs)}
+            if name in WINDOW_CHUNK_MODELS:
+                out[f"{name}/{layout}"]["chunked"] = window_chunked(
+                    torch, runtime, serve, cfg, params, argv, kernels,
+                    streams["cuda"])
     return out
+
+
+def window_chunked(torch, runtime, serve, cfg, params, argv, kernels,
+                   one_shot) -> dict:
+    """A window-phase model's run on the card again with ``--prefill-chunk
+    16``: every local layer's window on K2's chunk shape, an MoE model's
+    routing per chunk.  Exactly the layout's kernels launch, no plain
+    version; on the float layouts the streams equal the card's one-shot
+    run's (int8: recorded)."""
+    from repro_torch.models.api import build_model
+    args = serve.parse_args(argv + ["--device", "cuda", "--prefill-chunk",
+                                    str(WINDOW_CHUNK)])
+    runtime.reset_counters()
+    served = serve.serve_sessions(cfg, build_model(cfg, device="cuda"),
+                                  params, args)
+    torch.cuda.synchronize()
+    counts = runtime.read_counters()
+    what = f"windows chunked {cfg.name}/{args.layout}"
+    for n, c in counts.items():
+        check((c["kernel"] > 0) == (n in kernels) and c["plain"] == 0,
+              f"{what}: launches {counts}")
+    sched = served["sched"]
+    grid = [-(-len(p) // WINDOW_CHUNK) * WINDOW_CHUNK
+            for p in served["prompts"]]
+    fwd = [s.forward_tokens for s in sched.admit_stats]
+    check(fwd == grid, f"{what}: forwarded {fwd}, grid {grid}")
+    same = [list(s.tokens) for s in served["sessions"]] == one_shot
+    check(same or "int8" in args.layout, f"{what}: greedy streams differ "
+          f"from the one-shot run's")
+    return {"forward_tokens": fwd, "streams_equal_one_shot": same,
+            "launches": {n: c["kernel"] for n, c in counts.items()
+                         if c["kernel"]}}
 
 
 def adopted_logits(torch, serve, cfg, args, params, tol):
@@ -1889,7 +2197,7 @@ def main() -> int:
     from repro_torch.launch import serve
     cfg41 = get_config("tconst-41m")
     dev = torch.device("cuda")
-    max_len = serve.sessions_max_len(serve.parse_args(SESSIONS_ARGS))
+    max_len = KERNEL_MAX_LEN
 
     # 3. kernels vs plain
     t_phase = time.time()
@@ -1983,7 +2291,32 @@ def main() -> int:
                   f"page waits; chunks watched {rep['cow_watch']}; launches "
                   f"{launched} (plain 0); {phase_s[f'sharing {key}']:.1f}s")
 
-    # 4c. sliding windows through the models: K1 lo > 0, K3 window > 0
+    # 4c. chunked, KV-conditioned admission: tail-only under sharing,
+    # bucketed for the TConst core, K4 from a carried state
+    t_phase = time.time()
+    chunked = chunked_phase(torch, runtime, serve, runs, sharing)
+    phase_s["chunked"] = time.time() - t_phase
+    for key, rep in chunked.items():
+        launched = {n: c["kernel"] for n, c in rep["launches"].items()
+                    if c["kernel"]}
+        print(f"[chunked] {key}: forward tokens per admission "
+              f"{rep['forward_tokens']} (adopted pages "
+              f"{rep.get('adopted', '-')}); launches {launched} (plain 0); "
+              f"streams equal the one-shot run's: "
+              f"{rep.get('streams_equal_ref', 'not held (bf16)')}; "
+              f"logits {rep.get('logit_max_err', 'not checked')}; "
+              f"{rep['phase_s']:.1f}s")
+        if "admission_profile" in rep:
+            for name, a in rep["admission_profile"].items():
+                print(f"[chunked] {key} admission {name}: forward "
+                      f"{a['forward_tokens']} tokens, {a['launches']} device "
+                      f"launches, {a['device_ms']:.3f} device ms (K2 "
+                      f"{a['k2_ms']:.3f}), wall "
+                      f"{a['wall_ms']:.2f} ms; logits vs one-shot "
+                      f"{a['logits_vs_one_shot']}")
+    print(f"[chunked] {phase_s['chunked']:.1f}s")
+
+    # 4d. sliding windows through the models: K1 lo > 0, K3 window > 0
     t_phase = time.time()
     windows = window_phase(torch, runtime, serve)
     phase_s["windows"] = time.time() - t_phase
@@ -1994,6 +2327,11 @@ def main() -> int:
               f"{LOGIT_TOL['float32']}), greedy streams equal the CPU's: "
               f"{v['streams_equal']}; int8 codes adopted from the card: "
               f"{v['codes_adopted']}")
+        if "chunked" in v:
+            c = v["chunked"]
+            print(f"[windows] {k} --prefill-chunk {WINDOW_CHUNK}: forward "
+                  f"{c['forward_tokens']}, launches {c['launches']}, streams "
+                  f"equal the one-shot run's: {c['streams_equal_one_shot']}")
     print(f"[windows] {phase_s['windows']:.1f}s")
 
     # 5. training at full width: the paper's three variants on one init
@@ -2078,12 +2416,27 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    # K2 at a chunked admission's shape (phase 3's chunk rows; launches of
+    # the smollm bf16 run of phase 4c)
+    name, (_, src, repl, _) = K2, KERNELS[K2]
+    chunk_rows_ = [x for x in rows if "_chunk_" in x["case"]]
+    r = next(x for x in chunk_rows_ if x["case"] == "smollm_chunk_960"
+             and x["dtype"] == "bfloat16")
+    line.append({
+        "name": name, "case": "prefill_chunk", "route": "cuda",
+        "source": src, "replaces": repl,
+        "launches": chunked["smollm/paged/bfloat16"]["launches"][K2][
+            "kernel"],
+        "max_abs_err": max(x["max_abs_err"] for x in chunk_rows_),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     detail = {
         "card": card, "kind": kind, "torch": torch.__version__,
         "cuda": torch.version.cuda, "build_s": built,
         "kernel_rows": rows, "sass_tensor_core_ops": sass,
         "launches_per_call": per_call, "sessions": runs,
-        "sharing": sharing, "engines": engines,
+        "sharing": sharing, "chunked": chunked, "windows": windows,
+        "engines": engines,
         "training": training, "grad_check": grads,
         "phase_s": phase_s, "total_s": time.time() - t_start,
     }

@@ -40,9 +40,13 @@ its id and the counters into the cache tensors IN PLACE.  Rows that are
 not ``live`` (inactive or EOS-finished slots) have their writes masked,
 so they come through bit-identical.
 
-Not ported yet: ``prefill_bucketed`` (chunked admission, ROADMAP Queue 1
-item 8) and ``verify_chunk_views`` (ROADMAP Queue 1 item 8, speculative
-decoding).
+:func:`prefill_bucketed` is the TConst form of chunked admission: one
+set of shapes for every prompt length (the prompt padded into the
+``max_len`` token buffer, the window pass at the fixed ``W_og`` width
+with per-row positions).
+
+Not ported yet: ``verify_chunk_views`` (ROADMAP Queue 1 item 8,
+speculative decoding).
 """
 from __future__ import annotations
 
@@ -635,11 +639,50 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     return logits, cache
 
 
-def prefill_bucketed(*args, **kwargs):
-    raise NotImplementedError(
-        "prefill_bucketed (one fixed-shape admission for every prompt "
-        "length, the TConst form of chunked admission) is not ported yet: "
-        "ROADMAP Queue 1 item 8")
+@torch.no_grad()
+def prefill_bucketed(params: Params, tokens: torch.Tensor,
+                     n_valid: torch.Tensor, cfg: ModelConfig,
+                     mode: str = "tconst"
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`prefill` at one set of shapes for every prompt length.
+
+    tokens (B, max_len) int: each row's prompt zero-padded into the whole
+    token buffer (the resync embeds the whole buffer either way, so the
+    padding matches the one-shot token buffer bit for bit); n_valid (B,)
+    int >= 1: the prompts' lengths.  Each row's window part is ``g0 =
+    ((n_valid - 1) % W_og) + 1`` tokens.  The resync is its usual
+    max_len-wide pass; the generation-window pass runs at the fixed
+    ``W_og`` width with per-row positions ``hist_len + arange(W_og)``, so
+    window slots ``[g0, W_og)`` hold padding whose K/V ``gen_len = g0``
+    masks out of every later step (and causality out of this pass).  An
+    MoE FFN routes all ``W_og`` window positions, padding included, as
+    JAX's does.  Returns (logits at each row's position ``g0 - 1``
+    (B, V), cache): the stream of :func:`prefill` up to float
+    association."""
+    _check_mode(mode)
+    tc = cfg.tconst
+    B, max_len = tokens.shape
+    dev = tokens.device
+    n_valid = n_valid.to(device=dev, dtype=torch.int32)
+    g0 = ((n_valid - 1) % tc.w_og) + 1                      # (B,) 1..W_og
+    cache = init_tconst_cache(cfg, B, max_len, mode, device=dev)
+    cache["tokens"].copy_(tokens.to(torch.int32))
+    cache["hist_len"] = n_valid - g0
+    cache = resync(params, cache, cfg, mode)
+
+    win_pos = cache["hist_len"][:, None] + \
+        torch.arange(tc.w_og, dtype=torch.int32, device=dev)[None]
+    win = torch.gather(tokens, 1, win_pos.clamp(0, max_len - 1).long())
+    hg, gk, gv = _prefill_window_pass(params, cache, win, win_pos, cfg,
+                                      mode)
+    hg = rmsnorm(params["final_norm"], hg, cfg.norm_eps)
+    last = torch.gather(hg, 1, (g0 - 1).long()[:, None, None].expand(
+        B, 1, hg.shape[-1]))
+    logits = E.lm_head(params["embed"], last, cfg.logit_softcap)[:, 0]
+    cache["gen_k"].copy_(gk)
+    cache["gen_v"].copy_(gv)
+    cache["gen_len"] = g0
+    return logits, cache
 
 
 def verify_chunk_views(*args, **kwargs):

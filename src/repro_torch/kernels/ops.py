@@ -135,6 +135,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     softcap)
 
 
+def prefill_chunk_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, q_pos: torch.Tensor,
+                            k_pos: torch.Tensor, window: int = 0,
+                            softcap: float = 0.0) -> torch.Tensor:
+    """K2 on one chunk of a chunked admission: the chunk's C queries at
+    positions ``q_pos`` (B, C) = ``[start, start + C)`` against the slot's
+    row cache, causal, with the layer's ``window``.  q (B, C, H, D);
+    k/v (B, S, KV, D) at positions ``k_pos`` (B, S).
+
+    The port's caller passes the row's keys ``[0, start + C)`` (the
+    resident prefix, the earlier chunks and this one), where JAX's passes
+    the whole ``max_len`` row: every key past them lies after every
+    query's position, so it is causally dead and the result is the same;
+    K2 reads only the live keys.  JAX takes masked ``sdpa`` below
+    ``PREFILL_CHUNK_FLASH_ELEMS`` scores and its blocked flash above;
+    the port runs K2 at every size (both compute this function).  No
+    mesh scope: ROADMAP Queue 1 item 12.  Returns (B, C, H, D)."""
+    return flash_attention(q, k, v, q_pos, k_pos, causal=True,
+                           window=window, softcap=softcap)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor, chunk: int,
              init_state: Optional[torch.Tensor] = None

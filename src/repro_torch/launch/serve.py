@@ -52,6 +52,18 @@ before a resync) and print how many pages are shared::
       --prompt-len 32 --layout paged --page-size 16 --prefix-sharing \\
       --chunk 4
 
+``--prefill-chunk N`` (with ``--sessions``; on a paged layout a multiple
+of ``--page-size``) admits each prompt in fixed chunks of N tokens that
+attend the KV already in the slot: with ``--prefix-sharing`` a sharing
+admission forwards its unshared tail only, and every admission has the
+chunk's shape (the TConst family buckets its admission at ``max_len``
+instead).  It prints the tokens each admission forwarded::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
+      --reduced --device cpu --sessions 4 --slots 4 --gen 16 \\
+      --prompt-len 64 --layout paged --page-size 16 --prefix-sharing \\
+      --prefill-chunk 16
+
 ``--layout dense|int8|paged|paged_int8`` picks the cache layout
 (``--page-size``, ``--pool-pages``: a pool below ``slots x pages_per_slot``
 needs ``--sessions``, whose scheduler allocates pages).  The tconst
@@ -83,7 +95,6 @@ from repro_torch.serving.session import Session
 _FEATURES = "ROADMAP Queue 1 item 8 (serving features)"
 # flag dest -> (default, where it is ported)
 UNPORTED = {
-    "prefill_chunk": (0, _FEATURES + ": chunked admission"),
     "spill_capacity_mb": (0.0, _FEATURES + ": session tiering"),
     "spill_dir": ("", _FEATURES + ": session tiering"),
     "workload": ("", _FEATURES + ": workload, telemetry and policies"),
@@ -148,6 +159,19 @@ def validate_layout_args(ap, args, max_len: int) -> None:
         if args.layout not in ("paged", "paged_int8"):
             ap.error(f"--prefix-sharing shares pool pages; --layout "
                      f"{args.layout} has none (use paged or paged_int8)")
+    if args.prefill_chunk < 0:
+        ap.error(f"--prefill-chunk {args.prefill_chunk} must be positive (0 "
+                 f"disables chunked admission)")
+    if args.prefill_chunk:
+        if not args.sessions:
+            ap.error("--prefill-chunk shapes admissions; the uniform batch "
+                     "has no admission path (its prefill is one piece "
+                     "already): add --sessions N")
+        if args.layout in ("paged", "paged_int8") and \
+                args.prefill_chunk % args.page_size != 0:
+            ap.error(f"--prefill-chunk {args.prefill_chunk} must be a "
+                     f"multiple of --page-size {args.page_size}: "
+                     f"chunk-granular page writes cover whole pages")
     if args.layout not in ("paged", "paged_int8") or not args.pool_pages:
         return                       # full pool: always valid, no allocator
     if args.page_size < 1 or args.pool_pages < 0:
@@ -201,7 +225,8 @@ def serve_sessions(cfg, api, params, args) -> Dict[str, Any]:
     scheduler's own path."""
     prompts = session_prompts(cfg, args)
     paged_layout_note(cfg, args)
-    decode = build_decode(cfg, layout_spec(args), device=api.device)
+    decode = build_decode(cfg, layout_spec(args), device=api.device,
+                          prefill_chunk=args.prefill_chunk or None)
     sched = SlotScheduler(decode, params, slots=args.slots,
                           max_len=sessions_max_len(args),
                           chunk_size=args.chunk, seed=args.seed,
@@ -247,6 +272,14 @@ def serve_sessions(cfg, api, params, args) -> Dict[str, Any]:
     if admits:
         print(f"[serve] admissions: n={len(sched.admit_stats)} "
               f"warm median={np.median(admits) * 1e3:.2f}ms")
+    if sched.prefill_chunk:
+        tagged = sum(1 for s in sched.admit_stats if s.compiled)
+        fwd = [s.forward_tokens for s in sched.admit_stats]
+        print(f"[serve] chunked prefill (chunk={sched.prefill_chunk}): "
+              f"forward tokens per admission {fwd} (prompt lengths "
+              f"{[len(p) for p in prompts]}); {tagged} compile-tagged "
+              f"admission(s) across {len(set(len(p) for p in prompts))} "
+              f"distinct lengths")
     print(f"[serve] KV-cache bytes ({args.slots} slots, "
           f"{sched.layout.name} layout): {sched.kv_bytes()}")
     if sched._paged:
@@ -391,9 +424,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="pages in the shared pool (paged layouts; 0: the "
                          "full slots x pages_per_slot pool; fewer needs "
                          "--sessions)")
+    ap.add_argument("--prefix-sharing", action="store_true",
+                    help="refcounted page sharing of a common system "
+                         "prompt, copy-on-write (sessions mode, paged "
+                         "layouts)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked, KV-conditioned admission (sessions "
+                         "mode): prompts in chunks of N tokens (paged "
+                         "layouts: a multiple of the page size); with "
+                         "prefix sharing a sharing admission forwards its "
+                         "unshared tail only; 0: one-shot")
     # features of the JAX launcher that are not ported yet
-    ap.add_argument("--prefix-sharing", action="store_true")
-    ap.add_argument("--prefill-chunk", type=int, default=0)
     ap.add_argument("--spill-capacity-mb", type=float, default=0.0)
     ap.add_argument("--spill-dir", default="")
     ap.add_argument("--workload", default="",

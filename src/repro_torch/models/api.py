@@ -8,8 +8,9 @@ tlin modes) and the decoder-only LM's SSM family, dense attention LMs
 physical layout from :mod:`repro_torch.models.layouts`, slot surgery
 through the layout), per-slot sampling, the :class:`DecodeAPI` protocol,
 :func:`decode_chunk`, :class:`TConstDecode`, :class:`DenseDecode` (a
-growing KV cache or an O(1) recurrent state, no periodic resync),
-``build_decode`` and ``build_model``; and the training side of the
+growing KV cache or an O(1) recurrent state, no periodic resync), the
+chunked, KV-conditioned admission (:class:`ChunkedAdmission`; the TConst
+family's bucketed form), ``build_decode`` and ``build_model``; and the training side of the
 facade: ``cross_entropy``, ``ModelAPI.forward`` and ``ModelAPI.loss``.
 The hit step reads the cache through KVViews
 (``DecodeState.decode_views``); ``merged`` (the dense logical dict) is
@@ -145,15 +146,17 @@ class DecodeState:
         return LT.assigned_kv_bytes(self.kv_views())
 
     def with_slot(self, slot: int, row: "DecodeState",
-                  page_write_mask: Optional[torch.Tensor] = None
-                  ) -> "DecodeState":
+                  page_write_mask: Optional[torch.Tensor] = None,
+                  exclude: Tuple[str, ...] = ()) -> "DecodeState":
         """Write a single-row state (batch size 1) into slot ``slot``, IN
         PLACE; returns self.  Bookkeeping is a per-field row write; kv
         goes through the layout (paged: only the slot's own pages).
         ``page_write_mask`` (pages_per_slot,) bool restricts the paged
         write to the unshared tail of the slot's table row: a page whose
         content is already resident (prefix sharing, refcount > 1) is
-        mapped, never rewritten."""
+        mapped, never rewritten.  ``exclude`` skips kv fields by base
+        name: the chunked admission has streamed its length-axis KV in
+        through :meth:`write_span` and finalises with the rest."""
         for name, val in row.bookkeeping.items():
             if name.startswith(LT.LAYOUT_BK_PREFIX):
                 continue
@@ -161,9 +164,32 @@ class DecodeState:
             self.bookkeeping[name].select(ax, slot).copy_(val.select(ax, 0))
         dense_row = row.layout.unpack(row.kv, row.bookkeeping, row.axes)
         self.layout.write_slot(self.kv, self.bookkeeping, slot, dense_row,
-                               self.axes, page_mask=page_write_mask)
+                               self.axes, page_mask=page_write_mask,
+                               exclude=exclude)
         for name, val in row.host.items():
             self.host[name][slot] = val[0]
+        return self
+
+    def read_slot(self, slot: int) -> Dict[str, torch.Tensor]:
+        """Dense logical kv row (batch size 1) of slot ``slot``, read
+        through the layout (paged: through the slot's own table row,
+        adopted prefix-shared pages included; int8: dequantized).  The
+        chunked admission seeds its row cache from it, so tail chunks
+        attend the resident KV.  Admission path only."""
+        return self.layout.read_slot(self.kv, self.bookkeeping, self.axes,
+                                     slot)
+
+    def write_span(self, slot: int, fields: Dict[str, torch.Tensor],
+                   length_axes: Dict[str, int], start: int,
+                   min_page: Optional[int] = None) -> "DecodeState":
+        """Chunk-granular slot write, IN PLACE: positions ``[start, start
+        + C)`` of the length-axis ``fields`` (dense logical, batch 1) go
+        into the slot through the layout (paged: exactly the covered
+        pages of its table row, those below ``min_page`` -- adopted
+        shared pages -- sent to TRASH; int8: quantized on write)."""
+        self.layout.write_span(self.kv, self.bookkeeping, slot, fields,
+                               length_axes, self.axes, start,
+                               min_page=min_page)
         return self
 
     def where_rows(self, rows: torch.Tensor, other: "DecodeState"
@@ -247,6 +273,17 @@ class DecodeAPI(Protocol):
     def sync_anticipated(self, state: DecodeState, n_steps: int
                          ) -> np.ndarray: ...
 
+    def supports_chunked_prefill(self) -> bool: ...
+
+    def chunked_prefill_fits(self, prompt_len: int, resident_len: int,
+                             chunk: int, max_len: int) -> bool: ...
+
+    def prefill_into_slot_chunked(
+            self, params, state: DecodeState, slot: int, tokens: Any,
+            page_write_mask: Optional[torch.Tensor] = None,
+            resident_len: int = 0, chunk: int = 32
+    ) -> Tuple[torch.Tensor, DecodeState, Dict[str, int]]: ...
+
 
 def decode_chunk(decode: DecodeAPI, params: Any, state: DecodeState,
                  token: torch.Tensor,
@@ -309,6 +346,133 @@ def _check_prefill_layout(layout: Any, cache: Dict[str, torch.Tensor]
 
 
 # ---------------------------------------------------------------------------
+# Chunked, KV-conditioned admission (the generic chunk loop)
+# ---------------------------------------------------------------------------
+
+
+class ChunkedAdmission:
+    """The generic chunked-admission loop (JAX's ``DecodeAPI``
+    defaults), mixed into a decode dataclass that defines the hooks
+    ``_LENGTH_AXES``, ``_state_max_len``, ``_chunk_seed_row``,
+    ``_chunk_fn`` and ``_wrap``.  :class:`TConstDecode` overrides the
+    loop itself with the bucketed admission."""
+
+    def supports_chunked_prefill(self) -> bool:
+        """True when this family can admit through
+        :meth:`prefill_into_slot_chunked`."""
+        return True
+
+    def _chunk_resident_start(self, resident_len: int) -> int:
+        """Where the chunk loop may start given a resident shared prefix:
+        after the adopted pages (tail-only compute).  A family carrying
+        recurrent state overrides it: that state is a function of the
+        whole prompt and cannot be rebuilt from adopted KV."""
+        return resident_len
+
+    def chunked_prefill_fits(self, prompt_len: int, resident_len: int,
+                             chunk: int, max_len: int) -> bool:
+        """True when the chunk grid over this prompt stays inside the
+        ``max_len`` buffers.  The last chunk's padding runs up to
+        ``chunk - 1`` positions past the prompt (overwritten by decode
+        appends, masked meanwhile), but never past ``max_len``.  For the
+        rare prompt this excludes, the scheduler admits in one shot."""
+        start0 = min(self._chunk_resident_start(resident_len),
+                     (prompt_len - 1) // chunk * chunk)
+        n_chunks = -(-(prompt_len - start0) // chunk)
+        return start0 + n_chunks * chunk <= max_len
+
+    def prefill_into_slot_chunked(
+            self, params, state: DecodeState, slot: int, tokens: Any,
+            page_write_mask: Optional[torch.Tensor] = None,
+            resident_len: int = 0, chunk: int = 32
+    ) -> Tuple[torch.Tensor, DecodeState, Dict[str, int]]:
+        """Chunked, KV-conditioned admission of prompt ``tokens`` (L,)
+        into ``slot``, IN PLACE: the prompt runs in fixed chunks of
+        ``chunk`` tokens, each attending the KV already in the slot's row
+        cache -- earlier chunks and, when ``resident_len > 0``, the
+        prefix-shared pages the scheduler adopted into the slot's table
+        row -- so the forward covers the unshared tail only, and every
+        chunk has one shape whatever the prompt's length.
+
+        Seed a batch-1 row cache, copy the resident prefix into it from
+        the slot (``read_slot``), then per chunk: the forward
+        (``_chunk_fn``) and the chunk's length-axis KV into the slot
+        (``write_span``); then the bookkeeping and the other state
+        (``_chunk_finalize``).  ``resident_len`` is page-aligned (adopted
+        pages x page size).  When it covers the whole prompt the last
+        chunk is still forwarded, for the admission's logits, and its
+        writes to adopted pages go to TRASH (``min_page``), as every
+        write below ``resident_len`` does.  ``page_write_mask`` is not
+        needed: ``min_page`` protects the same pages.  Returns (logits
+        (V,), state, {"forward_tokens": positions forwarded, padded to
+        the chunk grid, "chunks": chunks run})."""
+        del page_write_mask
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        L = int(tokens.shape[0])
+        if L < 1:
+            raise ValueError("cannot admit an empty prompt")
+        chunk = int(chunk)
+        # one chunk is forwarded for the admission logits even when the
+        # page-aligned resident prefix covers the whole prompt
+        start0 = min(self._chunk_resident_start(resident_len),
+                     (L - 1) // chunk * chunk)
+        n_chunks = -(-(L - start0) // chunk)
+        buf = np.zeros((1, n_chunks * chunk), np.int32)
+        buf[0, :L - start0] = tokens[start0:]
+        buf = torch.as_tensor(buf, device=self.device)
+        row = self._chunk_seed_row(self._state_max_len(state))
+        min_page = None
+        if resident_len > 0 and isinstance(state.layout, LT.PagedLayout):
+            min_page = resident_len // state.layout.page
+        if start0 > 0:
+            row = self._chunk_gather_resident(state, slot, row,
+                                              resident_len)
+        for j in range(n_chunks):
+            start = start0 + j * chunk
+            last = j == n_chunks - 1
+            logits, row, chunk_kv = self._chunk_fn(
+                params, row, buf[:, j * chunk:(j + 1) * chunk], start, L,
+                logits_at=(L - 1) - start if last else None)
+            if chunk_kv:
+                state = self._chunk_span_write(state, slot, chunk_kv, start,
+                                               min_page)
+        state = self._chunk_finalize(state, slot, row, L)
+        return logits[0], state, {"forward_tokens": n_chunks * chunk,
+                                  "chunks": n_chunks}
+
+    def _chunk_gather_resident(self, state: DecodeState, slot: int,
+                               row: Dict[str, torch.Tensor],
+                               resident_len: int
+                               ) -> Dict[str, torch.Tensor]:
+        """Copy positions ``[0, resident_len)`` of the slot's resident KV
+        (adopted prefix-shared pages included, read through the layout)
+        into the row cache, IN PLACE, so tail chunks attend them."""
+        dense = state.read_slot(slot)
+        for f, la in self._LENGTH_AXES.items():
+            if f in row:
+                row[f].narrow(la, 0, resident_len).copy_(
+                    dense[f].narrow(la, 0, resident_len))
+        return row
+
+    def _chunk_span_write(self, state: DecodeState, slot: int,
+                          chunk_kv: Dict[str, torch.Tensor], start: int,
+                          min_page: Optional[int]) -> DecodeState:
+        return state.write_span(slot, chunk_kv, self._LENGTH_AXES, start,
+                                min_page=min_page)
+
+    def _chunk_finalize(self, state: DecodeState, slot: int,
+                        row: Dict[str, torch.Tensor], n_valid: int
+                        ) -> DecodeState:
+        """Write the row's bookkeeping and its kv without a length axis
+        (the recurrent state); the length-axis KV went in chunk by
+        chunk."""
+        row["len"].fill_(n_valid)
+        row["done"].fill_(False)
+        return state.with_slot(slot, self._wrap(row),
+                               exclude=tuple(self._LENGTH_AXES))
+
+
+# ---------------------------------------------------------------------------
 # TConstDecode
 # ---------------------------------------------------------------------------
 
@@ -329,6 +493,8 @@ class TConstDecode:
     cfg: ModelConfig
     device: torch.device
     layout: LT.LayoutSpec = LT.DENSE_SPEC
+    # the scheduler's default chunk of chunked admission (None: one-shot)
+    prefill_chunk: Optional[int] = None
 
     def __post_init__(self):
         TC._check_mode(self.cfg.attention_mode)
@@ -399,6 +565,46 @@ class TConstDecode:
             params, np.asarray(tokens, np.int32).reshape(1, -1), max_len)
         return logits[0], state.with_slot(slot, self._wrap(cache, [g0]),
                                           page_write_mask=page_write_mask)
+
+    # chunked admission: the TConst prefill is a resync (one max_len-wide
+    # pass already) plus a generation-window pass, so chunking it means
+    # BUCKETING: the prompt padded into the token buffer, the window pass
+    # padded to W_og -- one set of shapes for every prompt length.  The
+    # forward is not tail-only: the paper's resync rebuilds the compressed
+    # context from the whole history by construction.
+    def supports_chunked_prefill(self) -> bool:
+        return True
+
+    def chunked_prefill_fits(self, prompt_len: int, resident_len: int,
+                             chunk: int, max_len: int) -> bool:
+        """One max_len-wide admission: it always fits."""
+        return True
+
+    def prefill_into_slot_chunked(
+            self, params, state: DecodeState, slot: int, tokens: Any,
+            page_write_mask: Optional[torch.Tensor] = None,
+            resident_len: int = 0, chunk: int = 32
+    ) -> Tuple[torch.Tensor, DecodeState, Dict[str, int]]:
+        """The bucketed admission (:func:`~repro_torch.core.tconst.
+        prefill_bucketed`): the prompt zero-padded into a (1, max_len)
+        buffer, written into ``slot`` as :meth:`prefill_into_slot` writes
+        its row.  ``resident_len`` and ``chunk`` do not apply (see the
+        comment above).  Returns (logits (V,), state, {"forward_tokens":
+        max_len, "chunks": 1})."""
+        del resident_len, chunk
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        L = int(tokens.shape[0])
+        max_len = state.bookkeeping["tokens"].shape[1]
+        buf = np.zeros((1, max_len), np.int32)
+        buf[0, :L] = tokens
+        logits, cache = TC.prefill_bucketed(
+            params, torch.as_tensor(buf, device=self.device),
+            torch.full((1,), L, dtype=torch.int32, device=self.device),
+            self.cfg, mode=self.mode)
+        g0 = ((L - 1) % self.cfg.tconst.w_og) + 1
+        state = state.with_slot(slot, self._wrap(cache, [g0]),
+                                page_write_mask=page_write_mask)
+        return logits[0], state, {"forward_tokens": max_len, "chunks": 1}
 
     def stable_prefix_len(self, prompt_len: int) -> int:
         """The prompt prefix whose paged KV admission writes and which is
@@ -521,7 +727,7 @@ class TConstDecode:
 
 
 @dataclasses.dataclass(frozen=True)
-class DenseDecode:
+class DenseDecode(ChunkedAdmission):
     """Decoder-only LM family, served through the same protocol, with no
     periodic sync.  Ported so far: the dense attention LMs and the MoE
     family (mixtral, deepseek), whose cache is a growing K/V buffer (``k``
@@ -537,6 +743,10 @@ class DenseDecode:
     cfg: ModelConfig
     device: torch.device
     layout: LT.LayoutSpec = LT.DENSE_SPEC
+    # the scheduler's default chunk of chunked admission (None: one-shot)
+    prefill_chunk: Optional[int] = None
+
+    _LENGTH_AXES = LM.LENGTH_AXES
 
     def __post_init__(self):
         LM.check_family(self.cfg)
@@ -634,6 +844,28 @@ class DenseDecode:
     def refresh_host(self, state: DecodeState) -> None:
         """No host mirror to re-align."""
 
+    # chunked admission: the hooks of the generic chunk loop
+    def _chunk_resident_start(self, resident_len: int) -> int:
+        """The ssm / conv state is a function of the whole prompt, not of
+        adopted KV: an SSM row forwards from position 0 (its adopted
+        pages would still save writes; the SSM state has none)."""
+        if self.cfg.arch_type == "ssm":
+            return 0
+        return resident_len
+
+    def _state_max_len(self, state: DecodeState) -> int:
+        return self._max_len(state, 0)
+
+    def _chunk_seed_row(self, max_len: int) -> Dict[str, torch.Tensor]:
+        """A fresh dense batch-1 row cache."""
+        return LM.init_kv_cache(self.cfg, 1, max_len, device=self.device)
+
+    def _chunk_fn(self, params, row: Dict[str, torch.Tensor],
+                  tokens: torch.Tensor, start: int, n_valid: int,
+                  logits_at: Optional[int] = None):
+        return LM.lm_prefill_chunk(params, row, tokens, start, n_valid,
+                                   self.cfg, logits_at=logits_at)
+
     def supports_speculative(self) -> bool:
         """False for SSM (speculative decoding itself is ROADMAP Queue 1
         item 8): the recurrent ssm/conv state advances through verified-
@@ -643,18 +875,24 @@ class DenseDecode:
 
 
 def build_decode(cfg: ModelConfig, layout: Any = None,
-                 device: Any = None) -> DecodeAPI:
+                 device: Any = None, prefill_chunk: Optional[int] = None
+                 ) -> DecodeAPI:
     """The decode protocol for ``cfg`` on ``device`` (default ``cuda``)
     with cache layout ``layout`` ("dense" | "paged" | "int8" |
-    "paged_int8" | LayoutSpec | None).  Ported: the TConst family
-    (tconst and tlin modes), the SSM family, the dense attention LMs (a
-    TConst config in ``full`` or ``sliding`` mode among them) and the MoE
-    family."""
+    "paged_int8" | LayoutSpec | None).  ``prefill_chunk`` is the default
+    chunk of chunked admission (None: one-shot), which the scheduler
+    reads unless given its own.  Ported: the TConst family (tconst and
+    tlin modes), the SSM family, the dense attention LMs (a TConst config
+    in ``full`` or ``sliding`` mode among them) and the MoE family."""
     spec = LT.as_spec(layout)
+    if prefill_chunk is not None and prefill_chunk < 1:
+        raise ValueError("prefill_chunk must be positive (or None for "
+                         "one-shot admission)")
+    dev = runtime.resolve_device(device)
     if _is_tconst(cfg):
-        return TConstDecode(cfg, runtime.resolve_device(device), spec)
+        return TConstDecode(cfg, dev, spec, prefill_chunk)
     # DenseDecode raises for the families not ported yet
-    return DenseDecode(cfg, runtime.resolve_device(device), spec)
+    return DenseDecode(cfg, dev, spec, prefill_chunk)
 
 
 @dataclasses.dataclass

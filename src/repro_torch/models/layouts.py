@@ -27,21 +27,25 @@ Layouts:
 
 Writes go IN PLACE (the port's dense decode path already updates its
 cache in place): ``write_token``, ``scatter_rows``, ``set_layer``,
-``write_slot``, ``scatter_pages`` and ``fork_pages`` mutate the physical
-tensors the views alias and return the view (or the kv dict) for
-symmetry with the JAX functions, which return new arrays.  ``pack`` /
-``unpack`` / ``dense`` / ``read_slot`` / ``gather_pages`` build new
-tensors.
+``write_slot``, ``write_span``, ``scatter_pages`` and ``fork_pages``
+mutate the physical tensors the views alias and return the view (or the
+kv dict) for symmetry with the JAX functions, which return new arrays.
+``pack`` / ``unpack`` / ``dense`` / ``read_slot`` / ``gather_pages``
+build new tensors.
 
 Prefix sharing: two page-table rows may name one pool page.  Such a page
 keeps its bytes: admission masks it out of ``write_slot``
-(``page_mask``), the scheduler forks it (``fork_pages``) before a resync
-could rewrite it, and a masked write puts back, in rows that do not
-write, the values it read.
+(``page_mask``) and out of ``write_span`` (``min_page``), the scheduler
+forks it (``fork_pages``) before a resync could rewrite it, and a masked
+write puts back, in rows that do not write, the values it read.
 
-Not ported yet (ROADMAP Queue 1 item 8, serving features): ``write_span``
-and ``snapshot_slot`` / ``restore_slot`` -- chunked prefill and session
-tiering.
+Chunked admission streams a prompt's length-axis KV into a slot one
+chunk at a time (``write_span``: positional on dense and int8, whole
+pages of the slot's table on the paged layouts) after seeding its row
+cache from the slot (``read_slot``).
+
+Not ported yet (ROADMAP Queue 1 item 8, serving features):
+``snapshot_slot`` / ``restore_slot`` -- session tiering.
 """
 from __future__ import annotations
 
@@ -488,16 +492,50 @@ class DenseLayout:
 
     def write_slot(self, kv: Dict[str, Any], bk: Dict[str, Any], slot: int,
                    dense_row: Dict[str, Any], axes: Dict[str, int],
-                   page_mask: Optional[torch.Tensor] = None
-                   ) -> Dict[str, Any]:
+                   page_mask: Optional[torch.Tensor] = None,
+                   exclude: Tuple[str, ...] = ()) -> Dict[str, Any]:
         """Scatter a 1-slot dense row into physical slot ``slot``, IN
         PLACE.  Returns ``kv``.  ``page_mask`` is a paged-layout concern
         (tail-only admission under prefix sharing), ignored here: these
-        slots are owned by one row each."""
+        slots are owned by one row each.  Fields whose base name is in
+        ``exclude`` are not written (chunked admission has streamed them
+        in through :meth:`write_span`)."""
         packed = self.pack(dense_row, bk, axes)
         for f, dst in kv.items():
+            if _base_name(f) in exclude:
+                continue
             ax = self._axis(f, axes)
             dst.select(ax, slot).copy_(packed[f].select(ax, 0))
+        return kv
+
+    def read_slot(self, kv: Dict[str, Any], bk: Dict[str, Any],
+                  axes: Dict[str, int], slot: int) -> Dict[str, Any]:
+        """Dense logical row (batch size 1) of slot ``slot`` (int8:
+        dequantized), as new tensors.  Admission path only: the chunked
+        admission seeds its row cache from it."""
+        row = {f: v.narrow(self._axis(f, axes), slot, 1).clone()
+               for f, v in kv.items()}
+        return self.unpack(row, bk, axes)
+
+    def write_span(self, kv: Dict[str, Any], bk: Dict[str, Any], slot: int,
+                   fields: Dict[str, Any], length_axes: Dict[str, int],
+                   axes: Dict[str, int], start: int,
+                   min_page: Optional[int] = None) -> Dict[str, Any]:
+        """Write one prefill chunk's positions ``[start, start + C)`` of
+        the length-axis ``fields`` (dense logical, batch size 1) into slot
+        ``slot``, IN PLACE: a positional write (quantizing layouts
+        quantize the chunk on write).  ``min_page`` applies to the paged
+        layouts only.  Where JAX's ``dynamic_update_slice`` would clamp a
+        span past the buffer's end onto earlier positions, this raises;
+        the scheduler never asks for one (``chunked_prefill_fits``).
+        Returns ``kv``."""
+        for f, v in self.pack(fields, bk, axes).items():
+            if f not in kv:
+                continue
+            dst = kv[f]
+            la = length_axes[_base_name(f)]
+            dst.narrow(self._axis(f, axes), slot, 1).narrow(
+                la, start, v.shape[la]).copy_(v.to(dst.dtype))
         return kv
 
 
@@ -704,20 +742,24 @@ class PagedLayout(DenseLayout):
                 out[f] = where_rows(page_rows, new_kv[f], old_kv[f], la - 1)
         return out
 
-    def write_slot(self, kv, bk, slot, dense_row, axes, page_mask=None):
+    def write_slot(self, kv, bk, slot, dense_row, axes, page_mask=None,
+                   exclude=()):
         """Page-map surgery, IN PLACE: only the slot's own pages (its
         table row) are written; entries at TRASH take dead writes.
         ``page_mask`` (pps,) bool selects which of the row's entries are
         written: the others are sent to TRASH, so a prefix-shared page
         (already resident, refcount > 1) is never written by admission.
         Several entries at TRASH in one indexed write land in no fixed
-        order; TRASH is never read as valid."""
+        order; TRASH is never read as valid.  ``exclude`` skips fields by
+        base name (chunked admission: its spans are written already)."""
         pt_row = bk[PAGE_TABLE][slot].long()                  # (pps,)
         if page_mask is not None:
             pt_row = torch.where(page_mask.to(pt_row.device), pt_row,
                                  torch.full_like(pt_row, self.trash))
         packed = self._quant_pack(dense_row)
         for f, dst in kv.items():
+            if _base_name(f) in exclude:
+                continue
             la = self._length_axis(f)
             src = packed[f].to(dst.dtype)
             if la is None:
@@ -751,6 +793,44 @@ class PagedLayout(DenseLayout):
             elif not f.endswith("__scale"):
                 out[f] = v
         return out
+
+    def write_span(self, kv, bk, slot, fields, length_axes, axes, start,
+                   min_page=None):
+        """The chunk-granular page write, IN PLACE: a chunk covering
+        positions ``[start, start + C)`` -- ``start`` page-aligned, ``C``
+        a multiple of the page, so exactly ``C // page`` whole pages of
+        the slot's table row -- is scattered onto those pool pages (int8
+        pools quantize on write, their scale pools alongside).  Table
+        entries below ``min_page`` (pages adopted from the prefix map,
+        refcount > 1) are sent to TRASH: a chunk that recomputes part of
+        a resident prefix never writes it.  Returns ``kv``."""
+        assert start % self.page == 0, (start, self.page,
+                                        "spans start on a page boundary")
+        pt_row = bk[PAGE_TABLE][slot].long()                  # (pps,)
+        first = start // self.page
+        for f, v in self._quant_pack(fields).items():
+            if f not in kv:
+                continue
+            dst = kv[f]
+            la = self._length_axis(f)
+            assert la is not None, (f, "write_span takes length-axis fields")
+            C = v.shape[la]
+            assert C % self.page == 0, (f, C, self.page,
+                                        "a span covers whole pages")
+            m = C // self.page
+            assert first + m <= pt_row.shape[0], (start, C, "past max_len")
+            pages = pt_row[first:first + m]
+            if min_page is not None:
+                adopted = torch.arange(first, first + m,
+                                       device=pages.device) < min_page
+                pages = torch.where(adopted, torch.full_like(pages,
+                                                             self.trash),
+                                    pages)
+            vv = v.to(dst.dtype).select(la - 1, 0)
+            vv = vv.reshape(vv.shape[:la - 1] + (m, self.page)
+                            + vv.shape[la:])
+            dst[(slice(None),) * (la - 1) + (pages.to(dst.device),)] = vv
+        return kv
 
     def page_axis(self, field: str) -> Optional[int]:
         """The pool's page axis of physical field ``field`` (None when it

@@ -40,13 +40,19 @@ or not, as JAX's decode step does: a row that is not live still takes
 expert capacity, so once capacity binds a row's output depends on its
 batch (GShard semantics).
 
-Not ported: ``lm_prefill_chunk`` and ``lm_verify_chunk_views`` come with
-their callers in ROADMAP Queue 1 item 8; the hybrid (hymba) and VLM
-(qwen2-vl) families are item 9.
+:func:`lm_prefill_chunk` is one fixed-shape chunk of the chunked,
+KV-conditioned admission (``models/api.py``): the chunk's queries attend
+the batch-1 row cache's resident positions and the chunk itself (K2 at
+the chunk's shape), and an SSM layer's mixer runs from the carried
+``ssm`` / ``conv`` state (K4 from an initial state).
+
+Not ported: ``lm_verify_chunk_views`` comes with its caller (speculative
+decoding, ROADMAP Queue 1 item 8); the hybrid (hymba) and VLM (qwen2-vl)
+families are item 9.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -429,3 +435,84 @@ def lm_prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     logits = E.lm_head(params["embed"], x[:, -1:], cfg.logit_softcap)[:, 0]
     cache["len"].fill_(L)
     return logits, cache
+
+
+@torch.no_grad()
+def lm_prefill_chunk(params: Params, row: Dict[str, torch.Tensor],
+                     tokens: torch.Tensor, start: int, n_valid: int,
+                     cfg: ModelConfig,
+                     logits_at: Union[int, slice, None] = slice(None)
+                     ) -> Tuple[Optional[torch.Tensor],
+                                Dict[str, torch.Tensor],
+                                Dict[str, torch.Tensor]]:
+    """One fixed-shape chunk of the chunked (KV-conditioned) prefill.
+
+    ``row`` is the dense batch-1 row cache (:func:`init_kv_cache`):
+    ``k`` / ``v`` (and DeepSeek's ``dense_k`` / ``dense_v``) with
+    positions ``[0, start)`` written -- the resident prefix copied from
+    adopted pages and every earlier chunk -- or the ``ssm`` / ``conv``
+    state advanced to ``start``.  The chunk's C queries, at their true
+    positions ``[start, start + C)``, attend those positions and the
+    chunk itself (K2, causal, the layer's window), so the result is the
+    one-shot :func:`lm_prefill`'s up to float association.  The chunk's
+    K/V is written into the row IN PLACE and also returned per
+    length-axis field for the slot's ``write_span``; an SSM layer's new
+    state replaces the row's.
+
+    tokens (B, C) int, zero-padded after the prompt: padded positions lie
+    after every real query, past ``len`` afterwards, and ``n_valid`` (the
+    whole prompt's length) keeps them out of the ssm / conv state.  The
+    MoE FFN routes the whole padded chunk, as JAX's does.  ``logits_at``
+    picks the LM head's positions: a slice (default: all, JAX's return,
+    (B, C, V)), one index i ((B, V): the admission reads one position) or
+    None (no head).  Returns (logits, row, chunk_kv {field: (layers, B,
+    C, KV, hd)}, empty for the SSM family)."""
+    check_family(cfg)
+    B, C = tokens.shape
+    dev = tokens.device
+    eps = cfg.norm_eps
+    x = embed_inputs(params, tokens, cfg)
+    chunk_kv: Dict[str, torch.Tensor] = {}
+    if _has_attention(cfg):
+        pos = (start + torch.arange(C, dtype=torch.int32, device=dev)
+               )[None].expand(B, C)
+        cos, sin = _rope(pos, cfg)
+        live = start + C
+        kpos = torch.arange(live, dtype=torch.int32, device=dev)[None].expand(
+            B, live)
+        for layer, window, moe, prefix, i in _attn_layers(params, cfg):
+            xn = rmsnorm(layer["ln1"], x, eps)
+            q, k, v = A.qkv_proj(layer["attn"], xn, xn, xn.dtype)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+            k_row, v_row = row[prefix + "k"][i], row[prefix + "v"][i]
+            k_row[:, start:live] = k
+            v_row[:, start:live] = v
+            # keys [0, start + C): the later ones are causally dead
+            o = ops.prefill_chunk_attention(q, k_row[:, :live],
+                                            v_row[:, :live], pos, kpos,
+                                            window, cfg.logit_softcap)
+            x = x + A.out_proj(layer["attn"], o, xn.dtype)
+            f, _ = _ffn(layer, rmsnorm(layer["ln2"], x, eps), cfg, moe)
+            x = x + f
+        for f in LENGTH_AXES:
+            if f in row:
+                chunk_kv[f] = row[f][:, :, start:live]
+    else:
+        # real tokens in this chunk (the last one is zero-padded)
+        vl = torch.full((B,), min(max(n_valid - start, 0), C),
+                        dtype=torch.int32, device=dev)
+        for i, layer in enumerate(params["layers"]):
+            st = {"ssm": row["ssm"][i], "conv": row["conv"][i]}
+            out, st = S.ssm_mixer(layer["ssm"], rmsnorm(layer["ln1"], x, eps),
+                                  cfg, state=st, valid_len=vl)
+            row["ssm"][i] = st["ssm"]
+            row["conv"][i] = st["conv"].to(row["conv"].dtype)
+            x = x + out
+    if logits_at is None:
+        return None, row, chunk_kv
+    x = rmsnorm(params["final_norm"], x, eps)
+    one = isinstance(logits_at, int)
+    sel = x[:, logits_at:logits_at + 1] if one else x[:, logits_at]
+    logits = E.lm_head(params["embed"], sel, cfg.logit_softcap)
+    return (logits[:, 0] if one else logits), row, chunk_kv

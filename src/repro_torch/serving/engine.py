@@ -33,6 +33,10 @@ class StepStats:
     # True for the first dispatch of each (kind, signature): its time
     # includes one-time warm-up (the kernels' build and load on first use).
     compiled: bool = False
+    # "admit" entries: the prompt positions the admission forwarded (a
+    # chunked admission: the unshared tail padded to the chunk grid; the
+    # bucketed TConst one: max_len; one-shot: the whole prompt)
+    forward_tokens: Optional[int] = None
 
 
 def tag_compiled(warm: set, kind: str, sig: Any = None) -> bool:
@@ -52,10 +56,15 @@ def device_sync(device: torch.device) -> None:
 class Engine:
     def __init__(self, api: ModelAPI, params: Any, max_len: int,
                  sample_temperature: float = 0.0, seed: int = 0,
-                 device: Any = None, layout: Any = None):
+                 device: Any = None, layout: Any = None,
+                 prefill_chunk: Optional[int] = None):
         self.api = api
+        # prefill_chunk rides on the decode: the engine's own batch
+        # prefill is one piece, but a SlotScheduler built on this decode
+        # takes it as its chunked-admission default
         self.decode = build_decode(api.cfg, layout,
-                                   device=device or api.device)
+                                   device=device or api.device,
+                                   prefill_chunk=prefill_chunk)
         self.device = self.decode.device
         self.params = self.decode.prepare_params(params)
         self.max_len = max_len

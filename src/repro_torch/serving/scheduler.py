@@ -27,6 +27,12 @@ The scheduler owns one fixed-shape multi-slot ``DecodeState`` and admits
   references.  A page-blocked queue head may be overtaken by at most
   ``max_head_skips`` admissions, after which admission is strictly in
   arrival order until the head admits.
+* **chunked admission** -- with ``prefill_chunk`` (default: the
+  decode's) an admission runs ``prefill_into_slot_chunked``: the prompt
+  in fixed chunks that attend the KV already in the slot, so under
+  prefix sharing it forwards the unshared tail only (the TConst family
+  buckets its admission instead).  Chunks on a paged layout cover whole
+  pages.
 * **prefix sharing (copy-on-write)** -- with ``prefix_sharing=True`` the
   scheduler keeps a host-side map from page-aligned prompt chunks (sha1
   keys rolling over the prompt) to resident pool pages, and a refcount
@@ -45,9 +51,9 @@ The scheduler owns one fixed-shape multi-slot ``DecodeState`` and admits
 Sampling: each session draws from its own ``torch.Generator`` seeded from
 ``Session.seed`` (or the scheduler seed and ``sid``), so a session's
 stream depends on the session alone.  Left out of the port so far (ROADMAP
-Queue 1 item 8): chunked admission, session tiering (and with it the
-retiring of refcount-0 prefix pages into a store), policies, telemetry
-and speculative decoding.
+Queue 1 item 8): session tiering (and with it the retiring of refcount-0
+prefix pages into a store), policies, telemetry and speculative
+decoding.
 """
 from __future__ import annotations
 
@@ -71,7 +77,8 @@ class SlotScheduler:
     def __init__(self, decode: DecodeAPI, params: Any, slots: int,
                  max_len: int, chunk_size: int = 8, seed: int = 0,
                  prefix_sharing: bool = False,
-                 max_head_skips: Optional[int] = None):
+                 max_head_skips: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None):
         # accept a ModelAPI facade too (its dense-layout decode)
         if isinstance(decode, ModelAPI):
             decode = decode.decode
@@ -86,6 +93,14 @@ class SlotScheduler:
         self.max_len = max_len
         self.chunk_size = chunk_size
         self.seed = seed
+        # chunked admission: the decode's default (build_decode(
+        # prefill_chunk=...)) unless given; None admits in one shot
+        if prefill_chunk is None:
+            prefill_chunk = getattr(decode, "prefill_chunk", None)
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be positive (or None for "
+                             "one-shot admission)")
+        self.prefill_chunk = prefill_chunk
         self.state = decode.init_state(slots, max_len)
         self.layout = self.state.layout
         # prefilled rows are dense; the slot write goes through the
@@ -106,6 +121,12 @@ class SlotScheduler:
             self.state.bookkeeping[LT.PAGE_TABLE].fill_(self.layout.trash)
             self.free_pages = list(range(self.layout.pool_pages))
             self._page_ref = np.zeros((self.layout.pool_pages,), np.int32)
+        if self.prefill_chunk is not None and self._paged and \
+                self.prefill_chunk % self.layout.page != 0:
+            raise ValueError(
+                f"prefill_chunk {self.prefill_chunk} must be a multiple of "
+                f"the page size {self.layout.page}: chunk-granular page "
+                f"writes cover whole pages")
         # prefix sharing: chunk key -> page, page -> key, sid -> keys
         self.prefix_sharing = bool(prefix_sharing) and self._paged
         self._prefix_map: Dict[bytes, int] = {}
@@ -285,16 +306,40 @@ class SlotScheduler:
                     host_mask = np.ones((self.layout.pages_per_slot,), bool)
                     host_mask[:len(adopted)] = False
                     mask = torch.as_tensor(host_mask, device=self.device)
+        resident = len(plan["adopted"]) * self.layout.page \
+            if self._paged else 0
+        # JAX's rule, not a device fallback: a prompt whose chunk grid
+        # would run past max_len is admitted in one shot
+        chunked = self.prefill_chunk is not None and \
+            self.decode.supports_chunked_prefill() and \
+            self.decode.chunked_prefill_fits(len(session.prompt), resident,
+                                             self.prefill_chunk,
+                                             self.max_len)
         t0 = time.perf_counter()
-        logits, self.state = self.decode.prefill_into_slot(
-            self.params, self.state, slot, session.prompt,
-            page_write_mask=mask)
+        if chunked:
+            # the adopted pages are attended, not forwarded again (but for
+            # the one chunk the logits need), and every chunk has one
+            # shape: the signature is the chunk, not the prompt length
+            logits, self.state, info = \
+                self.decode.prefill_into_slot_chunked(
+                    self.params, self.state, slot, session.prompt,
+                    page_write_mask=mask, resident_len=resident,
+                    chunk=self.prefill_chunk)
+            fwd = info["forward_tokens"]
+            sig = ("chunked", self.prefill_chunk, resident > 0,
+                   mask is not None)
+        else:
+            logits, self.state = self.decode.prefill_into_slot(
+                self.params, self.state, slot, session.prompt,
+                page_write_mask=mask)
+            fwd = len(session.prompt)
+            sig = (len(session.prompt), mask is not None)
         device_sync(self.device)
         self._key_cache.pop(session.sid, None)
         self.admit_stats.append(StepStats(
             "admit", time.perf_counter() - t0, tokens=len(session.prompt),
-            compiled=tag_compiled(self._warm, "admit",
-                                  (len(session.prompt), mask is not None))))
+            compiled=tag_compiled(self._warm, "admit", sig),
+            forward_tokens=fwd))
         gen = self._session_generator(session)
         t0k = sample_tokens(logits[None], np.array([session.temperature]),
                             [gen])[0]

@@ -183,21 +183,24 @@ def test_serve_batch_cli_times_hits_and_misses(capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--prefix-sharing"], ["--prefill-chunk", "16"],
+    ["--prefix-sharing"], ["--prefill-chunk", "-16"],
     ["--spill-capacity-mb", "8"], ["--spill-dir", "x"],
     ["--workload", "bursty"], ["--policy", "slo"],
     ["--slo-ttft-chunks", "3"], ["--speculate", "4"],
     ["--drafter", "tconst"], ["--mesh", "2x4"]])
 def test_unported_flags_error(flag, capsys):
     """Flags of features not ported yet argparse-error with their ROADMAP
-    item.  ``--prefix-sharing`` is ported: on the dense layout it is
-    refused as the JAX launcher refuses it (no pages to share)."""
+    item.  ``--prefix-sharing`` and ``--prefill-chunk`` are ported: on the
+    dense layout the first, and a chunk that is not positive the second,
+    are refused as the JAX launcher refuses them."""
     with pytest.raises(SystemExit) as e:
         serve.parse_args(["--sessions", "2"] + flag)
     assert e.value.code == 2
     err = capsys.readouterr().err
     if flag == ["--prefix-sharing"]:
         assert "--prefix-sharing shares pool pages" in err
+    elif flag[0] == "--prefill-chunk":
+        assert "--prefill-chunk -16 must be positive" in err
     else:
         assert "ROADMAP Queue 1 item" in err
 

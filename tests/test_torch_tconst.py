@@ -312,9 +312,9 @@ def test_init_is_seeded_and_shaped(reduced41):
 
 
 def test_unported_paths_raise_and_name_the_roadmap(tiny):
+    """``prefill_bucketed`` is ported (tests/test_torch_prefill_chunked.
+    py); the speculative verify is not."""
     _, cfg, _, pparams, tokens, _ = tiny
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PT.prefill_bucketed(pparams, _t(tokens), None, cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PT.verify_chunk_views(pparams, {}, _t(tokens), cfg)
 
