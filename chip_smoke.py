@@ -103,8 +103,9 @@ Phases (any failure raises, so the exit code is non-zero):
    A prefix-sharing phase serves the same argv with ``--prefix-sharing``
    (prompts: one system prompt of 600 tokens plus an 8-token tail each,
    admitted up front; f32 at 700 + 8): TLinFormer on paged and paged_int8
-   (bf16 and f32, a pool of 31 pages: 8 shared pages of 64, and the fork
-   reserve lets two sessions in and makes the third wait) and smollm-360m
+   (bf16 and f32, pools of 30 and 31 pages: 8 shared pages of 64, and
+   the fork reserve lets two sessions in and makes the third wait) and
+   smollm-360m
    on paged (bf16 at full depth, f32 at 8 of 32 layers, pools of 16: 9
    and 10 shared pages, no reserve).  Each run must share at
    least one page after the first admissions, hold fewer assigned KV
@@ -141,6 +142,27 @@ Phases (any failure raises, so the exit code is non-zero):
    equal on the float layouts.  gemma3 and mixtral run again on the card
    with ``--prefill-chunk 16`` on every layout: the streams equal its
    one-shot run's.
+   A tiering phase (4e) serves sessions beyond the slots through a tier
+   store (``--spill-capacity-mb``: a slot that decoded a chunk spills to
+   the host while sessions wait, and resumes into any free slot):
+   tconst-41m on dense (6 sessions over 2 slots, prompts 700-725, gen 96,
+   bf16 and f32; f32 again on a 1 MiB RAM tier over a disk tier, every put
+   demoted), TLinFormer on paged_int8 (4b's f32 argv, 6 sessions over 3
+   slots, gen 96) and smollm-360m on paged with sharing and chunks of 128
+   over one slot, so that every spill retires the system prompt's pages
+   into the store and the next admission re-adopts them and forwards one
+   chunk (f32 at 8 layers; bf16 at full depth, gen 32 in chunks of 16).
+   Each run launches exactly its kernels, no plain version; every excess
+   session completes a spill->resume cycle, resumes forward nothing, the
+   spilled bytes equal each spill's live state (``snapshot_bytes``), a
+   TConst session resyncs as often as untiered, and the f32 streams equal
+   the untiered runs and the solo runs.  Then the O(1) re-admission of a
+   tconst-41m prompt of 1024 and 8192 tokens (bf16; f32 at 1024): a
+   cold admission, then the same prompt in a fresh scheduler on the same
+   store, which must restore (0 tokens forwarded) with no kernel launch
+   and no GEMM (a restore alone traces copies only) and the cold
+   admission's logits bit for bit; device ms, wall ms and snapshot bytes
+   of both.
 5. Training (``launch.train``, ``--batch 8 --seq 1024 --steps 6``):
    tconst-41m at full width in bf16 in modes tconst, tlin and full (the
    base transformer) on one seeded init, in turns A B C C B A over the
@@ -152,7 +174,7 @@ Phases (any failure raises, so the exit code is non-zero):
    width, B 1 x 512, on the card against the CPU plain path on the same
    f32 params: f32 within a relative L2 error of 1e-4, bf16 within 3x
    the CPU plain path's own bf16 error.
-6. Uniform-batch Engine (``--batch 4 --prompt-len 1024 --gen 544``): the
+6. Uniform-batch Engine (``--batch 4 --prompt-len 1024 --gen 288``): the
    paper's three variants on one set of weights -- tconst/dense,
    tlin/paged and the base transformer (full/dense) -- in one call, in
    turns (A, B, C, C, B, A): the mean cache-hit step (O(1) against O(N))
@@ -267,9 +289,10 @@ F32_PAGED_ARGS = ["--slots", "3", "--page-size", "64", "--pool-pages", "27"]
 # which the first session still decodes when the third arrives, so the
 # paged pool of 27 makes it wait (13 + 13 pages held)
 F32_LM_ARGS = ["--prompt-len", "700", "--gen", "72"]
-# gen 544 from a 1024-token prompt: three resyncs, two of them warm
+# gen 288 from a 1024-token prompt: two resyncs (steps 1 and 257), the
+# second warm (544 before the tiering phase came: three resyncs)
 ENGINE_ARGS = ["--arch", "tconst-41m", "--batch", "4", "--prompt-len",
-               "1024", "--gen", "544"]
+               "1024", "--gen", "288"]
 ENGINE_TURNS = (("tconst", "dense"), ("tlin", "paged"), ("full", "dense"))
 # mamba2: K4 at Q = 64 on admission, 255 warm steps
 SSM_ENGINE_ARGS = ["--arch", SSM, "--batch", "4", "--prompt-len", "1024",
@@ -307,13 +330,15 @@ SESSION_RUNS = [
 # TLinFormer: a 608-token prompt's stable prefix is 512 tokens (the last
 # 96 sit in the window), 8 shared pages of 64; a session takes 13 pages
 # (f32: 14), and an adoption reserves a page for each page it will fork,
-# so a pool of 31 admits two sessions and makes the third wait.  smollm:
+# so a pool of 30 (f32: 31) admits two sessions and makes the third wait
+# (bf16 at the sessions argv's gen 192 since PR 25; 320 and a pool of 31
+# before, the same pattern of waits).  smollm:
 # the whole prompt is stable, but a page that holds a tail token is not
 # shared: 9 shared pages of 12 (gen 96; f32: 10 of 13), no reserve (an LM
 # never forks): a pool of 16 holds two sessions, not three
 SHARING_RUNS = [("tlin", "paged"), ("tlin", "paged_int8"),
                 ("smollm", "paged")]
-SHARING_POOL = {("tlin", "bfloat16"): 31, ("tlin", "float32"): 31,
+SHARING_POOL = {("tlin", "bfloat16"): 30, ("tlin", "float32"): 31,
                 ("smollm", "bfloat16"): 16, ("smollm", "float32"): 16}
 # config overrides of a run by (mode, dtype).  The f32 runs of mamba2 and
 # smollm check greedy streams against their solo runs only (their logits
@@ -372,6 +397,43 @@ CHUNKED_RUNS = [("smollm", "paged", ("bfloat16", "float32")),
 # shape and MoE routing per chunk
 WINDOW_CHUNK_MODELS = ("gemma3", "mixtral")
 WINDOW_CHUNK = 16
+# the tiering phase (4e): sessions beyond the slots, a tier store and a
+# spill of every slot that decoded a chunk while sessions wait.  Run 1:
+# tconst-41m / dense, 6 sessions over 2 slots at phase 4's f32 argv (prompts
+# 700 + 5i, gen 96, max_len 875 as phase 4's: every session crosses a
+# resync) in bf16 and f32; run 5 is its f32 argv on a 1 MiB RAM tier over
+# a disk tier (a tconst snapshot is larger, so every put demotes).  Run 2:
+# TLinFormer / paged_int8 at 4b's f32 argv in both dtypes (prompts 700 +
+# 8, gen 96, a pool of 31), 6 sessions over 3 slots.  Run 3: smollm /
+# paged with sharing and chunks of 128 over ONE slot, so every spill drops
+# the prefix pages to refcount 0 and they retire: f32 at 8 layers (4b's
+# argv, 3 sessions), bf16 at full depth at 4c's gen 32 with chunks of 16
+# tokens (so that a session decodes past its first chunk and spills), each
+# on the full pool of its one slot.  Run 4: the O(1) re-admission of
+# TIER_READMIT_N-token prompts.
+TIER_ARGS = ["--sessions", "6", "--spill-capacity-mb", "64"]
+TIER_DENSE_ARGS = F32_ARGS + ["--max-len", "875"] + TIER_ARGS
+TIER_DISK_ARGS = ["--spill-capacity-mb", "1", "--spill-dir",
+                  str(OUT / "tier_spill")]
+TIER_PAGED_ARGS = F32_ARGS + ["--pool-pages", "31"] + TIER_ARGS
+TIER_SMOLLM_ARGS = ["--sessions", "3", "--slots", "1", "--pool-pages", "0",
+                    "--prefill-chunk", str(SHARING_CHUNK),
+                    "--spill-capacity-mb", "256"]
+TIER_SMOLLM_BF16 = ["--gen", "32", "--chunk", "16"]
+TIER_READMIT_N = (1024, 8192)
+TIER_READMIT_GEN = 16
+# device items of a restore (host <-> device and device copies), and the
+# names cuBLAS gives its GEMM kernels
+RESTORE_RE = "copy|memcpy|memset|fill"
+GEMM_RE = "gemm|xmma|cutlass|nvjet|wgmma"
+# the aten ops a restore may dispatch: data movement, views and the
+# allocation of its padding (no arithmetic)
+RESTORE_OPS_RE = ("^(copy_|_to_copy|lift_fresh|slice|select|view|detach|"
+                  "alias|empty|new_zeros|zeros|cat|index_put_|"
+                  "_local_scalar_dense)$")
+# aten ops of a matrix product or an attention
+GEMM_OPS_RE = "mm|matmul|linear|conv|einsum|attention"
+
 LAYOUT_KERNELS = {"dense": (K1, K2), "int8": (K1_INT8, K2),
                   "paged": (K2, K3), "paged_int8": (K2, K3_INT8)}
 # the kernels line: kernel -> (representative case, source, TPU kernel,
@@ -1343,12 +1405,8 @@ def session_argv(mode: str, layout: str, dtype: str):
 
 def sharing_argv(mode: str, layout: str, dtype: str):
     """A sessions run's argv with ``--prefix-sharing`` and the pool of
-    ``SHARING_POOL``.  TLinFormer's bf16 runs keep gen 320: at the
-    sessions argv's 192 a session takes 13 pages, the third admission
-    fits the pool of 31 and none waits for pages."""
+    ``SHARING_POOL``."""
     argv = session_argv(mode, layout, dtype)
-    if mode in TCONST_MODES and dtype == "bfloat16":
-        argv += ["--gen", "320"]
     return argv + ["--prefix-sharing", "--pool-pages",
                    str(SHARING_POOL[mode, dtype])]
 
@@ -1976,6 +2034,410 @@ def adopted_logits(torch, serve, cfg, args, params, tol):
 
 
 # ---------------------------------------------------------------------------
+# phase 4e: session tiering
+# ---------------------------------------------------------------------------
+
+
+def snapshot_bytes(sched, n_tokens: int) -> int:
+    """What a spill of a session holding ``n_tokens`` (prompt + generated)
+    moves to the host, from the state's shapes: the slot's row of every
+    buffer without pages (bookkeeping but the page table, int8 codes and
+    scales as stored) plus, of every paged field, the pages that hold
+    written positions (``ceil((n_tokens + 1) / page)``)."""
+    from repro_torch.models import layouts as LT
+    st = sched.state
+    total = sum(nbytes(t) // sched.slots for n, t in st.bookkeeping.items()
+                if not n.startswith(LT.LAYOUT_BK_PREFIX))
+    for f, t in st.kv.items():
+        ax = sched._page_axes.get(f)
+        if ax is None:
+            total += nbytes(t) // sched.slots
+        else:
+            total += nbytes(t) // t.shape[ax] * \
+                -(-(n_tokens + 1) // sched.layout.page)
+    return total
+
+
+def tier_run(torch, runtime, serve, argv, cfg, params, kernels=None,
+             what="") -> dict:
+    """One sessions run of ``argv`` on the card with weights ``params``
+    (loaded once per model), counted alone: the launch counters reset
+    right before the scheduler and read right after it.  With a tier
+    store (``--spill-capacity-mb``): exactly ``kernels`` launch (None:
+    ``layout_kernels``) and no plain version, the cycle check of the
+    launcher passes, every session gets its tokens, and the spilled bytes
+    are :func:`snapshot_bytes` of each spill.  Returns the streams,
+    resyncs, sources and forward tokens of the admissions, and the
+    tiering numbers."""
+    from repro_torch.models.api import build_model
+    args = serve.parse_args(argv)
+    api = build_model(cfg, device="cuda")
+    torch.cuda.synchronize()
+    runtime.reset_counters()
+    served = serve.serve_sessions(cfg, api, params, args)
+    torch.cuda.synchronize()
+    counts = runtime.read_counters()
+    sched = served["sched"]
+    rep = {"seconds": served["seconds"],
+           "streams": [list(s.tokens) for s in served["sessions"]],
+           "resyncs": [sched.resyncs.get(s.sid, 0)
+                       for s in served["sessions"]],
+           "sources": [a.source for a in sched.admit_stats],
+           "forward_tokens": [a.forward_tokens for a in sched.admit_stats],
+           "served": served, "api": api, "args": args}
+    for s in served["sessions"]:
+        check(len(s.tokens) == args.gen, f"{what}: session {s.sid}: "
+              f"{len(s.tokens)} tokens, expected {args.gen}")
+    if served["tiering"] is None:
+        return rep
+    if kernels is None:
+        kernels = layout_kernels(cfg, args.layout)
+    for name, c in counts.items():
+        check((c["kernel"] > 0) == (name in kernels) and c["plain"] == 0,
+              f"{what}: launches {counts}, expected exactly {kernels}")
+    tier = served["tiering"]
+    check(tier["ok"] and tier["cycles"] >= args.sessions - args.slots,
+          f"{what}: {tier['cycles']} sessions completed a spill->resume "
+          f"cycle, {args.sessions - args.slots} needed")
+    spills = [s.tokens for s in sched.stats if s.kind == "spill"]
+    per_spill = [snapshot_bytes(sched, n) for n in spills]
+    check(tier["spills"] == tier["resumes"] == len(spills) > 0 and
+          tier["spilled_bytes"] == sum(per_spill), f"{what}: spilled "
+          f"{tier['spilled_bytes']} bytes in {tier['spills']} spills, "
+          f"predicted {sum(per_spill)} ({per_spill})")
+    check(all(a.forward_tokens == 0 for a in sched.admit_stats
+              if a.source == "resume"), f"{what}: a resume forwarded")
+    check(not tuple(sched.store.pinned_keys()), f"{what}: pins left")
+    if sched._paged:
+        check(sorted(sched.free_pages) == list(range(
+            sched.layout.pool_pages)), f"{what}: pages leaked")
+    rep.update(tiering={k: v for k, v in tier.items()},
+               bytes_per_spill=sorted(set(per_spill)),
+               launches={n: c["kernel"] for n, c in counts.items()
+                         if c["kernel"]})
+    return rep
+
+
+def aten_ops(fn) -> dict:
+    """The aten ops ``fn`` dispatches, by name and count (on the host,
+    through a dispatch mode: independent of the device tracer)."""
+    import collections
+    from torch.utils._python_dispatch import TorchDispatchMode
+    ops = collections.Counter()
+
+    class Log(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops[func.overloadpacket.__name__] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Log():
+        fn()
+    return dict(ops)
+
+
+def readmission_profile(torch, runtime, cfg, params, n: int) -> dict:
+    """The O(1) re-admission of one ``n``-token prompt: a cold admission
+    into a one-slot scheduler with a tier store, then the same prompt in a
+    fresh scheduler on that store.  Both after a warm-up admission of
+    another prompt.  The second must restore the stored state (source
+    "store", 0 tokens forwarded), launch no hand kernel and no plain
+    version, trace no GEMM, give the cold admission's logits bit for bit
+    and, decoding on, its stream.  The same store hit once more in a third
+    scheduler dispatches no aten op of a product or an attention.  A
+    restore alone dispatches data movement only (``RESTORE_OPS_RE``) and
+    traces copies only, and is timed with CUDA events.  A trace that
+    comes back empty is recorded so (``traced``): after the earlier
+    phases' traces, the device tracer has given nothing for windows this
+    short, where it traced them in a fresh process.  Each admission: the scheduler's wall ms (prefill or restore,
+    to a synchronize), the device ms and launches of the whole admission
+    (torch.profiler; the cold one includes the copy of its snapshot to the
+    host, reported apart as ``memcpy_ms`` with the restore's upload), and
+    the snapshot's bytes."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.api import build_decode
+    from repro_torch.serving import scheduler as S
+    from repro_torch.serving.session import Session
+    from repro_torch.serving.tier_store import TierStore
+    rng = np.random.RandomState(n)
+    prompt = rng.randint(1, cfg.vocab_size, size=n).astype(np.int32)
+    max_len = n + TIER_READMIT_GEN + 64
+    store = TierStore()
+
+    def sched(st):
+        return S.SlotScheduler(build_decode(cfg, device="cuda"), params,
+                               slots=1, max_len=max_len, chunk_size=8,
+                               tier_store=st)
+
+    warm = sched(TierStore())
+    warm.submit(Session(prompt[::-1].copy(), max_new_tokens=1))
+    warm.run()
+    logits, orig = [], S.sample_tokens
+
+    def captured(lg, *a, **kw):
+        logits.append(lg[0].clone())
+        return orig(lg, *a, **kw)
+
+    def device_items(prof):
+        return [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    out, sessions = {}, []
+    S.sample_tokens = captured
+    try:
+        for name in ("cold", "store"):
+            sc = sched(store)
+            sessions.append(sc.submit(Session(
+                prompt.copy(), max_new_tokens=TIER_READMIT_GEN)))
+            torch.cuda.synchronize()
+            runtime.reset_counters()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                sc.admit_pending()
+                torch.cuda.synchronize()
+            counts = runtime.read_counters()
+            items = device_items(prof)
+            key = sc._admission_key(sessions[-1])
+            out[name] = {
+                "source": sc.admit_stats[0].source,
+                "forward_tokens": sc.admit_stats[0].forward_tokens,
+                "wall_ms": 1e3 * sc.admit_stats[0].seconds,
+                "device_ms": sum(device_us(e) for e in items) / 1e3,
+                # of which host <-> device copies: the cold admission's
+                # snapshot put, the restore's upload
+                "memcpy_ms": sum(device_us(e) for e in items
+                                 if re.search("memcpy", e.key, re.I)) / 1e3,
+                "launches": sum(e.count for e in items),
+                "kernels": {n_: c["kernel"] for n_, c in counts.items()
+                            if c["kernel"]},
+                "gemms": sum(e.count for e in items
+                             if re.search(GEMM_RE, e.key, re.I)),
+                "snapshot_bytes": store.get(key).nbytes,
+                "top_items": [(e.key[:90], e.count, device_us(e)) for e in
+                              sorted(items, key=device_us)[::-1][:8]],
+                "traced": bool(items)}
+            if name == "store":
+                check(all(c["kernel"] == 0 and c["plain"] == 0
+                          for c in counts.values()), f"store hit at N {n}: "
+                      f"launches {counts}")
+                # copies, and the argmax (a reduction and its cast) of the
+                # first token's sampling: no GEMM, no attention
+                odd = [e.key for e in items
+                       if not re.search(RESTORE_RE + "|reduce_kernel|"
+                                        "elementwise", e.key, re.I)]
+                check(out[name]["gemms"] == 0 and not odd, f"store hit at "
+                      f"N {n}: device items beyond copies and the sampling's "
+                      f"argmax: {odd}")
+                # the same store hit once more, in a third scheduler, with
+                # the aten ops it dispatches logged (host side: this holds
+                # whether or not the device tracer gave anything above)
+                third = sched(store)
+                third.submit(Session(prompt.copy(), max_new_tokens=1))
+                runtime.reset_counters()
+                adm_ops = aten_ops(third.admit_pending)
+                counts = runtime.read_counters()
+                check(third.admit_stats[0].source == "store" and not any(
+                    re.search(GEMM_OPS_RE, op) for op in adm_ops) and all(
+                    c["kernel"] == 0 for c in counts.values()),
+                    f"store hit at N {n}: aten ops {adm_ops}, launches "
+                    f"{counts}")
+                # the restore alone (idempotent: the slot holds this
+                # state): its aten ops, CUDA-event and host times (medians
+                # of 5) and its device trace
+                blob = store.get(key)
+                ops = aten_ops(lambda: sc._restore(0, blob))
+                check(all(re.search(RESTORE_OPS_RE, op) for op in ops),
+                      f"restore at N {n}: aten ops {ops}")
+                walls, events = [], []
+                for _ in range(5):
+                    ev = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    ev[0].record()
+                    sc._restore(0, blob)
+                    ev[1].record()
+                    torch.cuda.synchronize()
+                    walls.append(1e3 * (time.perf_counter() - t0))
+                    events.append(ev[0].elapsed_time(ev[1]))
+                names = []
+                for _ in range(3):    # a short window may trace nothing
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        sc._restore(0, blob)
+                        torch.cuda.synchronize()
+                    names = sorted({e.key for e in device_items(prof)})
+                    if names:
+                        break
+                    time.sleep(1.0)
+                check(all(re.search(RESTORE_RE, k, re.I) for k in names),
+                      f"restore at N {n}: device items {names}")
+                out[name].update(
+                    admission_ops=adm_ops, restore_ops=ops,
+                    restore_items=names,
+                    restore_wall_ms=statistics.median(walls),
+                    restore_event_ms=statistics.median(events))
+            sc.run()
+    finally:
+        S.sample_tokens = orig
+    cold, hit = out["cold"], out["store"]
+    check(cold["source"] == "cold" and hit["source"] == "store" and
+          hit["forward_tokens"] == 0, f"re-admission at N {n}: {out}")
+    # the scheduler samples its first token from these logits (the decode
+    # chunks sample through the decode protocol's own reference)
+    check(len(logits) == 3 and all(torch.equal(logits[0], lg)
+                                   for lg in logits[1:]),
+          f"re-admission at N {n}: the store hits' logits differ from the "
+          f"cold admission's")
+    out["streams_equal"] = sessions[0].tokens == sessions[1].tokens
+    check(cfg.dtype != "float32" or out["streams_equal"], f"re-admission "
+          f"at N {n}: the f32 streams differ")
+    return out
+
+
+def tiering_phase(torch, runtime, serve, runs, sharing) -> dict:
+    """Phase 4e: session tiering on the main path (runs 1-5 of the
+    comment above ``TIER_ARGS``), each run counted alone.  Checks beyond
+    :func:`tier_run`'s: run 1, each session's resyncs equal the untiered
+    f32 run's (a session's resync count is a function of its prompt and
+    gen: the host mirror restored with the slot keeps it), the f32 streams
+    equal the untiered run's, whose first four equal phase 4's run of the
+    same argv (held to their solo runs there) and the last two their solo
+    runs; run 2, the f32 streams equal the same argv's untiered run; run
+    3, every cold admission but the first re-adopts the retired system-
+    prompt pages and forwards one chunk, resumes forward 0, and the f32
+    streams equal 4b's one-shot untiered run of the argv (held to their
+    solo runs there); run 4, :func:`readmission_profile`; run 5, demotions
+    and promotions, streams equal run 1's f32 ones."""
+    import shutil
+    from repro_torch.config import get_config
+    out = {}
+    # tconst-41m's weights: drawn once (float32 on the CPU), every mode and
+    # dtype below
+    tconst_params = serve.load(serve.parse_args(
+        ["--arch", "tconst-41m"]))[2]
+
+    def tconst_cfg(mode, dtype):
+        return get_config("tconst-41m").replace(attention_mode=mode,
+                                                dtype=dtype)
+
+    # run 1: tconst / dense
+    base = SESSIONS_ARGS + ["--arch", "tconst-41m", "--layout", "dense"]
+    untiered = tier_run(torch, runtime, serve, base + ["--dtype", "float32"]
+                        + TIER_DENSE_ARGS[:-2], tconst_cfg("tconst",
+                                                           "float32"),
+                        tconst_params, what="tconst/dense f32 untiered")
+    for dtype in ("bfloat16", "float32"):
+        key = f"tconst/dense/{dtype}"
+        t0 = time.time()
+        rep = tier_run(torch, runtime, serve, base + ["--dtype", dtype] +
+                       TIER_DENSE_ARGS, tconst_cfg("tconst", dtype),
+                       tconst_params, what=f"tiering {key}")
+        check(rep["resyncs"] == untiered["resyncs"] and
+              min(rep["resyncs"]) >= 1, f"tiering {key}: resyncs "
+              f"{rep['resyncs']}, untiered {untiered['resyncs']}")
+        if dtype == "float32":
+            check(rep["streams"] == untiered["streams"], f"tiering {key}: "
+                  f"f32 streams differ from the untiered run's")
+            check(untiered["streams"][:4] ==
+                  runs["tconst/dense/float32"]["streams"], "the untiered "
+                  "f32 run's first streams differ from phase 4's")
+            served = untiered["served"]
+            solo = serve.check_sessions(
+                untiered["api"], tconst_params,
+                {**served, "tiering": None, "sessions":
+                 served["sessions"][4:], "prompts": served["prompts"][4:]},
+                untiered["args"])
+            check(solo["rc"] == 0, f"tiering {key}: f32 streams differ "
+                  f"from their solo runs")
+        rep["phase_s"] = time.time() - t0
+        out[key] = rep
+    # run 5: run 1's f32 argv on a 1 MiB RAM tier over a disk tier
+    t0 = time.time()
+    shutil.rmtree(OUT / "tier_spill", ignore_errors=True)
+    try:
+        rep = tier_run(torch, runtime, serve, base + ["--dtype", "float32"]
+                       + TIER_DENSE_ARGS + TIER_DISK_ARGS,
+                       tconst_cfg("tconst", "float32"), tconst_params,
+                       what="tiering tconst/dense f32 disk tier")
+        store = rep["tiering"]["store"]
+        check(store["demotions"] > 0 and store["promotions"] > 0 and
+              rep["streams"] == out["tconst/dense/float32"]["streams"],
+              f"disk tier: {store}, streams equal run 1's: "
+              f"{rep['streams'] == out['tconst/dense/float32']['streams']}")
+        rep["files"] = sum(1 for _ in (OUT / "tier_spill").rglob("*.npy"))
+    finally:
+        shutil.rmtree(OUT / "tier_spill", ignore_errors=True)
+    rep["phase_s"] = time.time() - t0
+    out["tconst/dense/float32 disk"] = rep
+    # run 2: TLinFormer / paged_int8 with prefix sharing
+    t0 = time.time()
+    argv = {d: sharing_argv("tlin", "paged_int8", d) + TIER_PAGED_ARGS
+            for d in ("bfloat16", "float32")}
+    ref = tier_run(torch, runtime, serve, argv["float32"][:-2],
+                   tconst_cfg("tlin", "float32"), tconst_params,
+                   what="tlin/paged_int8 f32 untiered")
+    for dtype in ("bfloat16", "float32"):
+        key = f"tlin/paged_int8/{dtype}"
+        rep = tier_run(torch, runtime, serve, argv[dtype],
+                       tconst_cfg("tlin", dtype), tconst_params,
+                       what=f"tiering {key}")
+        check(dtype != "float32" or rep["streams"] == ref["streams"],
+              f"tiering {key}: f32 streams differ from the untiered run's")
+        out[key] = rep
+    out["tlin/paged_int8/bfloat16"]["phase_s"] = time.time() - t0
+    # run 4: the O(1) re-admission
+    t0 = time.time()
+    out["readmission"] = {
+        f"{dtype} N {n}": readmission_profile(
+            torch, runtime, tconst_cfg("tconst", dtype), tconst_params, n)
+        for dtype, ns in (("bfloat16", TIER_READMIT_N),
+                          ("float32", TIER_READMIT_N[:1])) for n in ns}
+    out["readmission"]["phase_s"] = time.time() - t0
+    tconst_params = None
+    # run 3: smollm / paged, one slot: retired prefix pages re-adopted
+    t0 = time.time()
+    full = serve.load(serve.parse_args(["--arch", SMOLLM]))[2]
+    for dtype in ("float32", "bfloat16"):
+        key = f"smollm/paged/{dtype}"
+        cfg = get_config(SMOLLM).replace(dtype=dtype)
+        params = full
+        argv = sharing_argv("smollm", "paged", dtype) + TIER_SMOLLM_ARGS
+        if dtype == "float32":
+            cfg = cfg.replace(n_layers=SMOLLM_F32_DEPTH)
+            params = {**full, "layers": full["layers"][:SMOLLM_F32_DEPTH]}
+        else:
+            argv = argv + TIER_SMOLLM_BF16
+        rep = tier_run(torch, runtime, serve, argv, cfg, params,
+                       what=f"tiering {key}")
+        args = rep["args"]
+        resident = args.prompt_len // args.page_size
+        cold = [f for s, f in zip(rep["sources"], rep["forward_tokens"])
+                if s == "cold"]
+        check(cold[1:] == [SHARING_CHUNK] * (len(cold) - 1) and
+              rep["tiering"]["pages_readopted"] == resident *
+              (len(cold) - 1) and rep["tiering"]["pages_retired"] > 0,
+              f"tiering {key}: cold admissions forwarded {cold}, "
+              f"{rep['tiering']['pages_readopted']} pages re-adopted "
+              f"({resident} a re-adoption)")
+        check(dtype != "float32" or rep["streams"] ==
+              sharing[key]["streams"][:args.sessions], f"tiering {key}: "
+              f"f32 streams differ from 4b's untiered one-shot run")
+        out[key] = rep
+    out["smollm/paged/float32"]["phase_s"] = time.time() - t0
+    full = params = None
+    torch.cuda.empty_cache()
+    for rep in out.values():
+        for k in ("api", "args", "served"):
+            rep.pop(k, None)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: training
 # ---------------------------------------------------------------------------
 
@@ -2334,6 +2796,42 @@ def main() -> int:
                   f"equal the one-shot run's: {c['streams_equal_one_shot']}")
     print(f"[windows] {phase_s['windows']:.1f}s")
 
+    # 4e. session tiering: spill / resume, retired prefix pages re-adopted,
+    # the O(1) TConst re-admission, the disk tier
+    t_phase = time.time()
+    tiering = tiering_phase(torch, runtime, serve, runs, sharing)
+    phase_s["tiering"] = time.time() - t_phase
+    for key, rep in tiering.items():
+        if key == "readmission":
+            continue
+        t = rep["tiering"]
+        print(f"[tiering] {key}: {t['spills']} spills / {t['resumes']} "
+              f"resumes, {t['spilled_bytes']} bytes (a spill "
+              f"{rep['bytes_per_spill']}), {t['cycles']} sessions cycled; "
+              f"admission cache {t['admit_store_hits']} hits / "
+              f"{t['admit_store_puts']} puts; pages retired "
+              f"{t['pages_retired']} / re-adopted {t['pages_readopted']}; "
+              f"store {t['store']}; forward tokens {rep['forward_tokens']} "
+              f"({rep['sources']}); resyncs {rep['resyncs']}; launches "
+              f"{rep['launches']} (plain 0)")
+    for key, r in tiering["readmission"].items():
+        if key == "phase_s":
+            continue
+        print(f"[tiering] re-admission tconst-41m {key}: " + "; ".join(
+            f"{name}: forward {a['forward_tokens']}, {a['wall_ms']:.3f} "
+            f"wall ms, {a['device_ms']:.3f} device ms (memcpy "
+            f"{a['memcpy_ms']:.3f}), {a['launches']} "
+            f"launches (traced: {a['traced']}), kernels {a['kernels']}, "
+            f"GEMMs {a['gemms']}, "
+            f"snapshot {a['snapshot_bytes']} B"
+            for name, a in r.items() if isinstance(a, dict)) +
+            f"; the restore alone {r['store']['restore_wall_ms']:.3f} wall "
+            f"ms, {r['store']['restore_event_ms']:.3f} device ms (CUDA "
+            f"events), aten ops {r['store']['restore_ops']}, device items "
+            f"{r['store']['restore_items']}; streams equal "
+            f"{r['streams_equal']}")
+    print(f"[tiering] {phase_s['tiering']:.1f}s")
+
     # 5. training at full width: the paper's three variants on one init
     t_phase = time.time()
     training = train_phase(torch, runtime)
@@ -2436,6 +2934,7 @@ def main() -> int:
         "kernel_rows": rows, "sass_tensor_core_ops": sass,
         "launches_per_call": per_call, "sessions": runs,
         "sharing": sharing, "chunked": chunked, "windows": windows,
+        "tiering": tiering,
         "engines": engines,
         "training": training, "grad_check": grads,
         "phase_s": phase_s, "total_s": time.time() - t_start,

@@ -50,8 +50,10 @@ speculative decoding).
 """
 from __future__ import annotations
 
+import hashlib
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
@@ -330,6 +332,24 @@ QUANT_FIELDS = KV_KEYS
 # resync rebuilds the ctx KV from these alone; a row-wise resync gathers
 # only them -- never the KV cache.
 RESYNC_INPUT_KEYS = ("tokens", "hist_len", "gen_len")
+
+
+def admission_digest(tokens, mode: str, w_og: int) -> bytes:
+    """Content key of a TConst POST-ADMISSION slot state (the bytes of
+    ``repro.core.tconst.admission_digest``, bit for bit).
+
+    ``resync`` (and so the admission) rebuilds the ctx/hist KV from
+    ``RESYNC_INPUT_KEYS`` alone -- the raw token ids plus the hist/gen
+    split, itself a function of the prompt length and ``w_og`` -- so for
+    fixed params and config the admitted slot (KV *and* bookkeeping) is a
+    pure function of the prompt ids: two admissions of one prompt may
+    share one stored snapshot, and a tier-store hit replaces the O(N)
+    resync with an O(1) restore.  Salted with ``mode`` (tconst and tlin
+    caches differ) and ``w_og`` (it fixes the split); the scheduler
+    layers its own salt (layout, max_len, prefill path) on top."""
+    h = hashlib.sha1(f"tconst-admit\x00{mode}\x00{w_og}\x00".encode())
+    h.update(np.ascontiguousarray(tokens, np.int32).tobytes())
+    return h.digest()
 
 
 def init_tconst_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -64,6 +64,18 @@ instead).  It prints the tokens each admission forwarded::
       --prompt-len 64 --layout paged --page-size 16 --prefix-sharing \\
       --prefill-chunk 16
 
+``--spill-capacity-mb N`` (with ``--sessions``) attaches a tier store
+of N MiB of host RAM (``--spill-dir DIR``: an mmap'd disk tier below it)
+and preempts a slot that has decoded one chunk whenever sessions wait:
+the session spills to the host and later resumes into any free slot.
+Sessions are submitted up front, so the queue is oversubscribed; it
+prints the ``tiering:`` lines and checks that each excess session
+completed a spill->resume cycle (the exit code counts it)::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tconst-41m \\
+      --reduced --device cpu --sessions 6 --slots 2 --gen 16 \\
+      --layout paged --page-size 16 --spill-capacity-mb 64
+
 ``--layout dense|int8|paged|paged_int8`` picks the cache layout
 (``--page-size``, ``--pool-pages``: a pool below ``slots x pages_per_slot``
 needs ``--sessions``, whose scheduler allocates pages).  The tconst
@@ -91,12 +103,11 @@ from repro_torch.models.layouts import LayoutSpec
 from repro_torch.serving.engine import Engine, device_sync
 from repro_torch.serving.scheduler import SlotScheduler
 from repro_torch.serving.session import Session
+from repro_torch.serving.tier_store import TierStore
 
 _FEATURES = "ROADMAP Queue 1 item 8 (serving features)"
 # flag dest -> (default, where it is ported)
 UNPORTED = {
-    "spill_capacity_mb": (0.0, _FEATURES + ": session tiering"),
-    "spill_dir": ("", _FEATURES + ": session tiering"),
     "workload": ("", _FEATURES + ": workload, telemetry and policies"),
     "policy": ("fifo", _FEATURES + ": workload, telemetry and policies"),
     "slo_ttft_chunks": (8, _FEATURES + ": workload, telemetry and policies"),
@@ -172,6 +183,20 @@ def validate_layout_args(ap, args, max_len: int) -> None:
             ap.error(f"--prefill-chunk {args.prefill_chunk} must be a "
                      f"multiple of --page-size {args.page_size}: "
                      f"chunk-granular page writes cover whole pages")
+    if args.spill_capacity_mb < 0:
+        ap.error(f"--spill-capacity-mb {args.spill_capacity_mb} must be "
+                 f"positive (0 disables session tiering)")
+    if (args.spill_capacity_mb or args.spill_dir) and not args.sessions:
+        ap.error("--spill-capacity-mb/--spill-dir tier per-session slot "
+                 "state; the uniform batch has no sessions to spill: add "
+                 "--sessions N")
+    if args.spill_dir and not args.spill_capacity_mb:
+        ap.error("--spill-dir is the tier below a bounded host-RAM store: "
+                 "demotions to disk only happen when --spill-capacity-mb "
+                 "caps the RAM tier, so without it the directory would "
+                 "stay empty.  Size the cap in the layout's physical "
+                 "bytes: paged layouts spill only each session's live "
+                 "pages and int8 snapshots stay compressed")
     if args.layout not in ("paged", "paged_int8") or not args.pool_pages:
         return                       # full pool: always valid, no allocator
     if args.page_size < 1 or args.pool_pages < 0:
@@ -215,22 +240,35 @@ def paged_layout_note(cfg, args) -> None:
               "--pool-pages are inert)")
 
 
+def tier_store(args) -> Any:
+    """The ``--spill-capacity-mb`` / ``--spill-dir`` store (None without
+    a capacity)."""
+    if not args.spill_capacity_mb:
+        return None
+    return TierStore(capacity_bytes=int(args.spill_capacity_mb * (1 << 20)),
+                     spill_dir=args.spill_dir or None)
+
+
 def serve_sessions(cfg, api, params, args) -> Dict[str, Any]:
     """Continuous-batching demo: N sessions with different prompt lengths
     admitted at staggered times into a fixed-slot batch (under prefix
-    sharing: shared-prefix prompts admitted up front).  Returns a report:
+    sharing or tiering: submitted up front).  Returns a report:
     ``prompts``, the served ``Session``s, the scheduler, the seconds it
-    took and ``sharing``, the :func:`sharing_report` of the first
-    admissions (None without prefix sharing).  Runs nothing but the
+    took, ``sharing``, the :func:`sharing_report` of the first admissions
+    (None without prefix sharing), and ``tiering``, the
+    :func:`tiering_report` (None without a store).  Runs nothing but the
     scheduler's own path."""
     prompts = session_prompts(cfg, args)
     paged_layout_note(cfg, args)
     decode = build_decode(cfg, layout_spec(args), device=api.device,
                           prefill_chunk=args.prefill_chunk or None)
+    store = tier_store(args)
     sched = SlotScheduler(decode, params, slots=args.slots,
                           max_len=sessions_max_len(args),
                           chunk_size=args.chunk, seed=args.seed,
-                          prefix_sharing=args.prefix_sharing)
+                          prefix_sharing=args.prefix_sharing,
+                          tier_store=store,
+                          preempt_chunks=1 if store is not None else None)
 
     def stream(sess, tok):
         print(f"[serve]   session {sess.sid}: token[{len(sess.tokens) - 1}]"
@@ -246,8 +284,10 @@ def serve_sessions(cfg, api, params, args) -> Dict[str, Any]:
             on_token=stream if args.verbose else None)))
         # staggered admission: one chunk between submissions, so slots sit
         # at different W_og resync phases.  Prefix sharing admits up front
-        # instead: sessions in flight together keep the prefix resident
-        if not args.prefix_sharing:
+        # instead: sessions in flight together keep the prefix resident.
+        # So does tiering: staggering would drain the queue one session a
+        # chunk, and the oversubscription spills exist for never builds
+        if not args.prefix_sharing and store is None:
             sched.step()
     if args.prefix_sharing:
         sched.admit_pending()
@@ -288,8 +328,43 @@ def serve_sessions(cfg, api, params, args) -> Dict[str, Any]:
               f" x {sched.layout.pages_per_slot} pages/slot; "
               f"{sched.page_waits} admission round(s) waited for pages; "
               f"up to {sched.peak_active} sessions decoded at once")
+    tiering = tiering_report(sched, sessions, args) \
+        if store is not None else None
     return {"prompts": prompts, "sessions": sessions, "sched": sched,
-            "seconds": dt, "sharing": sharing}
+            "seconds": dt, "sharing": sharing, "tiering": tiering}
+
+
+def tiering_report(sched, sessions, args) -> Dict[str, Any]:
+    """Print the ``tiering:`` lines of a run with a tier store (spills,
+    resumes, snapshot bytes, the admission cache, retired / re-adopted
+    prefix pages, per-session cycles, the store's tiers) and, when the
+    sessions oversubscribe the slots, the cycle check: every excess
+    session completed >= 1 spill->resume cycle.  Returns the numbers and
+    ``ok``."""
+    store = sched.store
+    sp = sched.spill_stats
+    print(f"[serve] tiering: {sp['spills']} spills / {sp['resumes']} "
+          f"resumes ({sp['spilled_bytes']} snapshot bytes through the "
+          f"host tier); admission cache {sp['admit_store_hits']} hits / "
+          f"{sp['admit_store_puts']} puts; {sp['pages_retired']} prefix "
+          f"pages retired / {sp['pages_readopted']} re-adopted")
+    for s in sessions:
+        print(f"[serve]   session {s.sid}: {s.spills} spills, {s.resumes} "
+              f"resumes")
+    print(f"[serve] tiering: assigned device KV bytes "
+          f"{sched.assigned_kv_bytes()} vs host tier: "
+          f"{store.occupancy_bytes} RAM + {store.disk_bytes} disk "
+          f"({len(store)} blobs; {store.stats})")
+    rep = {**sp, "store": dict(store.stats), "ok": True,
+           "cycles": sum(1 for s in sessions if s.resumes >= 1),
+           "per_session": [(s.spills, s.resumes) for s in sessions]}
+    if args.sessions > args.slots:
+        need = args.sessions - args.slots
+        rep["ok"] = rep["cycles"] >= need
+        print(f"[serve] tiering: {rep['cycles']} session(s) completed >= 1 "
+              f"spill->resume cycle (oversubscribed by {need}): "
+              f"{'ok' if rep['ok'] else 'FAIL'}")
+    return rep
 
 
 def sharing_report(sched) -> Dict[str, Any]:
@@ -327,7 +402,7 @@ def check_sessions(api, params, served, args) -> Dict[str, Any]:
     generation (an Engine run per session).  ``rc`` is 0 when every
     check passed."""
     sched = served["sched"]
-    ok = True
+    ok = served.get("tiering") is None or served["tiering"]["ok"]
     records = []
     check = args.temperature <= 0.0 and args.eos < 0
     eng = Engine(api, params, max_len=sched.max_len,
@@ -434,9 +509,14 @@ def build_parser() -> argparse.ArgumentParser:
                          "layouts: a multiple of the page size); with "
                          "prefix sharing a sharing admission forwards its "
                          "unshared tail only; 0: one-shot")
+    ap.add_argument("--spill-capacity-mb", type=float, default=0.0,
+                    help="session tiering (sessions mode): a host-RAM tier "
+                         "store of this many MiB; sessions beyond the slots "
+                         "spill to it and resume (0: off)")
+    ap.add_argument("--spill-dir", default="",
+                    help="an mmap'd disk tier below the RAM tier (needs "
+                         "--spill-capacity-mb)")
     # features of the JAX launcher that are not ported yet
-    ap.add_argument("--spill-capacity-mb", type=float, default=0.0)
-    ap.add_argument("--spill-dir", default="")
     ap.add_argument("--workload", default="",
                     choices=["", "poisson", "bursty"])
     ap.add_argument("--policy", default="fifo", choices=["fifo", "slo"])

@@ -192,6 +192,42 @@ class DecodeState:
                                min_page=min_page)
         return self
 
+    def snapshot_slot(self, slot: int) -> Dict[str, Dict[str, Any]]:
+        """Everything slot ``slot`` owns, in the PHYSICAL representation,
+        as new tensors: ``{"bookkeeping": <non-layout rows, batch dim 1>,
+        "kv": <layout snapshot>}``.  Dense and int8 kv snapshots are
+        batch-axis rows (int8 stays ``__q`` / ``__scale``: compressed on
+        the host); paged kv snapshots gather exactly the slot's table
+        row out of the pools.  Layout-owned bookkeeping (the page table)
+        is not captured: a restore binds the snapshot to the destination
+        slot's own pages."""
+        bk = {name: leaf.narrow(self.axes[name], slot, 1).clone()
+              for name, leaf in self.bookkeeping.items()
+              if not name.startswith(LT.LAYOUT_BK_PREFIX)}
+        return {"bookkeeping": bk,
+                "kv": self.layout.snapshot_slot(self.kv, self.bookkeeping,
+                                                self.axes, slot)}
+
+    def restore_slot(self, slot: int, snap: Dict[str, Dict[str, Any]]
+                     ) -> "DecodeState":
+        """Inverse of :meth:`snapshot_slot`, IN PLACE; returns self.  The
+        snapshot goes into slot ``slot`` (ANY slot: it carries no slot
+        identity) bit-exactly, each tensor by its bits (the host form of
+        bfloat16 is int16), nothing re-quantized or re-paged.  Paged
+        layouts write through the slot's CURRENT table row, which the
+        caller has pointed at exclusively owned pages.  The host mirrors
+        (``gen_len``) take the restored rows too: the decode loop decides
+        the slot's next resync from them."""
+        for name, val in snap["bookkeeping"].items():
+            ax = self.axes[name]
+            dst = self.bookkeeping[name]
+            dst.narrow(ax, slot, 1).copy_(LT.bits_as(val, dst.dtype))
+            if name in self.host:
+                self.host[name][slot] = val.select(ax, 0).item()
+        self.layout.restore_slot(self.kv, self.bookkeeping, self.axes, slot,
+                                 snap["kv"])
+        return self
+
     def where_rows(self, rows: torch.Tensor, other: "DecodeState"
                    ) -> "DecodeState":
         """Per-slot select (a new state): self where ``rows`` (B,) is True,
@@ -283,6 +319,16 @@ class DecodeAPI(Protocol):
             page_write_mask: Optional[torch.Tensor] = None,
             resident_len: int = 0, chunk: int = 32
     ) -> Tuple[torch.Tensor, DecodeState, Dict[str, int]]: ...
+
+    def admission_key(self, tokens: Any,
+                      extras: Optional[Dict[str, Any]] = None
+                      ) -> Optional[bytes]:
+        """Content digest under which this request's POST-ADMISSION slot
+        state may be stored and reused, or None when admission is not a
+        pure function of (params, prompt ids).  A scheduler with a tier
+        store turns re-admission of a known prompt into an O(1) restore
+        with zero forward compute."""
+        ...
 
 
 def decode_chunk(decode: DecodeAPI, params: Any, state: DecodeState,
@@ -614,6 +660,17 @@ class TConstDecode:
         g0 = ((prompt_len - 1) % self.cfg.tconst.w_og) + 1
         return prompt_len - g0
 
+    def admission_key(self, tokens, extras=None):
+        """TConst admission is a resync plus a generation-window pass,
+        both pure functions of the prompt ids (``TC.RESYNC_INPUT_KEYS``),
+        so the admitted slot is content-addressable by prompt digest and
+        re-admitting a known prompt becomes an O(1) restore instead of
+        the O(N) resync.  None with extras (JAX's rule)."""
+        if extras:
+            return None
+        return TC.admission_digest(np.asarray(tokens), self.mode,
+                                   self.cfg.tconst.w_og)
+
     def sync_anticipated(self, state: DecodeState, n_steps: int
                          ) -> np.ndarray:
         """(B,) host bool: slots whose resync may fire within the next
@@ -814,6 +871,11 @@ class DenseDecode(ChunkedAdmission):
         """Admission writes the K/V of every prompt position, a function
         of the prompt ids alone: the whole prompt is stable."""
         return prompt_len
+
+    def admission_key(self, tokens, extras=None):
+        """None, JAX's default for this family: its admissions are not
+        cached by prompt."""
+        return None
 
     def sync_anticipated(self, state: DecodeState, n_steps: int
                          ) -> np.ndarray:

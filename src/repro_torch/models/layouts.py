@@ -27,11 +27,11 @@ Layouts:
 
 Writes go IN PLACE (the port's dense decode path already updates its
 cache in place): ``write_token``, ``scatter_rows``, ``set_layer``,
-``write_slot``, ``write_span``, ``scatter_pages`` and ``fork_pages``
-mutate the physical tensors the views alias and return the view (or the
-kv dict) for symmetry with the JAX functions, which return new arrays.
-``pack`` / ``unpack`` / ``dense`` / ``read_slot`` / ``gather_pages``
-build new tensors.
+``write_slot``, ``write_span``, ``restore_slot``, ``scatter_pages`` and
+``fork_pages`` mutate the physical tensors the views alias and return
+the view (or the kv dict) for symmetry with the JAX functions, which
+return new arrays.  ``pack`` / ``unpack`` / ``dense`` / ``read_slot`` /
+``snapshot_slot`` / ``gather_pages`` build new tensors.
 
 Prefix sharing: two page-table rows may name one pool page.  Such a page
 keeps its bytes: admission masks it out of ``write_slot``
@@ -44,8 +44,13 @@ chunk at a time (``write_span``: positional on dense and int8, whole
 pages of the slot's table on the paged layouts) after seeding its row
 cache from the slot (``read_slot``).
 
-Not ported yet (ROADMAP Queue 1 item 8, serving features):
-``snapshot_slot`` / ``restore_slot`` -- session tiering.
+Session tiering snapshots a slot in the PHYSICAL representation
+(``snapshot_slot``: int8 stays ``__q`` / ``__scale``, a paged field
+gathers exactly the slot's table row) and writes it back bit-exactly
+into any slot (``restore_slot``: paged fields through the destination's
+current table row).  A restore takes a tensor of another dtype of the
+same width by its bits (the host form of bfloat16 is int16), never by a
+value cast.
 """
 from __future__ import annotations
 
@@ -152,6 +157,18 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,
 
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
+
+
+def bits_as(src: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``src`` as ``dtype`` by its bits (a view): a snapshot's host form
+    of a bfloat16 tensor is its int16 bit pattern.  Raises for a dtype of
+    another width -- a restore never casts values."""
+    if src.dtype == dtype:
+        return src
+    if src.element_size() != torch.empty((), dtype=dtype).element_size():
+        raise TypeError(f"cannot restore {src.dtype} into {dtype} by its "
+                        f"bits: the widths differ")
+    return src.view(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -538,6 +555,28 @@ class DenseLayout:
                 la, start, v.shape[la]).copy_(v.to(dst.dtype))
         return kv
 
+    def snapshot_slot(self, kv: Dict[str, Any], bk: Dict[str, Any],
+                      axes: Dict[str, int], slot: int) -> Dict[str, Any]:
+        """Slot ``slot``'s kv in the PHYSICAL representation (batch dim
+        kept at size 1), as new tensors: a batch-axis row per field.  It
+        never dequantises: an int8 slot snapshots as its ``__q`` /
+        ``__scale`` rows, so the host tier holds it compressed and the
+        restore is bit-exact."""
+        return {f: v.narrow(self._axis(f, axes), slot, 1).clone()
+                for f, v in kv.items()}
+
+    def restore_slot(self, kv: Dict[str, Any], bk: Dict[str, Any],
+                     axes: Dict[str, int], slot: int,
+                     snap: Dict[str, Any]) -> Dict[str, Any]:
+        """Inverse of :meth:`snapshot_slot`, IN PLACE: write the physical
+        snapshot into slot ``slot`` (any slot, not only the one it was
+        taken from), each field by its bits (:func:`bits_as`).  Returns
+        ``kv``."""
+        for f, dst in kv.items():
+            dst.narrow(self._axis(f, axes), slot, 1).copy_(
+                bits_as(snap[f], dst.dtype))
+        return kv
+
 
 # ---------------------------------------------------------------------------
 # int8 with per-vector scales
@@ -837,6 +876,40 @@ class PagedLayout(DenseLayout):
         is not paged)."""
         la = self._length_axis(field)
         return None if la is None else la - 1
+
+    def snapshot_slot(self, kv, bk, axes, slot):
+        """Physical slot snapshot, as new tensors: a paged field gathers
+        EXACTLY the slot's page-table row out of the pool -- a ``(...,
+        pps, page, rest)`` page stack, an int8 pool with its scale pool
+        beside it -- and a field without pages takes its batch-axis row.
+        Entries at TRASH gather the trash page; the scheduler trims the
+        stack to the slot's live pages."""
+        pt_row = bk[PAGE_TABLE][slot].long()                  # (pps,)
+        out = {}
+        for f, v in kv.items():
+            ax = self.page_axis(f)
+            if ax is None:
+                out[f] = v.narrow(self._axis(f, axes), slot, 1).clone()
+            else:
+                out[f] = v.index_select(ax, pt_row.to(v.device))
+        return out
+
+    def restore_slot(self, kv, bk, axes, slot, snap):
+        """Inverse of :meth:`snapshot_slot`, IN PLACE, each field by its
+        bits: a page stack of ``n`` pages goes onto the first ``n``
+        entries of slot ``slot``'s CURRENT table row (the scheduler points
+        it at fresh, exclusively owned pages first, so no shared page is
+        hit; entries at TRASH take dead writes).  Returns ``kv``."""
+        pt_row = bk[PAGE_TABLE][slot].long()                  # (pps,)
+        for f, dst in kv.items():
+            src = bits_as(snap[f], dst.dtype)
+            ax = self.page_axis(f)
+            if ax is None:
+                dst.narrow(self._axis(f, axes), slot, 1).copy_(src)
+                continue
+            rows = pt_row[:src.shape[ax]].to(dst.device)
+            dst[(slice(None),) * ax + (rows,)] = src.to(dst.device)
+        return kv
 
     def gather_pages(self, kv: Dict[str, Any], pages: torch.Tensor
                      ) -> Dict[str, Any]:

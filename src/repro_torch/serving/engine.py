@@ -27,7 +27,7 @@ from repro_torch.models.api import (ModelAPI, build_decode, decode_chunk,
 
 @dataclasses.dataclass
 class StepStats:
-    kind: str      # "prefill" | "hit" | "miss" | "chunk" | "admit"
+    kind: str      # "prefill" | "hit" | "miss" | "chunk" | "admit" | "spill"
     seconds: float
     tokens: int = 1        # tokens produced by this entry (chunks: many)
     # True for the first dispatch of each (kind, signature): its time
@@ -35,8 +35,13 @@ class StepStats:
     compiled: bool = False
     # "admit" entries: the prompt positions the admission forwarded (a
     # chunked admission: the unshared tail padded to the chunk grid; the
-    # bucketed TConst one: max_len; one-shot: the whole prompt)
+    # bucketed TConst one: max_len; one-shot: the whole prompt; a restore
+    # from the tier store: 0)
     forward_tokens: Optional[int] = None
+    # "admit" entries: where the slot state came from -- "cold" (a prefill
+    # forward), "resume" (a spilled session's pinned snapshot restored) or
+    # "store" (a known prompt's post-admission state restored, no forward)
+    source: Optional[str] = None
 
 
 def tag_compiled(warm: set, kind: str, sig: Any = None) -> bool:

@@ -48,12 +48,36 @@ The scheduler owns one fixed-shape multi-slot ``DecodeState`` and admits
   ``stable_prefix_len`` enter the map.  A page returns to the free pool,
   and leaves the map, only at refcount 0.
 
+* **session tiering (spill / resume)** -- with a
+  :class:`~repro_torch.serving.tier_store.TierStore` attached, a
+  preempted session SPILLS: its whole slot state is snapshotted in the
+  physical representation (``DecodeState.snapshot_slot``: int8 stays
+  compressed, paged holds only the live pages), copied to the host
+  (a bfloat16 tensor as its int16 bits), pinned in the store under a
+  digest of the session, and its slot and pages are freed.  A later
+  admission RESUMES it into any free slot with one restore (fresh
+  private pages; the host mirror of ``gen_len`` restored with the rows),
+  token-identical to never having left.  With ``preempt_chunks=k``,
+  slots that have decoded >= k chunks this residency are spilled, ripe
+  longest-resident first, whenever sessions wait.  The store also holds
+  refcount-0 prefix pages, which RETIRE into it under their chunk keys
+  and are re-adopted (one page upload before the prefill) instead of
+  forwarded again, and, for a family whose admission is a pure function
+  of the prompt (TConst: ``admission_key``), the post-admission slot
+  state with its logits, so a known prompt re-admits as an O(1) restore
+  with zero forward compute.  A pinned snapshot missing at resume, or a
+  failed copy, raises: nothing is silently prefilled again.
+
+Admissions are recorded as ``StepStats(kind="admit")`` in ``admit_stats``
+with ``source`` naming where the slot state came from ("cold" / "resume"
+/ "store"); spills as ``StepStats(kind="spill")`` in ``stats``.
+
 Sampling: each session draws from its own ``torch.Generator`` seeded from
 ``Session.seed`` (or the scheduler seed and ``sid``), so a session's
-stream depends on the session alone.  Left out of the port so far (ROADMAP
-Queue 1 item 8): session tiering (and with it the retiring of refcount-0
-prefix pages into a store), policies, telemetry and speculative
-decoding.
+stream depends on the session alone; a spill freezes the generator's
+state in ``Session.sample_chain`` and the resume carries it on.  Left out
+of the port so far (ROADMAP Queue 1 item 8): policies (the victim rule is
+JAX's FIFO baseline), telemetry and speculative decoding.
 """
 from __future__ import annotations
 
@@ -71,6 +95,33 @@ from repro_torch.models.api import (DecodeAPI, ModelAPI, decode_chunk,
                                     sample_tokens)
 from repro_torch.serving.engine import StepStats, device_sync, tag_compiled
 from repro_torch.serving.session import Session
+from repro_torch.serving.tier_store import (Blob, TierStore,
+                                            flatten_slot_snapshot,
+                                            unflatten_slot_snapshot)
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A host COPY of ``t`` on every device (on the CPU ``.numpy()``
+    would alias the state, which a release then clears in place); a
+    bfloat16 tensor as its int16 bit pattern (numpy has no bfloat16)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return np.ascontiguousarray(t.to("cpu", copy=True).numpy())
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A store array on ``device``: copied first (a disk-tier array is a
+    read-only memmap), moved once.  The restore takes it by its bits."""
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def layout_key(layout: Any) -> str:
+    """A stable string of a bound layout's defining fields (no tensor and
+    no device in it): part of the store's key salt."""
+    fields = ",".join(f"{f.name}={getattr(layout, f.name)!r}"
+                      for f in dataclasses.fields(layout))
+    return f"{type(layout).__name__}({fields})"
 
 
 class SlotScheduler:
@@ -78,7 +129,9 @@ class SlotScheduler:
                  max_len: int, chunk_size: int = 8, seed: int = 0,
                  prefix_sharing: bool = False,
                  max_head_skips: Optional[int] = None,
-                 prefill_chunk: Optional[int] = None):
+                 prefill_chunk: Optional[int] = None,
+                 tier_store: Optional[TierStore] = None,
+                 preempt_chunks: Optional[int] = None):
         # accept a ModelAPI facade too (its dense-layout decode)
         if isinstance(decode, ModelAPI):
             decode = decode.decode
@@ -149,6 +202,26 @@ class SlotScheduler:
         # the most sessions that decoded in one chunk
         self.page_waits = 0
         self.peak_active = 0
+
+        # session tiering: the host-side store and preemption
+        if preempt_chunks is not None and preempt_chunks < 1:
+            raise ValueError("preempt_chunks must be positive (or None to "
+                             "disable preemptive spilling)")
+        if preempt_chunks is not None and tier_store is None:
+            raise ValueError("preempt_chunks needs a tier_store to spill "
+                             "preempted sessions into")
+        self.store = tier_store
+        self.preempt_chunks = preempt_chunks
+        self.spill_stats = {"spills": 0, "resumes": 0, "spilled_bytes": 0,
+                            "pages_retired": 0, "pages_readopted": 0,
+                            "admit_store_hits": 0, "admit_store_puts": 0}
+        # chunks each slot has decoded since its residency began (admit
+        # and resume reset it): the preemption ripeness clock
+        self._slot_chunks = np.zeros((slots,), np.int64)
+        self._page_axes = {f: self.layout.page_axis(f)
+                           for f in self.state.kv
+                           if self.layout.page_axis(f) is not None} \
+            if self._paged else {}
 
         self.generators: List[Optional[torch.Generator]] = [None] * slots
         self.last_token = torch.zeros((slots,), dtype=torch.int32,
@@ -253,27 +326,260 @@ class SlotScheduler:
         self.state.bookkeeping[LT.PAGE_TABLE][slot] = torch.as_tensor(
             row, device=self.device)
 
+    # ------------------------------------------------------------------
+    # session tiering: spill / resume / retire through the TierStore
+    # ------------------------------------------------------------------
+    def _store_salt(self) -> bytes:
+        """Scheduler-level key salt: snapshot shapes and admission
+        numerics depend on max_len, the bound layout and the prefill
+        path, so schedulers differing in any of them never share store
+        entries.  (The params are not hashed: a TierStore must not be
+        shared across schedulers serving different weights.)"""
+        return f"{self.max_len}|{layout_key(self.layout)}|" \
+            f"{self.prefill_chunk}".encode()
+
+    def _session_key(self, session: Session) -> bytes:
+        """Content digest of a session's CURRENT state: extras + prompt +
+        every token generated so far.  Two sessions at the same point of
+        the same request share one snapshot entry (pins nest)."""
+        h = hashlib.sha1(b"session\x00" + self._store_salt())
+        if session.extras:
+            for name in sorted(session.extras):
+                h.update(name.encode())
+                h.update(np.asarray(session.extras[name]).tobytes())
+        h.update(np.ascontiguousarray(session.prompt, np.int32).tobytes())
+        h.update(np.asarray(session.tokens, np.int32).tobytes())
+        return h.digest()
+
+    def _admission_key(self, session: Session) -> Optional[bytes]:
+        """Store key of this request's post-admission slot state, or None
+        when the family's admission is not a pure function of the prompt
+        ids (``DecodeAPI.admission_key``) or there is no store."""
+        if self.store is None:
+            return None
+        base = self.decode.admission_key(session.prompt, session.extras)
+        if base is None:
+            return None
+        h = hashlib.sha1(b"admit\x00" + self._store_salt())
+        h.update(base)
+        return h.digest()
+
+    def _live_pages(self, session: Session) -> int:
+        """Pages that can hold WRITTEN content for this session now
+        (prompt + generated ids, one position of slack): the host-tier
+        size of a paged spill; the slot's pages beyond them hold nothing
+        a restore needs."""
+        need = len(session.prompt) + len(session.tokens) + 1
+        return -(-need // self.layout.page)
+
+    def _snapshot_slot_host(self, slot: int, n_keep: Optional[int] = None
+                            ) -> Dict[str, Dict[str, np.ndarray]]:
+        """Snapshot of ``slot`` copied to the host (:func:`to_host`), paged
+        page stacks trimmed to the first ``n_keep`` table entries (the
+        live prefix of the slot's allocation)."""
+        snap = self.state.snapshot_slot(slot)
+        if self._paged and n_keep is not None:
+            n_keep = min(n_keep, len(self._slot_pages[slot]))
+            for f, ax in self._page_axes.items():
+                snap["kv"][f] = snap["kv"][f].narrow(ax, 0, n_keep)
+        return {part: {n: to_host(t) for n, t in rows.items()}
+                for part, rows in snap.items()}
+
+    def _pad_kv_snapshot(self, kv: Dict[str, Any]
+                         ) -> Dict[str, torch.Tensor]:
+        """Store kv rows on the device, trimmed page stacks padded back to
+        pages_per_slot with zeros (they land on the slot's unwritten
+        pages, masked until written), so a restore fills the whole row
+        as JAX's does."""
+        out = {}
+        pps = self.layout.pages_per_slot if self._paged else 0
+        for f, v in kv.items():
+            t = to_device(v, self.device)
+            ax = self._page_axes.get(f)
+            if ax is not None and t.shape[ax] < pps:
+                shape = list(t.shape)
+                shape[ax] = pps - t.shape[ax]
+                t = torch.cat([t, t.new_zeros(shape)], dim=ax)
+            out[f] = t
+        return out
+
+    def _restore(self, slot: int, blob: Blob) -> Dict[str, Any]:
+        """Restore a slot snapshot blob into ``slot`` (its table row
+        already points at fresh private pages).  Returns the meta."""
+        bk_rows, kv_rows, meta = unflatten_slot_snapshot(blob)
+        self.state.restore_slot(slot, {
+            "bookkeeping": {n: to_device(v, self.device)
+                            for n, v in bk_rows.items()},
+            "kv": self._pad_kv_snapshot(kv_rows)})
+        return meta
+
+    def spill(self, slot: int) -> bytes:
+        """Spill the active session in ``slot`` to the tier store: copy its
+        whole slot state to the host (physical representation: int8
+        compressed, paged only its live pages), PIN it under the
+        session's content digest, freeze its sampling generator, free the
+        slot and its pages, and re-queue the session.  A later admission
+        restores it into ANY free slot, token-identical to never having
+        left.  Returns the store key."""
+        assert self.store is not None, "spilling needs a tier_store"
+        session = self.sessions[slot]
+        assert session is not None and not session.done, \
+            "can only spill a live session"
+        t0 = time.perf_counter()
+        snap = self._snapshot_slot_host(
+            slot, self._live_pages(session) if self._paged else None)
+        blob = flatten_slot_snapshot(snap, {
+            "kind": "session", "sid": session.sid,
+            "last_token": int(self.last_token[slot])})
+        key = self._session_key(session)
+        self.store.put(key, blob, pin=True)
+        self.stats.append(StepStats(
+            "spill", time.perf_counter() - t0,
+            tokens=len(session.prompt) + len(session.tokens),
+            compiled=tag_compiled(self._warm, "spill")))
+        session.snap_key = key
+        session.spills += 1
+        session.slot = None
+        # the generator's state at the spill is the session's position in
+        # its sampling stream (one draw per sampled token)
+        session.sample_chain = self.generators[slot].get_state().numpy()
+        self.spill_stats["spills"] += 1
+        self.spill_stats["spilled_bytes"] += blob.nbytes
+        self._release(slot)
+        self.pending.append(session)
+        return key
+
+    def _resume(self, session: Session, slot: int,
+                plan: Dict[str, Any]) -> None:
+        """Admission of a spilled session: fresh private pages, ONE restore
+        of its pinned snapshot into ``slot``, unpin.  No prefill and no
+        sampling: the last sampled token rides in the snapshot's meta and
+        decode picks up where it left off."""
+        blob = self.store.get(session.snap_key)
+        if blob is None:
+            raise RuntimeError(
+                f"session {session.sid}: its pinned snapshot is missing "
+                f"from the tier store")
+        if self._paged:
+            fresh = [self.free_pages.pop() for _ in range(plan["total"])]
+            for p in fresh:
+                self._page_ref[p] = 1
+            self._set_table_row(slot, fresh)
+        t0 = time.perf_counter()
+        meta = self._restore(slot, blob)
+        device_sync(self.device)
+        self.admit_stats.append(StepStats(
+            "admit", time.perf_counter() - t0,
+            tokens=len(session.prompt) + len(session.tokens),
+            compiled=tag_compiled(self._warm, "admit", ("resume",)),
+            forward_tokens=0, source="resume"))
+        self.store.unpin(session.snap_key)
+        session.snap_key = None
+        session.resumes += 1
+        self.spill_stats["resumes"] += 1
+        self.last_token[slot] = int(meta["last_token"])
+        # the sampling stream goes on where the spill froze it
+        gen = torch.Generator(device=self.device)
+        gen.set_state(torch.from_numpy(np.array(session.sample_chain)))
+        self.generators[slot] = gen
+        session.sample_chain = None
+        session.slot = slot
+        self.sessions[slot] = session
+        self.active[slot] = True
+        self.temps[slot] = session.temperature
+        self.eos[slot] = -1 if session.eos_id is None else session.eos_id
+        self._slot_chunks[slot] = 0
+        self.resyncs.setdefault(session.sid, 0)
+
+    def _retire_pages(self, retiring: List) -> None:
+        """Refcount-0 prefix pages RETIRE into the tier store instead of
+        vanishing with their map entry: their content stays re-adoptable
+        (LRU-evictable, unpinned) under the same chunk key, so residency
+        in the memory hierarchy, not refcount, decides whether a later
+        admission forwards the prefix again.  ``retiring`` is [(page,
+        key), ...] of pages ABOUT to be recycled; the gather runs before
+        anything can reuse them."""
+        idx = torch.as_tensor([p for p, _ in retiring], device=self.device)
+        gathered = {f: to_host(v) for f, v in
+                    self.layout.gather_pages(self.state.kv, idx).items()}
+        for i, (_, key) in enumerate(retiring):
+            arrays = {f: np.take(v, np.arange(i, i + 1),
+                                 axis=self._page_axes[f])
+                      for f, v in gathered.items()}
+            self.store.put(key, Blob(arrays, {"kind": "page"}))
+        self.spill_stats["pages_retired"] += len(retiring)
+
+    def _fetch_restorable(self, keys: List[bytes]) -> List[Blob]:
+        """The planned re-adoptable page blobs; a key that aged out
+        between plan and admit truncates the run (the rest is prefilled:
+        the page count is the same either way)."""
+        blobs: List[Blob] = []
+        for k in keys:
+            b = self.store.get(k)
+            if b is None:
+                break
+            blobs.append(b)
+        return blobs
+
+    def _upload_pages(self, page_ids: List[int],
+                      blobs: List[Blob]) -> None:
+        """Write retired-page content from the store onto freshly
+        allocated pool pages (``scatter_pages``, by their bits): the
+        re-adoption that replaces forwarding the prefix again."""
+        idx = torch.as_tensor(page_ids, device=self.device)
+        contents = {}
+        for f, ax in self._page_axes.items():
+            stack = np.concatenate([np.asarray(b.arrays[f]) for b in blobs],
+                                   axis=ax)
+            contents[f] = LT.bits_as(to_device(stack, self.device),
+                                     self.state.kv[f].dtype)
+        self.layout.scatter_pages(self.state.kv, idx, contents)
+        self.spill_stats["pages_readopted"] += len(blobs)
+
+    # ------------------------------------------------------------------
+    # admission
+    # ------------------------------------------------------------------
     def _admission_plan(self, session: Session
                         ) -> Optional[Dict[str, Any]]:
         """The pages this admission takes, or None while the free pool is
         short (the session waits for running sessions to retire).  With
         prefix sharing, resident pages matching the prompt's chunk keys
         are adopted instead of drawn from the free pool; a resyncing
-        model reserves a free page for each adopted one (its fork)."""
+        model reserves a free page for each adopted one (its fork).  With
+        a tier store, the chunk keys past the resident run whose pages
+        retired into it are planned for re-adoption (a fresh page and an
+        upload each), and a spilled session or a store-hit prompt plans
+        an all-fresh restore."""
+        resume = session.snap_key is not None
+        admit_key = None if resume else self._admission_key(session)
+        # a restore writes the WHOLE slot, so it owns every page privately
+        # (no adoption); the probe does not touch the store's LRU order
+        admit_hit = admit_key is not None and admit_key in self.store
         if not self._paged:
-            return {"total": 0, "adopted": [], "keys": []}
+            return {"total": 0, "adopted": [], "keys": [], "restorable": [],
+                    "resume": resume, "admit_key": admit_key,
+                    "admit_hit": admit_hit}
         total = self._pages_needed(session)
-        keys = self._chunk_keys(session) if self.prefix_sharing else []
+        keys = [] if (resume or admit_hit or not self.prefix_sharing) \
+            else self._chunk_keys(session)
         adopted: List[int] = []
         for key in keys:
             page = self._prefix_map.get(key)
             if page is None:
                 break
             adopted.append(page)
+        restorable: List[bytes] = []
+        if self.store is not None:
+            for key in keys[len(adopted):]:
+                if key not in self.store:
+                    break
+                restorable.append(key)
         reserve = len(adopted) if self._fork_reserve else 0
         if total - len(adopted) + reserve > len(self.free_pages):
             return None
-        return {"total": total, "adopted": adopted, "keys": keys}
+        return {"total": total, "adopted": adopted, "keys": keys,
+                "restorable": restorable, "resume": resume,
+                "admit_key": admit_key, "admit_hit": admit_hit}
 
     def _session_generator(self, session: Session) -> torch.Generator:
         seed = session.seed if session.seed is not None else int(
@@ -283,9 +589,21 @@ class SlotScheduler:
 
     def _admit(self, session: Session, slot: int,
                plan: Dict[str, Any]) -> None:
+        if plan.get("resume"):
+            self._resume(session, slot, plan)
+            return
+        admit_blob = None
+        if plan.get("admit_hit"):
+            # fetched FIRST (nothing else touches the store before it):
+            # None means the entry aged out since the plan, and the plan's
+            # all-fresh pages keep the cold path below valid
+            admit_blob = self.store.get(plan["admit_key"])
         mask = None
+        n_resident = 0
         if self._paged:
             adopted = plan["adopted"]
+            readopt = self._fetch_restorable(plan["restorable"]) \
+                if admit_blob is None else []
             fresh = [self.free_pages.pop()
                      for _ in range(plan["total"] - len(adopted))]
             pages = list(adopted) + fresh
@@ -294,20 +612,28 @@ class SlotScheduler:
             for p in fresh:
                 self._page_ref[p] = 1
             self._set_table_row(slot, pages)
+            if readopt:
+                # retired prefix pages come back from the store onto this
+                # slot's fresh pages BEFORE the prefill, which then attends
+                # them instead of forwarding them again
+                self._upload_pages(
+                    pages[len(adopted):len(adopted) + len(readopt)], readopt)
+            n_resident = len(adopted) + len(readopt)
             if self.prefix_sharing:
                 # this prompt's freshly written stable pages become
-                # adoptable (the adopted ones are in the map already)
+                # adoptable (adopted ones are in the map already, and
+                # re-adopted ones enter it resident again)
                 for i, key in enumerate(plan["keys"]):
                     if key not in self._prefix_map:
                         self._register(key, pages[i])
-                if adopted:
-                    # tail-only write: adopted pages hold this prompt's KV
-                    # already, and a page at refcount > 1 is never written
+                if n_resident:
+                    # tail-only write: resident pages hold this prompt's
+                    # KV already, and a page at refcount > 1 is never
+                    # written
                     host_mask = np.ones((self.layout.pages_per_slot,), bool)
-                    host_mask[:len(adopted)] = False
+                    host_mask[:n_resident] = False
                     mask = torch.as_tensor(host_mask, device=self.device)
-        resident = len(plan["adopted"]) * self.layout.page \
-            if self._paged else 0
+        resident = n_resident * self.layout.page if self._paged else 0
         # JAX's rule, not a device fallback: a prompt whose chunk grid
         # would run past max_len is admitted in one shot
         chunked = self.prefill_chunk is not None and \
@@ -316,8 +642,19 @@ class SlotScheduler:
                                              self.prefill_chunk,
                                              self.max_len)
         t0 = time.perf_counter()
-        if chunked:
-            # the adopted pages are attended, not forwarded again (but for
+        if admit_blob is not None:
+            # admission-cache hit: the post-admission slot state and its
+            # logits restore in one write; the O(N) resync never runs
+            meta = self._restore(slot, admit_blob)
+            logits = LT.bits_as(
+                to_device(admit_blob.arrays["logits"], self.device),
+                getattr(torch, meta["logits_dtype"]))
+            fwd = 0
+            sig = ("restore",)
+            source = "store"
+            self.spill_stats["admit_store_hits"] += 1
+        elif chunked:
+            # the resident pages are attended, not forwarded again (but for
             # the one chunk the logits need), and every chunk has one
             # shape: the signature is the chunk, not the prompt length
             logits, self.state, info = \
@@ -328,18 +665,33 @@ class SlotScheduler:
             fwd = info["forward_tokens"]
             sig = ("chunked", self.prefill_chunk, resident > 0,
                    mask is not None)
+            source = "cold"
         else:
             logits, self.state = self.decode.prefill_into_slot(
                 self.params, self.state, slot, session.prompt,
                 page_write_mask=mask)
             fwd = len(session.prompt)
             sig = (len(session.prompt), mask is not None)
+            source = "cold"
         device_sync(self.device)
         self._key_cache.pop(session.sid, None)
         self.admit_stats.append(StepStats(
             "admit", time.perf_counter() - t0, tokens=len(session.prompt),
             compiled=tag_compiled(self._warm, "admit", sig),
-            forward_tokens=fwd))
+            forward_tokens=fwd, source=source))
+        if admit_blob is None and plan.get("admit_key") is not None:
+            # a cacheable cold admission: the slot state just admitted is a
+            # pure function of the prompt; its snapshot (before sampling)
+            # and logits make the NEXT admission of this prompt an O(1)
+            # restore.  Unpinned: LRU decides how long it lives.
+            snap = self._snapshot_slot_host(
+                slot, self._live_pages(session) if self._paged else None)
+            blob = flatten_slot_snapshot(snap, {
+                "kind": "admit",
+                "logits_dtype": str(logits.dtype).rsplit(".", 1)[-1]})
+            blob.arrays["logits"] = to_host(logits)
+            self.store.put(plan["admit_key"], blob)
+            self.spill_stats["admit_store_puts"] += 1
         gen = self._session_generator(session)
         t0k = sample_tokens(logits[None], np.array([session.temperature]),
                             [gen])[0]
@@ -350,6 +702,7 @@ class SlotScheduler:
         self.active[slot] = True
         self.temps[slot] = session.temperature
         self.eos[slot] = -1 if session.eos_id is None else session.eos_id
+        self._slot_chunks[slot] = 0
         self.resyncs.setdefault(session.sid, 0)
         session.deliver([int(t0k)])          # first token: prefill logits
 
@@ -457,22 +810,62 @@ class SlotScheduler:
             # at refcount 0
             pages = self._slot_pages[slot]
             self._set_table_row(slot, [])
+            retiring = []
             for p in pages:
                 self._page_ref[p] -= 1
                 if self._page_ref[p] == 0:
+                    # with a store, a prefix page at refcount 0 retires
+                    # into it (gathered below, before anything reuses it)
+                    key = self._page_key.get(p)
+                    if self.store is not None and key is not None:
+                        retiring.append((p, key))
                     self._unregister(p)
                     self.free_pages.append(p)
+            if retiring:
+                self._retire_pages(retiring)
         # clear the slot so stale phase counters can't fire a resync of an
         # empty row
         self.state = self.state.with_slot(slot, self._empty_row)
         self.last_token[slot] = 0
 
+    def _select_victims(self, ripe: List[int], n: int) -> List[int]:
+        """Which ``n`` of the ``ripe`` slots to spill: the longest
+        resident first, ties by slot index (JAX's baseline
+        ``FifoPolicy.select_victims``; the policy seam comes with the
+        policies)."""
+        return sorted(ripe, key=lambda s: -int(self._slot_chunks[s]))[:n]
+
+    def _preempt_for_pending(self) -> int:
+        """Preemption: while sessions wait after admission (for slots or
+        pool pages), active sessions that have decoded at least
+        ``preempt_chunks`` chunks this residency are spill candidates, one
+        victim per waiter.  A fresh residency decodes >= preempt_chunks
+        before it can be preempted again, so every rotation makes
+        progress and an oversubscribed queue drains.  Returns the number
+        of spills."""
+        ripe = [s for s in range(self.slots)
+                if self.active[s] and
+                self._slot_chunks[s] >= self.preempt_chunks]
+        n = min(len(ripe), len(self.pending))
+        if not n:
+            return 0
+        victims = self._select_victims(ripe, n)
+        for s in victims:
+            self.spill(int(s))
+        return len(victims)
+
     def step(self) -> bool:
         """Admit pending sessions, then decode ONE chunk for the active
         slots (under prefix sharing, those not paused for copy-on-write
-        fork pages).  Returns False when no progress was made."""
+        fork pages).  With a tier store and ``preempt_chunks``, ripe slots
+        are spilled for waiting sessions first.  Returns False when no
+        progress was made."""
         self.clock += 1
         admitted = self.admit_pending()
+        if self.store is not None and self.preempt_chunks is not None \
+                and self.pending:
+            if self._preempt_for_pending():
+                admitted = self.admit_pending() or admitted
         if not self.active.any():
             return admitted
         run_mask = self._cow_before_chunk() if self.prefix_sharing \
@@ -491,6 +884,7 @@ class SlotScheduler:
             "chunk", time.perf_counter() - t0, tokens=self.chunk_size,
             compiled=tag_compiled(self._warm, "chunk")))
         for slot in np.nonzero(run_mask)[0]:
+            self._slot_chunks[slot] += 1
             sess = self.sessions[slot]
             self.resyncs[sess.sid] += int(resyncs[slot])
             sess.deliver(host_toks[slot])

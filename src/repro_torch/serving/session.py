@@ -85,8 +85,9 @@ class Session:
     # submit-time scheduler clock (chunk units) — set by ``submit``; the
     # anchor for TTFT/queue-wait accounting and deadline slack.
     submit_clock: Optional[int] = None
-    # saved per-slot PRNG key across a spill (the chain position is
-    # ``len(tokens)``, so restoring this key resumes the exact stream).
+    # the session's sampling generator state, frozen across a spill (its
+    # position is ``len(tokens)`` draws, so restoring it resumes the exact
+    # stream): ``torch.Generator.get_state()`` as a uint8 array.
     sample_chain: Optional[np.ndarray] = None
 
     def __post_init__(self) -> None:

@@ -184,14 +184,16 @@ def test_serve_batch_cli_times_hits_and_misses(capsys):
 
 @pytest.mark.parametrize("flag", [
     ["--prefix-sharing"], ["--prefill-chunk", "-16"],
-    ["--spill-capacity-mb", "8"], ["--spill-dir", "x"],
+    ["--spill-capacity-mb", "-1"], ["--spill-dir", "x"],
     ["--workload", "bursty"], ["--policy", "slo"],
     ["--slo-ttft-chunks", "3"], ["--speculate", "4"],
     ["--drafter", "tconst"], ["--mesh", "2x4"]])
 def test_unported_flags_error(flag, capsys):
     """Flags of features not ported yet argparse-error with their ROADMAP
-    item.  ``--prefix-sharing`` and ``--prefill-chunk`` are ported: on the
-    dense layout the first, and a chunk that is not positive the second,
+    item.  ``--prefix-sharing``, ``--prefill-chunk``,
+    ``--spill-capacity-mb`` and ``--spill-dir`` are ported: on the dense
+    layout the first, a chunk that is not positive the second, a negative
+    capacity the third and a spill directory without a capacity the last
     are refused as the JAX launcher refuses them."""
     with pytest.raises(SystemExit) as e:
         serve.parse_args(["--sessions", "2"] + flag)
@@ -201,6 +203,11 @@ def test_unported_flags_error(flag, capsys):
         assert "--prefix-sharing shares pool pages" in err
     elif flag[0] == "--prefill-chunk":
         assert "--prefill-chunk -16 must be positive" in err
+    elif flag[0] == "--spill-capacity-mb":
+        assert "--spill-capacity-mb -1.0 must be positive" in err
+    elif flag[0] == "--spill-dir":
+        assert "--spill-dir is the tier below a bounded host-RAM store" \
+            in err
     else:
         assert "ROADMAP Queue 1 item" in err
 
