@@ -88,7 +88,7 @@ Phases (any failure raises, so the exit code is non-zero):
    plain path's own bf16 error.  Then the MoE
    family: deepseek-moe-16b (16.4 B parameters, drawn on the card in bf16
    from a seed) at full width and depth on dense (K1, K2) and paged (K2,
-   K3, the under-sized pool) in bf16 (``--gen 96``; finite logits), and
+   K3, the under-sized pool) in bf16 (``--gen 64``; finite logits), and
    at full width and depth 3 (the dense layer and two MoE layers) in f32
    (streams equal their solo runs); at that depth its f32 and bf16 logits
    are held against one CPU f32 reference, with the count of routed
@@ -163,6 +163,29 @@ Phases (any failure raises, so the exit code is non-zero):
    and no GEMM (a restore alone traces copies only) and the cold
    admission's logits bit for bit; device ms, wall ms and snapshot bytes
    of both.
+   A workload phase (4f) replays seeded traffic traces open-loop
+   (``serve.drive``) under both scheduling policies with telemetry: (a)
+   ``serve.main`` with ``--workload bursty --policy slo`` at full width
+   (tconst-41m, 8 sessions over 2 slots, chunks of 4): rc 0, every
+   session finished, K1 and K2 only; (b) tconst-41m / dense, 12 bursty
+   sessions over 3 slots in chunks of 32 (prompts 700-1000, outputs
+   48-144, a quarter repeats, temperature 0.7, the bucketed admission, a
+   RAM tier store, a spill of every slot that decoded a chunk while
+   sessions wait), f32 and bf16 under ``fifo`` and ``slo``; (c)
+   smollm-360m / paged at 8 layers in f32, 10 sessions behind one 4-page
+   system prompt, prefix sharing, chunked admission in chunks of 128 and
+   a pool of 20 pages of 64, both policies.  Each run launches exactly its
+   layout's kernels and no plain version, drains every session, resumes
+   every spill and leaves no pin (paged: every page free); the f32 streams
+   are equal across the policies at every trace position, and every f32
+   run's numbers in chunk units (TTFT, inter-token gaps, queue waits,
+   SLO attainment, spills, resumes, admission sources and forward tokens,
+   deferrals, the final clock) equal ``tools/torch_workload_counts.py``'s
+   prediction (``WORKLOAD_PREDICTION``).  In (c) the slo policy must
+   consult ``defer_admission`` and weigh victims whose ``spill_cost``
+   varies with their live pages and has a re-admission term.  Prints each
+   run's summary, warm TTFT seconds beside the card line, and slo against
+   fifo SLO attainment (recorded, not gated).
 5. Training (``launch.train``, ``--batch 8 --seq 1024 --steps 6``):
    tconst-41m at full width in bf16 in modes tconst, tlin and full (the
    base transformer) on one seeded init, in turns A B C C B A over the
@@ -248,13 +271,18 @@ MINICPM = "minicpm_2b"
 # layers at full width (the only cut: 16.4 B parameters are 65.6 GB in
 # f32, and the CPU reference reads every expert's weights each step)
 DEEPSEEK_CHECK_DEPTH = 3
-# the bf16 runs of the families without a resync (the attention LMs,
-# deepseek and mamba2) at full depth: gen 96 (three chunks), so each
+# the bf16 runs of the families without a resync (the attention LMs and
+# mamba2) at full depth: gen 96 (three chunks), so each
 # session but the last decodes while the next is admitted, and a paged
 # run's third session waits for pages (12 + 12 of 31 held).  Their
 # eager steps are host-bound (30-70 ms a step at full depth): gen 320
 # made smollm's two runs alone ~110 s of the smoke on a slow host
 LM_BF16_ARGS = ["--gen", "96"]
+# deepseek's bf16 runs (~110 ms a step at full depth): gen 64 (two
+# chunks); the paged run's pool of 23 pages (11 + 11 held, 12 needed)
+# makes a session wait for pages, as 31 does at gen 96
+DEEPSEEK_BF16_ARGS = ["--gen", "64"]
+DEEPSEEK_BF16_POOL = ["--pool-pages", "23"]
 LM_MODES = ("smollm", "full", "mamba2", "deepseek")
 # deepseek in tconst mode (MoE FFNs inside the TConst core: 7 blocks of
 # depth 4, every layer MoE): bf16 at full depth; f32, its streams and both
@@ -422,6 +450,162 @@ TIER_SMOLLM_ARGS = ["--sessions", "3", "--slots", "1", "--pool-pages", "0",
 TIER_SMOLLM_BF16 = ["--gen", "32", "--chunk", "16"]
 TIER_READMIT_N = (1024, 8192)
 TIER_READMIT_GEN = 16
+# the workload phase (4f): seeded traces replayed open-loop under both
+# scheduling policies (``serve.drive``).  (a) the launcher's --workload
+# mode at full width with the verify skill's argv.  (b) tconst-41m /
+# dense, 3 slots, chunks of 32, a RAM tier store and a spill of every
+# slot that decoded a chunk while sessions wait: 12 bursty sessions,
+# prompts 700-760 or 960-1000 (g0 188-248 / 192-232 of W_og 256) and
+# outputs of 48-80 or 112-144 tokens, so most sessions cross a resync; a
+# quarter repeat an earlier prompt (an O(1) store re-admission), 40% carry
+# a TTFT deadline of 3 chunks; temperature 0.7; the bucketed admission
+# (--prefill-chunk 64: one signature, so a TTFT past the first admission
+# is warm; one-shot admissions would taint every distinct prompt length).
+# (c) smollm-360m / paged (f32 at SMOLLM_F32_DEPTH layers) with prefix
+# sharing and chunked admission in chunks of 128, pages of 64, a pool of
+# 20 below the full 3 x 13: 10 bursty sessions, 60% of them behind one
+# 4-page system prompt, so the slo policy defers admissions for
+# page-blocked deadline sessions, and weighs its victims by live pages.
+# Every number of a run in chunk units is a function of the trace and
+# the schedule (no EOS): predicted on the CPU by
+# tools/torch_workload_counts.py (WORKLOAD_PREDICTION below) and held to
+# on the card in f32.
+WORKLOAD_CLI_ARGS = ["--arch", "tconst-41m", "--sessions", "8", "--slots",
+                     "2", "--chunk", "4", "--max-len", "104", "--workload",
+                     "bursty", "--policy", "slo", "--slo-ttft-chunks", "6"]
+WORKLOAD_STORE_BYTES = 8 << 30       # ample: no eviction shapes a schedule
+WORKLOAD_POLICIES = ("fifo", "slo")
+WORKLOAD_RUNS = {
+    "tconst/dense": dict(
+        mode="tconst", layout="dense", slots=3, chunk=32, max_len=1200,
+        prefill_chunk=BUCKET_CHUNK, seed=3, dtypes=("float32", "bfloat16"),
+        spec=dict(n_sessions=12, arrival="bursty", burst_size=4,
+                  burst_every=3.0,
+                  prompt_mix=((0.6, 700, 760), (0.4, 960, 1000)),
+                  output_mix=((0.7, 48, 80), (0.3, 112, 144)),
+                  repeat_frac=0.25, slo_frac=0.4, slo_ttft_chunks=3,
+                  temperature=0.7)),
+    "smollm/paged": dict(
+        mode="smollm", layout="paged", slots=3, chunk=32, max_len=832,
+        page=64, pool=20, prefill_chunk=SHARING_CHUNK, prefix_sharing=True,
+        seed=1, dtypes=("float32",),
+        spec=dict(n_sessions=10, arrival="bursty", burst_size=4,
+                  burst_every=3.0, shared_frac=0.6, n_prefixes=1,
+                  prefix_len=256,
+                  prompt_mix=((0.7, 64, 192), (0.3, 256, 384)),
+                  output_mix=((0.8, 32, 64), (0.2, 96, 128)),
+                  repeat_frac=0.1, slo_frac=0.4, slo_ttft_chunks=2,
+                  temperature=0.7)),
+}
+# tools/torch_workload_counts.py's output (its chunk-unit numbers of each
+# run and policy, on the CPU at reduced widths)
+WORKLOAD_PREDICTION = {
+    "tconst/dense/fifo": {"sessions": 12,
+                          "finished": 12,
+                          "tokens_out": 1000,
+                          "ttft_chunks": {"p50": 2.0, "p99": 3.0},
+                          "itl_chunks": {"p50": 0.0, "p99": 4.0},
+                          "queue_wait_chunks": {"p50": 2.0, "p99": 3.0},
+                          "slo": {"sessions_with_slo": 6,
+                                  "attainment": 1.0,
+                                  "ttft_attainment": 1.0},
+                          "spills": 21,
+                          "resumes": 21,
+                          "ttft_compile_excluded": 2,
+                          "clock": 15,
+                          "sources": ["cold", "cold", "cold", "cold", "cold",
+                                      "cold", "cold", "store", "cold", "cold",
+                                      "cold", "cold", "resume", "resume",
+                                      "resume", "resume", "resume", "resume",
+                                      "resume", "resume", "resume", "resume",
+                                      "resume", "resume", "resume", "resume",
+                                      "resume", "resume", "resume", "resume",
+                                      "resume", "resume", "resume"],
+                          "forward_tokens": [1200, 1200, 1200, 1200, 1200,
+                                             1200, 1200, 0, 1200, 1200, 1200,
+                                             1200, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                                             0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                                             0],
+                          "deferrals": [0, 0],
+                          "crossed_resync": 12},
+    "tconst/dense/slo": {"sessions": 12,
+                         "finished": 12,
+                         "tokens_out": 1000,
+                         "ttft_chunks": {"p50": 3.0, "p99": 7.0},
+                         "itl_chunks": {"p50": 0.0, "p99": 2.0},
+                         "queue_wait_chunks": {"p50": 3.0, "p99": 7.0},
+                         "slo": {"sessions_with_slo": 6,
+                                 "attainment": 1.0,
+                                 "ttft_attainment": 1.0},
+                         "spills": 21,
+                         "resumes": 21,
+                         "ttft_compile_excluded": 2,
+                         "clock": 16,
+                         "sources": ["cold", "cold", "cold", "cold", "resume",
+                                     "resume", "resume", "resume", "resume",
+                                     "store", "cold", "cold", "resume",
+                                     "resume", "cold", "resume", "resume",
+                                     "cold", "cold", "resume", "cold",
+                                     "resume", "cold", "resume", "resume",
+                                     "resume", "resume", "resume", "resume",
+                                     "resume", "resume", "resume", "resume"],
+                         "forward_tokens": [1200, 1200, 1200, 1200, 0, 0, 0,
+                                            0, 0, 0, 1200, 1200, 0, 0, 1200,
+                                            0, 0, 1200, 1200, 0, 1200, 0,
+                                            1200, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                                            0],
+                         "deferrals": [0, 15],
+                         "crossed_resync": 12},
+    "smollm/paged/fifo": {"sessions": 10,
+                          "finished": 10,
+                          "tokens_out": 718,
+                          "ttft_chunks": {"p50": 1.0, "p99": 4.0},
+                          "itl_chunks": {"p50": 0.0, "p99": 4.0},
+                          "queue_wait_chunks": {"p50": 1.0, "p99": 4.0},
+                          "slo": {"sessions_with_slo": 5,
+                                  "attainment": 0.6,
+                                  "ttft_attainment": 0.6},
+                          "spills": 15,
+                          "resumes": 15,
+                          "ttft_compile_excluded": 2,
+                          "clock": 15,
+                          "sources": ["cold", "cold", "cold", "cold",
+                                      "resume", "cold", "resume", "cold",
+                                      "cold", "cold", "cold", "resume",
+                                      "resume", "resume", "resume", "resume",
+                                      "resume", "cold", "resume", "resume",
+                                      "resume", "resume", "resume", "resume",
+                                      "resume"],
+                          "forward_tokens": [640, 384, 128, 384, 0, 256, 0,
+                                             128, 384, 128, 256, 0, 0, 0, 0,
+                                             0, 0, 128, 0, 0, 0, 0, 0, 0, 0],
+                          "deferrals": [0, 6],
+                          "crossed_resync": 0},
+    "smollm/paged/slo": {"sessions": 10,
+                         "finished": 10,
+                         "tokens_out": 718,
+                         "ttft_chunks": {"p50": 1.0, "p99": 6.0},
+                         "itl_chunks": {"p50": 0.0, "p99": 2.0},
+                         "queue_wait_chunks": {"p50": 1.0, "p99": 6.0},
+                         "slo": {"sessions_with_slo": 5,
+                                 "attainment": 1.0,
+                                 "ttft_attainment": 1.0},
+                         "spills": 16,
+                         "resumes": 16,
+                         "ttft_compile_excluded": 2,
+                         "clock": 16,
+                         "sources": ["cold", "cold", "resume", "cold", "cold",
+                                     "cold", "resume", "cold", "resume",
+                                     "resume", "resume", "cold", "resume",
+                                     "cold", "resume", "cold", "resume",
+                                     "resume", "resume", "cold", "resume",
+                                     "resume", "resume", "resume", "resume",
+                                     "resume"],
+                         "forward_tokens": [640, 384, 0, 384, 256, 128, 0,
+                                            128, 0, 0, 0, 128, 0, 384, 0, 128,
+                                            0, 0, 0, 256, 0, 0, 0, 0, 0, 0],
+                         "deferrals": [4, 19],
+                         "crossed_resync": 0}}
 # device items of a restore (host <-> device and device copies), and the
 # names cuBLAS gives its GEMM kernels
 RESTORE_RE = "copy|memcpy|memset|fill"
@@ -1359,14 +1543,23 @@ def kernel_phase(torch, cfg, dev, max_len: int):
         return torch.randn(shape, generator=gen, device=dev,
                            dtype=torch.float32).to(dtype)
 
+    parts_s = {}
+
+    def timed(fn, *args):
+        t0 = time.time()
+        fn(*args)
+        parts_s[fn.__name__] = parts_s.get(fn.__name__, 0) + time.time() - t0
+
     for dname in ("bfloat16", "float32"):
-        k1_rows(torch, rows, cfg, dev, randn, gen, dname, max_len)
-        k3_rows(torch, rows, cfg, dev, randn, gen, dname, max_len)
-        k2_rows(torch, rows, cfg, dev, randn, dname, max_len)
-        lm_rows(torch, rows, dev, randn, gen, dname, max_len)
-        chunk_rows(torch, rows, dev, randn, dname)
-        k2_bwd_rows(torch, rows, cfg, dev, randn, dname)
-    ssd_phase(torch, rows, dev, gen)
+        timed(k1_rows, torch, rows, cfg, dev, randn, gen, dname, max_len)
+        timed(k3_rows, torch, rows, cfg, dev, randn, gen, dname, max_len)
+        timed(k2_rows, torch, rows, cfg, dev, randn, dname, max_len)
+        timed(lm_rows, torch, rows, dev, randn, gen, dname, max_len)
+        timed(chunk_rows, torch, rows, dev, randn, dname)
+        timed(k2_bwd_rows, torch, rows, cfg, dev, randn, dname)
+    timed(ssd_phase, torch, rows, dev, gen)
+    print("[kernel] seconds by row group: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts_s.items()))
     for r in rows:
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f}"
@@ -1386,8 +1579,9 @@ def session_argv(mode: str, layout: str, dtype: str):
     """The launcher's argv of one sessions run (f32 runs of the TConst
     core at the shorter F32_ARGS (tconst/dense's too), of
     the dense LMs and deepseek at F32_LM_ARGS; the other runs of
-    ``LM_MODES`` at LM_BF16_ARGS; deepseek in tconst mode at F32_ARGS in
-    both dtypes)."""
+    ``LM_MODES`` at LM_BF16_ARGS, deepseek's at DEEPSEEK_BF16_ARGS and
+    DEEPSEEK_BF16_POOL; deepseek in tconst mode at F32_ARGS in both
+    dtypes)."""
     argv = SESSIONS_ARGS + ["--arch", MODELS[mode][0], "--dtype", dtype,
                             "--layout", layout]
     if mode == "deepseek-tconst":
@@ -1396,10 +1590,14 @@ def session_argv(mode: str, layout: str, dtype: str):
         argv += F32_LM_ARGS
     elif dtype == "float32" and mode in TCONST_MODES:
         argv += F32_ARGS
+    elif mode == "deepseek":
+        argv += DEEPSEEK_BF16_ARGS
     elif mode in LM_MODES:
         argv += LM_BF16_ARGS
     if layout.startswith("paged"):
         argv += F32_PAGED_ARGS if dtype == "float32" else PAGED_ARGS
+        if (mode, dtype) == ("deepseek", "bfloat16"):
+            argv += DEEPSEEK_BF16_POOL
     return argv
 
 
@@ -1482,8 +1680,10 @@ def serve_phase(torch, runtime, serve, mode: str, layout: str, dtype: str,
     depth)."""
     args = serve.parse_args((sharing_argv if sharing else session_argv)(
         mode, layout, dtype) + list(extra))
+    t0 = time.time()
     cfg, api, params = serve.load(args, **MODELS[mode][1], **overrides)
     torch.cuda.synchronize()
+    parts_s = {"load": time.time() - t0}
     with (cow_watch(torch) if sharing else contextlib.nullcontext()) \
             as watch:
         runtime.reset_counters()
@@ -1518,7 +1718,8 @@ def serve_phase(torch, runtime, serve, mode: str, layout: str, dtype: str,
               f"pool pages")
         check(sorted(sched.free_pages) == list(range(
             sched.layout.pool_pages)), f"{what}: pages leaked")
-    rep = {"seconds": served["seconds"], "launches": counts,
+    rep = {"seconds": served["seconds"], "parts_s": parts_s,
+           "launches": counts,
            "page_waits": sched.page_waits, "peak_active": sched.peak_active,
            "kv_bytes": sched.kv_bytes(),
            "streams": [list(s.tokens) for s in served["sessions"]],
@@ -1542,23 +1743,21 @@ def serve_phase(torch, runtime, serve, mode: str, layout: str, dtype: str,
                    adopted=watch["adopted"],
                    pages_forked=sched.pages_forked,
                    fork_pauses=sched.fork_pauses)
-    # the solo runs the streams are checked against come after the read;
-    # the first slice's tconst/dense run keeps its own in bf16 too
+    # the solo runs the streams are checked against come after the read
     if ref_streams is not None:
         rep["streams_equal_ref"] = rep["streams"] == ref_streams
         check(dtype != "float32" or rep["streams_equal_ref"], f"{what}: "
               f"f32 greedy streams differ from the same argv's run "
               f"without {list(extra)}")
-    elif dtype == "float32" or ((mode, layout) == ("tconst", "dense")
-                                and not extra):
+    elif dtype == "float32":
+        t0 = time.time()
         chk = serve.check_sessions(api, params, served, args)
+        parts_s["solo"] = time.time() - t0
         rep["sessions"] = [{k: s[k] for k in ("sid", "prompt_len",
                                               "resyncs", "matches")}
                            for s in chk["sessions"]]
-        if dtype == "float32":
-            check(chk["rc"] == 0 and all(s["matches"]
-                                         for s in chk["sessions"]),
-                  f"{what}: f32 greedy streams differ from their solo runs")
+        check(chk["rc"] == 0 and all(s["matches"] for s in chk["sessions"]),
+              f"{what}: f32 greedy streams differ from their solo runs")
     return cfg, args, params, rep
 
 
@@ -2299,7 +2498,7 @@ def readmission_profile(torch, runtime, cfg, params, n: int) -> dict:
     return out
 
 
-def tiering_phase(torch, runtime, serve, runs, sharing) -> dict:
+def tiering_phase(torch, runtime, serve, runs, sharing, weights) -> dict:
     """Phase 4e: session tiering on the main path (runs 1-5 of the
     comment above ``TIER_ARGS``), each run counted alone.  Checks beyond
     :func:`tier_run`'s: run 1, each session's resyncs equal the untiered
@@ -2312,14 +2511,14 @@ def tiering_phase(torch, runtime, serve, runs, sharing) -> dict:
     prompt pages and forwards one chunk, resumes forward 0, and the f32
     streams equal 4b's one-shot untiered run of the argv (held to their
     solo runs there); run 4, :func:`readmission_profile`; run 5, demotions
-    and promotions, streams equal run 1's f32 ones."""
+    and promotions, streams equal run 1's f32 ones.  ``weights``: the
+    seeded weights of tconst-41m and smollm-360m by arch, which phase 4f
+    serves again."""
     import shutil
     from repro_torch.config import get_config
     out = {}
-    # tconst-41m's weights: drawn once (float32 on the CPU), every mode and
-    # dtype below
-    tconst_params = serve.load(serve.parse_args(
-        ["--arch", "tconst-41m"]))[2]
+    # tconst-41m's weights: every mode and dtype below
+    tconst_params = weights["tconst-41m"]
 
     def tconst_cfg(mode, dtype):
         return get_config("tconst-41m").replace(attention_mode=mode,
@@ -2398,10 +2597,9 @@ def tiering_phase(torch, runtime, serve, runs, sharing) -> dict:
         for dtype, ns in (("bfloat16", TIER_READMIT_N),
                           ("float32", TIER_READMIT_N[:1])) for n in ns}
     out["readmission"]["phase_s"] = time.time() - t0
-    tconst_params = None
     # run 3: smollm / paged, one slot: retired prefix pages re-adopted
     t0 = time.time()
-    full = serve.load(serve.parse_args(["--arch", SMOLLM]))[2]
+    full = weights[SMOLLM]
     for dtype in ("float32", "bfloat16"):
         key = f"smollm/paged/{dtype}"
         cfg = get_config(SMOLLM).replace(dtype=dtype)
@@ -2429,11 +2627,207 @@ def tiering_phase(torch, runtime, serve, runs, sharing) -> dict:
               f"f32 streams differ from 4b's untiered one-shot run")
         out[key] = rep
     out["smollm/paged/float32"]["phase_s"] = time.time() - t0
-    full = params = None
     torch.cuda.empty_cache()
     for rep in out.values():
         for k in ("api", "args", "served"):
             rep.pop(k, None)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4f: workload traces, telemetry and the scheduling policies
+# ---------------------------------------------------------------------------
+
+
+def chunk_units(rep: dict) -> dict:
+    """The numbers of a workload run that are a function of the trace and
+    the schedule alone: the telemetry summary in chunk units, the
+    scheduler's final clock, each admission's source and forward tokens,
+    the policy's deferral answers and the sessions that crossed a
+    resync."""
+    summ = rep["summary"]
+    keep = ("sessions", "finished", "tokens_out", "ttft_chunks",
+            "itl_chunks", "queue_wait_chunks", "slo", "spills", "resumes",
+            "ttft_compile_excluded")
+    return {**{k: summ[k] for k in keep},
+            **{k: rep[k] for k in ("clock", "sources", "forward_tokens",
+                                   "deferrals", "crossed_resync")}}
+
+
+def workload_run(torch, runtime, serve, cfg, params, name: str, policy: str,
+                 device: str = "cuda") -> dict:
+    """Replay ``WORKLOAD_RUNS[name]``'s trace on ``device`` under
+    ``policy`` through ``serve.drive`` (the launcher's replay), the launch
+    counters reset right before it and read right after.  Records the
+    telemetry summary, the admissions, the policy's deferral answers and
+    the ``spill_cost`` of every victim candidate it weighed.  The trace
+    is drawn with ``cfg.vocab_size``: a reduced model must keep the full
+    vocabulary for the trace to be the same."""
+    from repro_torch.models.api import build_decode
+    from repro_torch.models.layouts import LayoutSpec
+    from repro_torch.serving.metrics import ServingTelemetry
+    from repro_torch.serving.scheduler import SlotScheduler
+    from repro_torch.serving.tier_store import TierStore
+    from repro_torch.serving.workload import WorkloadSpec, generate_workload
+    run = WORKLOAD_RUNS[name]
+    spec = WorkloadSpec(vocab=cfg.vocab_size, **run["spec"])
+    longest = max(hi for _, _, hi in spec.output_mix)
+    arrivals = generate_workload(
+        spec, run["seed"], max_prompt_len=run["max_len"] - longest -
+        run["chunk"])
+    layout = None if run["layout"] == "dense" else LayoutSpec(
+        kind=run["layout"], page_size=run["page"], pool_pages=run["pool"])
+    tel = ServingTelemetry()
+    sched = SlotScheduler(
+        build_decode(cfg, layout, device=device,
+                     prefill_chunk=run.get("prefill_chunk")),
+        params, slots=run["slots"], max_len=run["max_len"],
+        chunk_size=run["chunk"], prefix_sharing=run.get("prefix_sharing",
+                                                        False),
+        tier_store=TierStore(capacity_bytes=WORKLOAD_STORE_BYTES),
+        preempt_chunks=1, policy=policy, telemetry=tel)
+    deferrals, costs = [], []
+    defer, cost = sched.policy.defer_admission, sched.spill_cost
+
+    def counted_defer(sch, session, plan):
+        deferrals.append(defer(sch, session, plan))
+        return deferrals[-1]
+
+    def recorded_cost(slot):
+        costs.append(cost(slot))
+        return costs[-1]
+
+    sched.policy.defer_admission, sched.spill_cost = counted_defer, \
+        recorded_cost
+    if device == "cuda":
+        torch.cuda.synchronize()
+    runtime.reset_counters()
+    seconds = serve.drive(sched, arrivals)
+    counts = runtime.read_counters()
+    sessions = [a.session for a in arrivals]
+    rep = {"seconds": seconds, "summary": tel.summary(),
+           "clock": sched.clock,
+           "sources": [a.source for a in sched.admit_stats],
+           "forward_tokens": [a.forward_tokens for a in sched.admit_stats],
+           "deferrals": [sum(deferrals), len(deferrals)],
+           "crossed_resync": sum(sched.resyncs.get(s.sid, 0) >= 1
+                                 for s in sessions),
+           "spill_cost_bytes": sorted({c["bytes"] for c in costs}),
+           "spill_cost_readmit": sorted({c["readmit"] for c in costs}),
+           "spill_stats": dict(sched.spill_stats),
+           "page_waits": sched.page_waits,
+           "launches": {n: c["kernel"] for n, c in counts.items()
+                        if c["kernel"]},
+           "plain": {n: c["plain"] for n, c in counts.items()
+                     if c["plain"]},
+           "streams": [list(s.tokens) for s in sessions],
+           "per_session": [(s.spills, s.resumes) for s in sessions],
+           "drained": all(len(s.tokens) == s.max_new_tokens and s.done
+                          for s in sessions),
+           "pins_left": len(tuple(sched.store.pinned_keys())),
+           "pages_free": sorted(sched.free_pages) ==
+           list(range(sched.layout.pool_pages)) and
+           not sched.page_refcounts().any() if sched._paged else None}
+    return rep
+
+
+def check_workload_run(rep: dict, kernels, what: str) -> None:
+    """A workload run launched exactly ``kernels`` and no plain version,
+    drained every session, resumed every spill of each session, and left
+    no pin and (paged) every page free."""
+    check(set(rep["launches"]) == set(kernels) and not rep["plain"],
+          f"{what}: launches {rep['launches']}, plain {rep['plain']}; "
+          f"expected exactly {kernels}")
+    check(rep["drained"] and rep["summary"]["finished"] ==
+          rep["summary"]["sessions"], f"{what}: not every session drained")
+    check(all(a == b for a, b in rep["per_session"]) and
+          rep["summary"]["spills"] == rep["summary"]["resumes"],
+          f"{what}: spills and resumes differ {rep['per_session']}")
+    check(rep["pins_left"] == 0, f"{what}: {rep['pins_left']} pins left")
+    check(rep["pages_free"] in (None, True), f"{what}: pages leaked")
+
+
+def workload_phase(torch, runtime, serve, weights) -> dict:
+    """Phase 4f: (a) the launcher's ``--workload`` mode through ``main``
+    at full width; (b) and (c) the runs of ``WORKLOAD_RUNS`` on the
+    weights phase 4e served (``weights``, by arch) under both policies,
+    each counted alone and held by :func:`check_workload_run`;
+    the f32 streams equal across the policies at every trace position,
+    and every f32 run's chunk-unit numbers equal ``WORKLOAD_PREDICTION``
+    (the bf16 runs' are recorded beside them)."""
+    import io
+    from repro_torch.config import get_config
+    out = {}
+    # (a) the normal entry point, full width
+    t0 = time.time()
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    runtime.reset_counters()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(WORKLOAD_CLI_ARGS)
+    torch.cuda.synchronize()
+    counts = runtime.read_counters()
+    text = buf.getvalue()
+    print(text, end="")
+    lines = text.splitlines()
+    summary = json.loads("\n".join(lines[lines.index("{"):
+                                         lines.index("}") + 1]))
+    launched = {n: c["kernel"] for n, c in counts.items() if c["kernel"]}
+    check(rc == 0 and "workload drained: ok" in text and
+          summary["finished"] == summary["sessions"] == 8,
+          f"serve --workload: rc {rc}, summary {summary}")
+    check(set(launched) == {K1, K2} and not any(
+        c["plain"] for c in counts.values()), f"serve --workload: "
+          f"launches {counts}, expected exactly K1 and K2")
+    out["cli"] = {"rc": rc, "summary": summary, "launches": launched,
+                  "phase_s": time.time() - t0}
+    # (b) and (c)
+    for name, run in WORKLOAD_RUNS.items():
+        arch, over = MODELS[run["mode"]]
+        full = weights[arch]
+        for dtype in run["dtypes"]:
+            cfg = get_config(arch).replace(dtype=dtype, **over)
+            params = full
+            if run["mode"] == "smollm":
+                cfg = cfg.replace(n_layers=SMOLLM_F32_DEPTH)
+                params = {**full, "layers": full["layers"][:SMOLLM_F32_DEPTH]}
+            kernels = layout_kernels(cfg, run["layout"])
+            for policy in WORKLOAD_POLICIES:
+                key = f"{name}/{dtype}/{policy}"
+                t0 = time.time()
+                rep = workload_run(torch, runtime, serve, cfg, params, name,
+                                   policy)
+                check_workload_run(rep, kernels, f"workload {key}")
+                rep["chunk_units"] = chunk_units(rep)
+                pred = WORKLOAD_PREDICTION.get(f"{name}/{policy}")
+                rep["as_predicted"] = rep["chunk_units"] == pred
+                check(dtype != "float32" or rep["as_predicted"],
+                      f"workload {key}: chunk-unit numbers "
+                      f"{rep['chunk_units']} differ from the prediction "
+                      f"{pred}")
+                rep["phase_s"] = time.time() - t0
+                out[key] = rep
+            a, b = (out[f"{name}/{dtype}/{p}"]["streams"]
+                    for p in WORKLOAD_POLICIES)
+            out[f"{name}/{dtype}/fifo"]["streams_equal_across_policies"] = \
+                out[f"{name}/{dtype}/slo"]["streams_equal_across_policies"] = \
+                a == b
+            check(dtype != "float32" or a == b, f"workload {name} f32: the "
+                  f"streams differ between the policies")
+        torch.cuda.empty_cache()
+    slo = out["smollm/paged/float32/slo"]
+    check(slo["deferrals"][1] > 0, "workload smollm/paged slo: "
+          "defer_admission was never consulted")
+    check(min(slo["spill_cost_readmit"]) > 0 and
+          len(slo["spill_cost_bytes"]) > 1, f"workload smollm/paged slo: "
+          f"spill costs {slo['spill_cost_bytes']}, readmit "
+          f"{slo['spill_cost_readmit']}")
+    dense = out["tconst/dense/float32/slo"]
+    check(2 * dense["crossed_resync"] > dense["summary"]["sessions"],
+          f"workload tconst/dense: {dense['crossed_resync']} sessions "
+          f"crossed a resync")
+    for rep in out.values():
+        rep.pop("streams", None)
     return out
 
 
@@ -2500,7 +2894,9 @@ def train_phase(torch, runtime) -> dict:
     out = {"data_s": time.time() - t0, "runs": {}}
     for mode in TRAIN_TURNS + TRAIN_TURNS[::-1]:
         args = T.build_parser().parse_args(TRAIN_ARGS + ["--mode", mode])
+        t0 = time.time()
         cfg, api, params = T.load(args)
+        load_s = time.time() - t0
         check(cfg.dtype == "bfloat16" and cfg.d_model == 432,
               f"train {mode}: not the full-width bf16 config")
         torch.cuda.synchronize()
@@ -2527,15 +2923,17 @@ def train_phase(torch, runtime) -> dict:
                "tok_s": base.batch * base.seq / warm,
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                "launches": {n: c["kernel"] for n, c in counts.items()
-                            if c["kernel"]}}
+                            if c["kernel"]}, "load_s": load_s}
         runs = out["runs"].setdefault(mode, [])
         if not runs:
             step_fn = make_train_step(api, AdamWConfig(lr=args.lr),
                                       warmup_cosine(0, args.steps))
             batch = {"tokens": torch.from_numpy(np.ascontiguousarray(
                 data[0]["tokens"][:, :args.seq])).cuda()}
+            t0 = time.time()
             rec["profile"] = step_profile(torch, runtime, step_fn,
                                           res["params"], res["opt"], batch)
+            rec["profile_s"] = time.time() - t0
         runs.append(rec)
         del res, params, api
         torch.cuda.empty_cache()
@@ -2681,6 +3079,7 @@ def main() -> int:
             cfg, args, params, rep = serve_phase(
                 torch, runtime, serve, mode, layout, dtype, kernels,
                 **RUN_OVERRIDES.get((mode, dtype), {}))
+            t_logits = time.time()
             tol = LOGIT_TOL_MOE if mode in MOE_MODES else \
                 {"mamba2": LOGIT_TOL_SSM, **LOGIT_TOL_LM}.get(
                     mode, LOGIT_TOL).get(dtype)
@@ -2703,6 +3102,7 @@ def main() -> int:
                     n_prompts=None if (mode, layout) == ("tconst", "dense")
                     else 2)
                 rep["logit_max_err"] = summarize(rep["logit_err"])
+            rep["parts_s"]["logits"] = time.time() - t_logits
             runs[f"{mode}/{layout}/{dtype}"] = rep
             # one model's weights on the card at a time
             params = None
@@ -2713,7 +3113,10 @@ def main() -> int:
             print(f"[serve] {mode}/{layout} {dtype}: launches {launched} "
                   f"(plain 0); logits max err vs the CPU f32 plain path "
                   f"{rep.get('logit_max_err', 'not checked')} (tol "
-                  f"{tol}); {time.time() - t_phase:.1f}s")
+                  f"{tol}); {time.time() - t_phase:.1f}s (serve "
+                  f"{rep['seconds']:.1f}, " + ", ".join(
+                      f"{k} {v:.1f}" for k, v in rep["parts_s"].items())
+                  + ")")
     print("[serve] f32 greedy session streams match their solo runs on "
           "every layout")
     print(f"[serve] decode state per slot (bf16): tconst/dense "
@@ -2799,7 +3202,10 @@ def main() -> int:
     # 4e. session tiering: spill / resume, retired prefix pages re-adopted,
     # the O(1) TConst re-admission, the disk tier
     t_phase = time.time()
-    tiering = tiering_phase(torch, runtime, serve, runs, sharing)
+    # the seeded weights 4e and 4f both serve, drawn once
+    weights = {arch: serve.load(serve.parse_args(["--arch", arch]))[2]
+               for arch in ("tconst-41m", SMOLLM)}
+    tiering = tiering_phase(torch, runtime, serve, runs, sharing, weights)
     phase_s["tiering"] = time.time() - t_phase
     for key, rep in tiering.items():
         if key == "readmission":
@@ -2831,6 +3237,37 @@ def main() -> int:
             f"{r['store']['restore_items']}; streams equal "
             f"{r['streams_equal']}")
     print(f"[tiering] {phase_s['tiering']:.1f}s")
+
+    # 4f. workload traces under both scheduling policies, telemetry
+    t_phase = time.time()
+    workloads = workload_phase(torch, runtime, serve, weights)
+    weights = None
+    torch.cuda.empty_cache()
+    phase_s["workload"] = time.time() - t_phase
+    for key, rep in workloads.items():
+        summ = rep["summary"]
+        if key == "cli":
+            print(f"[workload] serve --workload bursty --policy slo (full "
+                  f"width): finished {summ['finished']}/{summ['sessions']},"
+                  f" TTFT chunks {summ['ttft_chunks']}, warm TTFT s "
+                  f"{summ['ttft_seconds_warm']}, launches {rep['launches']}"
+                  f" (plain 0); {card}")
+            continue
+        print(f"[workload] {key}: {json.dumps(rep['chunk_units'])}; as "
+              f"predicted: {rep['as_predicted']}; warm TTFT s "
+              f"{summ['ttft_seconds_warm']}; streams equal across policies:"
+              f" {rep['streams_equal_across_policies']}; spill costs "
+              f"{rep['spill_cost_bytes'][:1]}..{rep['spill_cost_bytes'][-1:]}"
+              f" B, readmit {rep['spill_cost_readmit'][:1]}..; "
+              f"{rep['spill_stats']}; launches {rep['launches']} (plain 0); "
+              f"{rep['seconds']:.1f}s; {card}")
+    for name, run in WORKLOAD_RUNS.items():
+        for dtype in run["dtypes"]:
+            att = {p: workloads[f"{name}/{dtype}/{p}"]["summary"]["slo"][
+                "attainment"] for p in WORKLOAD_POLICIES}
+            print(f"[workload] {name} {dtype}: SLO attainment slo "
+                  f"{att['slo']} vs fifo {att['fifo']} (recorded, not gated)")
+    print(f"[workload] {phase_s['workload']:.1f}s")
 
     # 5. training at full width: the paper's three variants on one init
     t_phase = time.time()
@@ -2934,7 +3371,7 @@ def main() -> int:
         "kernel_rows": rows, "sass_tensor_core_ops": sass,
         "launches_per_call": per_call, "sessions": runs,
         "sharing": sharing, "chunked": chunked, "windows": windows,
-        "tiering": tiering,
+        "tiering": tiering, "workload": workloads,
         "engines": engines,
         "training": training, "grad_check": grads,
         "phase_s": phase_s, "total_s": time.time() - t_start,

@@ -76,6 +76,20 @@ completed a spill->resume cycle (the exit code counts it)::
       --reduced --device cpu --sessions 6 --slots 2 --gen 16 \\
       --layout paged --page-size 16 --spill-capacity-mb 64
 
+``--workload poisson|bursty`` (with ``--sessions N``) replays a seeded
+traffic trace of N sessions -- arrivals in scheduler chunks, prompt and
+output length mixes, a repeat slice, an SLO slice with a TTFT deadline of
+``--slo-ttft-chunks`` -- through the scheduler under ``--policy fifo|slo``
+and prints the telemetry summary (TTFT, inter-token gaps and queue waits
+in chunks, SLO attainment, spills) and ``workload drained: ok``.  The
+trace is a function of the argv and ``--seed``, so the two policies
+replay the same sessions, and their streams are equal (a policy never
+touches sampling)::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tconst-41m \\
+      --reduced --device cpu --sessions 8 --slots 2 --chunk 4 \\
+      --max-len 104 --workload bursty --policy slo --slo-ttft-chunks 6
+
 ``--layout dense|int8|paged|paged_int8`` picks the cache layout
 (``--page-size``, ``--pool-pages``: a pool below ``slots x pages_per_slot``
 needs ``--sessions``, whose scheduler allocates pages).  The tconst
@@ -92,8 +106,9 @@ item that ports them.
 from __future__ import annotations
 
 import argparse
+import json
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
 
@@ -101,16 +116,16 @@ from repro_torch.config import get_config, reduced
 from repro_torch.models.api import build_decode, build_model
 from repro_torch.models.layouts import LayoutSpec
 from repro_torch.serving.engine import Engine, device_sync
+from repro_torch.serving.metrics import ServingTelemetry
 from repro_torch.serving.scheduler import SlotScheduler
 from repro_torch.serving.session import Session
 from repro_torch.serving.tier_store import TierStore
+from repro_torch.serving.workload import (Arrival, WorkloadSpec,
+                                          generate_workload)
 
 _FEATURES = "ROADMAP Queue 1 item 8 (serving features)"
 # flag dest -> (default, where it is ported)
 UNPORTED = {
-    "workload": ("", _FEATURES + ": workload, telemetry and policies"),
-    "policy": ("fifo", _FEATURES + ": workload, telemetry and policies"),
-    "slo_ttft_chunks": (8, _FEATURES + ": workload, telemetry and policies"),
     "speculate": (0, _FEATURES + ": speculative decoding"),
     "drafter": ("ngram", _FEATURES + ": speculative decoding"),
     "mesh": ("", "ROADMAP Queue 1 item 12 (multi-device)"),
@@ -183,6 +198,14 @@ def validate_layout_args(ap, args, max_len: int) -> None:
             ap.error(f"--prefill-chunk {args.prefill_chunk} must be a "
                      f"multiple of --page-size {args.page_size}: "
                      f"chunk-granular page writes cover whole pages")
+    if args.workload and not args.sessions:
+        ap.error("--workload replays a traffic trace through the session "
+                 "scheduler (arrivals, SLOs and policies are admission-side "
+                 "concepts; the uniform batch has none): add --sessions N")
+    if args.slo_ttft_chunks < 1:
+        ap.error(f"--slo-ttft-chunks {args.slo_ttft_chunks} must be >= 1 "
+                 f"(the deadline is counted in scheduler chunks from "
+                 f"submission)")
     if args.spill_capacity_mb < 0:
         ap.error(f"--spill-capacity-mb {args.spill_capacity_mb} must be "
                  f"positive (0 disables session tiering)")
@@ -332,6 +355,77 @@ def serve_sessions(cfg, api, params, args) -> Dict[str, Any]:
         if store is not None else None
     return {"prompts": prompts, "sessions": sessions, "sched": sched,
             "seconds": dt, "sharing": sharing, "tiering": tiering}
+
+
+def drive(sched: SlotScheduler, arrivals: Sequence[Arrival]) -> float:
+    """Open-loop replay of a trace: each session is submitted once the
+    scheduler's clock reaches its ``at_chunk``, and the scheduler steps
+    until every session drains.  Raises past 20k chunks (a stuck
+    scheduler).  Returns the wall seconds, the device synced."""
+    t0 = time.time()
+    i = 0
+    while i < len(arrivals) or sched.pending or sched.active.any():
+        while i < len(arrivals) and arrivals[i].at_chunk <= sched.clock:
+            sched.submit(arrivals[i].session)
+            i += 1
+        sched.step()
+        if sched.clock > 20_000:
+            raise RuntimeError("workload did not drain within 20000 chunks:"
+                               " the scheduler is stuck")
+    device_sync(sched.device)
+    return time.time() - t0
+
+
+def run_workload(cfg, api, params, args) -> Dict[str, Any]:
+    """SLO-aware scheduling demo: replay the seeded ``--workload`` trace
+    through the scheduler under ``--policy`` and print the telemetry
+    summary.  The trace (JAX's launcher's: N sessions, a fifth repeats
+    of an earlier prompt, half with a TTFT deadline of
+    ``--slo-ttft-chunks``; under prefix sharing a quarter behind one of
+    two page-long system prompts) is a function of the argv and
+    ``--seed``, so another ``--policy`` replays the same sessions
+    (prompts, arrival chunks, SLO targets, per-session sampling seeds)
+    and the printed TTFT / ITL / SLO numbers compare across policies.  With
+    ``--spill-capacity-mb`` the scheduler spills a slot that decoded a
+    chunk whenever sessions wait.  Returns ``rc`` (0 when every session
+    drained), the ``summary``, the ``arrivals`` and the scheduler."""
+    spec = WorkloadSpec(
+        n_sessions=args.sessions, vocab=cfg.vocab_size,
+        arrival=args.workload, temperature=args.temperature,
+        shared_frac=0.25 if args.prefix_sharing else 0.0,
+        prefix_len=args.page_size if args.prefix_sharing else 16,
+        repeat_frac=0.2, slo_frac=0.5,
+        slo_ttft_chunks=args.slo_ttft_chunks)
+    max_len = sessions_max_len(args)
+    paged_layout_note(cfg, args)
+    decode = build_decode(cfg, layout_spec(args), device=api.device,
+                          prefill_chunk=args.prefill_chunk or None)
+    store = tier_store(args)
+    telemetry = ServingTelemetry()
+    sched = SlotScheduler(decode, params, slots=args.slots, max_len=max_len,
+                          chunk_size=args.chunk, seed=args.seed,
+                          prefix_sharing=args.prefix_sharing,
+                          tier_store=store,
+                          preempt_chunks=1 if store is not None else None,
+                          policy=args.policy, telemetry=telemetry)
+    # headroom for the longest output draw (32) and one chunk of
+    # over-generation, so every generated session is admissible
+    arrivals = generate_workload(
+        spec, args.seed, max_prompt_len=max(8, max_len - 40 - args.chunk))
+    dt = drive(sched, arrivals)
+    summary = telemetry.summary()
+    total = summary["tokens_out"]
+    print(f"[serve] arch={cfg.name} mode={cfg.attention_mode} "
+          f"layout={sched.layout.name} device={sched.device} "
+          f"workload={args.workload} policy={args.policy} served "
+          f"{summary['sessions']} sessions ({total} tokens) on {args.slots} "
+          f"slots in {dt:.2f}s ({total / dt:.1f} tok/s)")
+    print(json.dumps(summary, indent=2, sort_keys=True))
+    ok = summary["finished"] == summary["sessions"]
+    print(f"[serve] workload drained: {'ok' if ok else 'FAIL'} "
+          f"(clock={sched.clock} chunks)")
+    return {"rc": 0 if ok else 1, "summary": summary, "arrivals": arrivals,
+            "sched": sched}
 
 
 def tiering_report(sched, sessions, args) -> Dict[str, Any]:
@@ -516,11 +610,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--spill-dir", default="",
                     help="an mmap'd disk tier below the RAM tier (needs "
                          "--spill-capacity-mb)")
-    # features of the JAX launcher that are not ported yet
     ap.add_argument("--workload", default="",
-                    choices=["", "poisson", "bursty"])
-    ap.add_argument("--policy", default="fifo", choices=["fifo", "slo"])
-    ap.add_argument("--slo-ttft-chunks", type=int, default=8)
+                    choices=["", "poisson", "bursty"],
+                    help="replay a seeded traffic trace of --sessions N "
+                         "(poisson or bursty arrivals, length mixes, an SLO "
+                         "slice) under --policy and print the telemetry "
+                         "summary")
+    ap.add_argument("--policy", default="fifo", choices=["fifo", "slo"],
+                    help="admission and victim policy (workload mode): fifo "
+                         "= arrival order; slo = deadline- and cost-aware "
+                         "(TTFT-slack admission order, cheapest victims)")
+    ap.add_argument("--slo-ttft-chunks", type=int, default=8,
+                    help="TTFT deadline, in scheduler chunks from "
+                         "submission, of the workload's SLO slice")
+    # features of the JAX launcher that are not ported yet
     ap.add_argument("--speculate", type=int, default=0)
     ap.add_argument("--drafter", default="ngram", choices=["ngram", "tconst"])
     ap.add_argument("--mesh", default="")
@@ -564,6 +667,8 @@ def load(args, **overrides):
 def main(argv=None) -> int:
     args = parse_args(argv)
     cfg, api, params = load(args)
+    if args.workload:
+        return run_workload(cfg, api, params, args)["rc"]
     if args.sessions:
         served = serve_sessions(cfg, api, params, args)
         return check_sessions(api, params, served, args)["rc"]

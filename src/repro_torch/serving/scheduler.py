@@ -72,12 +72,31 @@ Admissions are recorded as ``StepStats(kind="admit")`` in ``admit_stats``
 with ``source`` naming where the slot state came from ("cold" / "resume"
 / "store"); spills as ``StepStats(kind="spill")`` in ``stats``.
 
-Sampling: each session draws from its own ``torch.Generator`` seeded from
-``Session.seed`` (or the scheduler seed and ``sid``), so a session's
-stream depends on the session alone; a spill freezes the generator's
-state in ``Session.sample_chain`` and the resume carries it on.  Left out
-of the port so far (ROADMAP Queue 1 item 8): policies (the victim rule is
-JAX's FIFO baseline), telemetry and speculative decoding.
+Two later additions layer policy on top of this mechanism:
+
+* **pluggable scheduling policy** -- the WHICH decisions (admission try
+  order, pool-pressure deferral, preemption victims) live in a
+  :class:`~repro_torch.serving.policy.SchedulingPolicy`; the scheduler
+  keeps the invariants (arrival-order queue, bounded overtake budget
+  counted per admission past the oldest waiter -- resume-sourced or cold
+  -- page refcounts, spill correctness), so no policy can starve or
+  corrupt a session.  A policy reads host-side state only (``spill_cost``
+  is arithmetic on tensor metadata), never a device tensor.  ``clock``
+  counts completed ``step()`` calls: the deterministic time base for SLO
+  deadlines and telemetry
+  (:class:`~repro_torch.serving.metrics.ServingTelemetry` attaches via
+  the ``telemetry`` argument and observes submit / admit / spill / token
+  / retire, and the pool once a tick).
+* **per-session sampling** -- each session draws from its own
+  ``torch.Generator`` seeded from ``Session.seed`` (or the scheduler seed
+  and ``sid``), once per sampled token; a spill freezes the generator's
+  state in ``Session.sample_chain`` and the resume carries it on.  So a
+  session's stream is a function of the session alone: replaying a
+  workload trace is token-identical across runs, slot placements and
+  scheduling policies.
+
+Left out of the port so far (ROADMAP Queue 1 item 8): speculative
+decoding.
 """
 from __future__ import annotations
 
@@ -85,7 +104,7 @@ import collections
 import dataclasses
 import hashlib
 import time
-from typing import Any, Deque, Dict, List, Optional
+from typing import Any, Deque, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -94,6 +113,8 @@ from repro_torch.models import layouts as LT
 from repro_torch.models.api import (DecodeAPI, ModelAPI, decode_chunk,
                                     sample_tokens)
 from repro_torch.serving.engine import StepStats, device_sync, tag_compiled
+from repro_torch.serving.metrics import ServingTelemetry
+from repro_torch.serving.policy import FifoPolicy, SchedulingPolicy, get_policy
 from repro_torch.serving.session import Session
 from repro_torch.serving.tier_store import (Blob, TierStore,
                                             flatten_slot_snapshot,
@@ -131,7 +152,9 @@ class SlotScheduler:
                  max_head_skips: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
                  tier_store: Optional[TierStore] = None,
-                 preempt_chunks: Optional[int] = None):
+                 preempt_chunks: Optional[int] = None,
+                 policy: Union[SchedulingPolicy, str, None] = None,
+                 telemetry: Optional[ServingTelemetry] = None):
         # accept a ModelAPI facade too (its dense-layout decode)
         if isinstance(decode, ModelAPI):
             decode = decode.decode
@@ -235,6 +258,14 @@ class SlotScheduler:
         self.admit_stats: List[StepStats] = []
         self.resyncs: Dict[int, int] = {}   # sid -> resyncs in its slot
         self._warm: set = set()
+
+        # policy seam + telemetry + deterministic clock (chunk units)
+        if policy is None:
+            policy = FifoPolicy()
+        elif isinstance(policy, str):
+            policy = get_policy(policy)
+        self.policy = policy
+        self.telemetry = telemetry
         self.clock = 0                      # completed step() calls
 
     # ------------------------------------------------------------------
@@ -263,6 +294,8 @@ class SlotScheduler:
                 f"{self.layout.pool_pages} -- it could never be admitted")
         session.submit_clock = self.clock
         self.pending.append(session)
+        if self.telemetry is not None:
+            self.telemetry.on_submit(session, self.clock)
         return session
 
     @property
@@ -281,6 +314,35 @@ class SlotScheduler:
     def page_refcounts(self) -> np.ndarray:
         """Host-side per-page refcounts (a copy); all zeros when idle."""
         return self._page_ref.copy()
+
+    def spill_cost(self, slot: int) -> Dict[str, int]:
+        """Estimated cost of evicting the session in ``slot``, for
+        cost-aware victim selection: ``bytes`` is the snapshot the spill
+        would move to the host tier (paged: live pages only; dense: the
+        slot's share of the state), ``readmit`` the bytes a later fresh
+        admission of the same request would cost -- zero for a family
+        whose admission is a pure function of the prompt
+        (``DecodeAPI.admission_key`` not None: re-admission is an O(1)
+        store restore), else the snapshot again.  Host arithmetic on
+        tensor metadata only (``Tensor.nbytes``): no device work."""
+        session = self.sessions[slot]
+        assert session is not None, "spill_cost needs an occupied slot"
+        snap_bytes = 0
+        if self._paged:
+            live = self._live_pages(session)
+            for f, v in self.state.kv.items():
+                ax = self._page_axes.get(f)
+                if ax is not None:
+                    snap_bytes += (v.nbytes // v.shape[ax]) * live
+                else:
+                    snap_bytes += v.nbytes // self.slots
+        else:
+            snap_bytes = self.kv_bytes() // self.slots
+        pure = self.decode.admission_key(session.prompt,
+                                         session.extras) is not None
+        readmit = 0 if pure else snap_bytes
+        return {"bytes": int(snap_bytes), "readmit": int(readmit),
+                "total": int(snap_bytes + readmit)}
 
     # ------------------------------------------------------------------
     # prefix sharing: content-addressed page map + refcounts
@@ -447,6 +509,8 @@ class SlotScheduler:
         self.spill_stats["spilled_bytes"] += blob.nbytes
         self._release(slot)
         self.pending.append(session)
+        if self.telemetry is not None:
+            self.telemetry.on_spill(session, self.clock)
         return key
 
     def _resume(self, session: Session, slot: int,
@@ -490,6 +554,8 @@ class SlotScheduler:
         self.eos[slot] = -1 if session.eos_id is None else session.eos_id
         self._slot_chunks[slot] = 0
         self.resyncs.setdefault(session.sid, 0)
+        if self.telemetry is not None:
+            self.telemetry.on_admit(session, self.clock, "resume")
 
     def _retire_pages(self, retiring: List) -> None:
         """Refcount-0 prefix pages RETIRE into the tier store instead of
@@ -704,27 +770,53 @@ class SlotScheduler:
         self.eos[slot] = -1 if session.eos_id is None else session.eos_id
         self._slot_chunks[slot] = 0
         self.resyncs.setdefault(session.sid, 0)
+        if self.telemetry is not None:
+            self.telemetry.on_admit(session, self.clock, source)
         session.deliver([int(t0k)])          # first token: prefill logits
+        if self.telemetry is not None:
+            # read after ``int(t0k)``: the token is on the host
+            self.telemetry.on_tokens(session, len(session.tokens),
+                                     self.clock,
+                                     self.admit_stats[-1].compiled)
 
     def admit_pending(self) -> bool:
-        """Admit pending sessions into free slots, in arrival order; a
-        session blocked on pool pages may be overtaken by later ones, at
-        most ``max_head_skips`` times in a row (then strict arrival order
-        until the head admits).  Returns True if any session was
+        """Admit as many pending sessions as free slots and pages allow.
+
+        The policy proposes the try order (``order_pending``; arrival
+        order for the FIFO baseline) and may defer an admissible session
+        other than the arrival-order head (``defer_admission``); the
+        scheduler enforces fairness around it: every admission of a
+        session other than the head -- skip-ahead past a page-blocked
+        head, policy reordering, or the resume of a spilled session --
+        counts one overtake against ``max_head_skips``, and a spent
+        budget offers the head alone (the policy is not asked) until it
+        admits: no starvation.  The overtake count is per admitted
+        identity, not queue position.  Returns True if any session was
         admitted."""
         admitted = False
         free = [i for i in range(self.slots) if not self.active[i]]
         while free and self.pending:
             head = self.pending[0]
-            candidates = [head] if self._head_skips >= self.max_head_skips \
-                else list(self.pending)
+            if self._head_skips >= self.max_head_skips:
+                candidates: List[Session] = [head]       # budget spent
+            else:
+                candidates = self.policy.order_pending(
+                    list(self.pending), self)
             chosen = plan = None
             for cand in candidates:
-                plan = self._admission_plan(cand)
-                if plan is not None:
-                    chosen = cand
-                    break
+                p = self._admission_plan(cand)
+                if p is None:
+                    continue           # blocked on pool pages: try the next
+                if cand is not head and \
+                        self.policy.defer_admission(self, cand, p):
+                    continue           # the policy holds it (never the head)
+                chosen, plan = cand, p
+                break
             if chosen is None:
+                # a free slot waited: under FIFO every candidate was
+                # blocked on pool pages; a round the policy ends by
+                # deferring the admissible ones counts too (it holds the
+                # pages for a tighter session that is page-blocked)
                 self.page_waits += 1
                 break                  # nothing admissible this round
             for i, s in enumerate(self.pending):
@@ -738,6 +830,8 @@ class SlotScheduler:
             if chosen.done:
                 self._release(slot)
                 free.insert(0, slot)
+                if self.telemetry is not None:
+                    self.telemetry.on_retire(chosen, self.clock)
         if not self.pending:
             self._head_skips = 0
         return admitted
@@ -828,38 +922,42 @@ class SlotScheduler:
         self.state = self.state.with_slot(slot, self._empty_row)
         self.last_token[slot] = 0
 
-    def _select_victims(self, ripe: List[int], n: int) -> List[int]:
-        """Which ``n`` of the ``ripe`` slots to spill: the longest
-        resident first, ties by slot index (JAX's baseline
-        ``FifoPolicy.select_victims``; the policy seam comes with the
-        policies)."""
-        return sorted(ripe, key=lambda s: -int(self._slot_chunks[s]))[:n]
-
     def _preempt_for_pending(self) -> int:
         """Preemption: while sessions wait after admission (for slots or
         pool pages), active sessions that have decoded at least
-        ``preempt_chunks`` chunks this residency are spill candidates, one
-        victim per waiter.  A fresh residency decodes >= preempt_chunks
-        before it can be preempted again, so every rotation makes
-        progress and an oversubscribed queue drains.  Returns the number
-        of spills."""
+        ``preempt_chunks`` chunks this residency are spill candidates, and
+        the policy picks one victim per waiter (FIFO: the longest
+        resident first; the SLO policy: the cheapest by ``spill_cost``).
+        A fresh residency decodes >= preempt_chunks before it can be
+        preempted again, so every rotation makes progress and an
+        oversubscribed queue drains whatever the victim order.  Returns
+        the number of spills."""
         ripe = [s for s in range(self.slots)
                 if self.active[s] and
                 self._slot_chunks[s] >= self.preempt_chunks]
         n = min(len(ripe), len(self.pending))
         if not n:
             return 0
-        victims = self._select_victims(ripe, n)
+        victims = self.policy.select_victims(self, ripe, n)[:n]
         for s in victims:
             self.spill(int(s))
         return len(victims)
+
+    def _tick_telemetry(self) -> None:
+        if self.telemetry is None:
+            return
+        self.telemetry.on_tick(
+            self.clock, self.n_active, len(self.pending),
+            len(self.free_pages) if self._paged else None,
+            self.layout.pool_pages if self._paged else None)
 
     def step(self) -> bool:
         """Admit pending sessions, then decode ONE chunk for the active
         slots (under prefix sharing, those not paused for copy-on-write
         fork pages).  With a tier store and ``preempt_chunks``, ripe slots
-        are spilled for waiting sessions first.  Returns False when no
-        progress was made."""
+        are spilled for waiting sessions first.  Each call advances
+        ``clock`` by one: the time base of SLO deadlines and telemetry.
+        Returns False when no progress was made."""
         self.clock += 1
         admitted = self.admit_pending()
         if self.store is not None and self.preempt_chunks is not None \
@@ -867,10 +965,12 @@ class SlotScheduler:
             if self._preempt_for_pending():
                 admitted = self.admit_pending() or admitted
         if not self.active.any():
+            self._tick_telemetry()
             return admitted
         run_mask = self._cow_before_chunk() if self.prefix_sharing \
             else self.active.copy()
         if not run_mask.any():
+            self._tick_telemetry()
             return admitted            # every active slot fork-paused
         self.peak_active = max(self.peak_active, int(run_mask.sum()))
         t0 = time.perf_counter()
@@ -880,16 +980,24 @@ class SlotScheduler:
             n_steps=self.chunk_size, eos=self.eos)
         self.last_token = toks[:, -1].clone()
         host_toks = toks.cpu().numpy()       # the one host sync per chunk
+        compiled = tag_compiled(self._warm, "chunk")
         self.stats.append(StepStats(
             "chunk", time.perf_counter() - t0, tokens=self.chunk_size,
-            compiled=tag_compiled(self._warm, "chunk")))
+            compiled=compiled))
         for slot in np.nonzero(run_mask)[0]:
             self._slot_chunks[slot] += 1
             sess = self.sessions[slot]
             self.resyncs[sess.sid] += int(resyncs[slot])
+            before = len(sess.tokens)
             sess.deliver(host_toks[slot])
+            if self.telemetry is not None:
+                self.telemetry.on_tokens(sess, len(sess.tokens) - before,
+                                         self.clock, compiled)
             if sess.done:
                 self._release(int(slot))
+                if self.telemetry is not None:
+                    self.telemetry.on_retire(sess, self.clock)
+        self._tick_telemetry()
         return True
 
     def run(self) -> None:

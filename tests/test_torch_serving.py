@@ -185,16 +185,18 @@ def test_serve_batch_cli_times_hits_and_misses(capsys):
 @pytest.mark.parametrize("flag", [
     ["--prefix-sharing"], ["--prefill-chunk", "-16"],
     ["--spill-capacity-mb", "-1"], ["--spill-dir", "x"],
-    ["--workload", "bursty"], ["--policy", "slo"],
-    ["--slo-ttft-chunks", "3"], ["--speculate", "4"],
+    ["--workload", "uniform"], ["--policy", "lifo"],
+    ["--slo-ttft-chunks", "0"], ["--speculate", "4"],
     ["--drafter", "tconst"], ["--mesh", "2x4"]])
 def test_unported_flags_error(flag, capsys):
     """Flags of features not ported yet argparse-error with their ROADMAP
     item.  ``--prefix-sharing``, ``--prefill-chunk``,
-    ``--spill-capacity-mb`` and ``--spill-dir`` are ported: on the dense
-    layout the first, a chunk that is not positive the second, a negative
-    capacity the third and a spill directory without a capacity the last
-    are refused as the JAX launcher refuses them."""
+    ``--spill-capacity-mb``, ``--spill-dir``, ``--workload``, ``--policy``
+    and ``--slo-ttft-chunks`` are ported: on the dense layout the first, a
+    chunk that is not positive the second, a negative capacity the third,
+    a spill directory without a capacity the fourth, an unknown arrival
+    process or policy and a deadline below one chunk the last three are
+    refused as the JAX launcher refuses them."""
     with pytest.raises(SystemExit) as e:
         serve.parse_args(["--sessions", "2"] + flag)
     assert e.value.code == 2
@@ -208,6 +210,10 @@ def test_unported_flags_error(flag, capsys):
     elif flag[0] == "--spill-dir":
         assert "--spill-dir is the tier below a bounded host-RAM store" \
             in err
+    elif flag[0] in ("--workload", "--policy"):
+        assert f"argument {flag[0]}: invalid choice: '{flag[1]}'" in err
+    elif flag[0] == "--slo-ttft-chunks":
+        assert "--slo-ttft-chunks 0 must be >= 1" in err
     else:
         assert "ROADMAP Queue 1 item" in err
 
