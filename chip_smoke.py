@@ -44,7 +44,11 @@ Phases (any failure raises, so the exit code is non-zero):
    S 999, hi 600 and 935, G 1; in tconst mode K2's compress (B 2, 256 x
    999) and restore (999 x 256) and K1 over the 256-slot window and
    context slots.  minicpm-2b's (36 heads over 36 KV heads, head_dim 64):
-   K1 at S 999 and K2's causal prefill of 1024.  Prints the kernel's,
+   K1 at S 999 and K2's causal prefill of 1024.  whisper-small's (12
+   heads over 12 KV heads of 64: G 1 at D 64): K1 and K1-int8 over the
+   1500 cross-attention slots (B 2), K1 over the self-attention cache
+   (S 328), K3 and K3-int8 over it in pages of 32, K2's non-causal encoder (B 2, 1500 x 1500) and cross prefill
+   (B 2, 128 x 1500), SDPA with no mask the yardstick.  Prints the kernel's,
    the plain version's and ``F.scaled_dot_product_attention``'s times (a
    yardstick only, with the gather or dequantisation it needs; the port
    never calls it; no one PyTorch call computes K4) and the least time
@@ -74,7 +78,8 @@ Phases (any failure raises, so the exit code is non-zero):
    layout (the f32 runs use ``--prompt-len 700 --gen 96``: every session
    still crosses a resync).  bf16 logits after the
    prefill and after a few decode steps are held against the f32 plain
-   path on the CPU, same layout.  mamba2-130m's f32 run (streams only)
+   path on the CPU, same layout, on two session prompts (tconst/dense:
+   every one; mamba2, smollm and deepseek in tconst mode: one).  mamba2-130m's f32 run (streams only)
    is cut to 6 of its 24 layers.  The runs of the families without a
    resync (mamba2, the attention LMs, deepseek) generate 96 tokens
    where no f32 argv below applies (``--gen 96``: a paged run's third
@@ -85,7 +90,10 @@ Phases (any failure raises, so the exit code is non-zero):
    tconst weights) on int8 (K1-int8, K2) and paged_int8 (K2, K3-int8),
    same argv, bf16 and f32 (f32 at ``--prompt-len 700 --gen 72``,
    smollm at 8 of its 32 layers); their bf16 logits held at 3x the CPU
-   plain path's own bf16 error.  Then the MoE
+   plain path's own bf16 error.  A paged run of smollm, the base
+   (paged_int8) or deepseek computes what its dense (int8) twin does:
+   its f32 streams are held to the twin run's (held to their solo runs)
+   and its logits to the twin's CPU reference (``TWIN_LAYOUT``).  Then the MoE
    family: deepseek-moe-16b (16.4 B parameters, drawn on the card in bf16
    from a seed) at full width and depth on dense (K1, K2) and paged (K2,
    K3, the under-sized pool) in bf16 (``--gen 64``; finite logits), and
@@ -186,7 +194,29 @@ Phases (any failure raises, so the exit code is non-zero):
    varies with their live pages and has a re-admission term.  Prints each
    run's summary, warm TTFT seconds beside the card line, and slo against
    fifo SLO attainment (recorded, not gated).
-5. Training (``launch.train``, ``--batch 8 --seq 1024 --steps 6``):
+   An enc-dec phase (4g) serves whisper-small at full width (12 encoder
+   and 12 decoder layers, d 768, an encoder of 1500 frames; seeded
+   weights, drawn once, and seeded audio frames, one set a session):
+   the launcher's uniform-batch Engine path (``serve.run_batch`` with
+   ``--arch whisper_small --batch 4 --prompt-len 64 --gen 128``, zero
+   audio frames as JAX's launcher puts in); 4 sessions over 2 slots
+   (prompts 40-200, gen 96, chunks of 32) on dense, int8, paged and
+   paged_int8 in bf16 and on dense and paged in f32 (pages of 32, a pool
+   of 17 below the full 22: an admission waits for pages); paged again in
+   f32 with chunked admission in chunks of 32; the 4 sessions over one
+   slot through a RAM tier store on dense in f32, 48 tokens each.  Each run launches
+   exactly its layout's kernels (the cross-attention on K1 / K1-int8,
+   dense under the paged layouts) and no plain version: 24 decode
+   launches a step (self and cross, 12 layers), K2 36 an admission
+   (encoder, self, cross) or 12 + 24 a chunk; f32 streams equal their
+   solo runs on dense (the Engine, one session each) and the dense run's
+   on paged (paging is exact), the chunked run's the
+   one-shot run's and the tiered run's the untiered run's first 48
+   tokens, with no store hit (a session with extras has no admission
+   key) and every spill's bytes as predicted.  One session's bf16 logits
+   on the four layouts (the admission and ``LOGIT_STEPS`` steps) are
+   held against the CPU f32 plain path on the same layout.
+5. Training (``launch.train``, ``--batch 8 --seq 1024 --steps 4``):
    tconst-41m at full width in bf16 in modes tconst, tlin and full (the
    base transformer) on one seeded init, in turns A B C C B A over the
    same synthetic batches.  Each run must launch K2's forward and
@@ -197,7 +227,7 @@ Phases (any failure raises, so the exit code is non-zero):
    width, B 1 x 512, on the card against the CPU plain path on the same
    f32 params: f32 within a relative L2 error of 1e-4, bf16 within 3x
    the CPU plain path's own bf16 error.
-6. Uniform-batch Engine (``--batch 4 --prompt-len 1024 --gen 288``): the
+6. Uniform-batch Engine (``--batch 4 --prompt-len 1024 --gen 264``): the
    paper's three variants on one set of weights -- tconst/dense,
    tlin/paged and the base transformer (full/dense) -- in one call, in
    turns (A, B, C, C, B, A): the mean cache-hit step (O(1) against O(N))
@@ -317,14 +347,14 @@ F32_PAGED_ARGS = ["--slots", "3", "--page-size", "64", "--pool-pages", "27"]
 # which the first session still decodes when the third arrives, so the
 # paged pool of 27 makes it wait (13 + 13 pages held)
 F32_LM_ARGS = ["--prompt-len", "700", "--gen", "72"]
-# gen 288 from a 1024-token prompt: two resyncs (steps 1 and 257), the
+# gen 264 from a 1024-token prompt: two resyncs (steps 1 and 257), the
 # second warm (544 before the tiering phase came: three resyncs)
 ENGINE_ARGS = ["--arch", "tconst-41m", "--batch", "4", "--prompt-len",
-               "1024", "--gen", "288"]
+               "1024", "--gen", "264"]
 ENGINE_TURNS = (("tconst", "dense"), ("tlin", "paged"), ("full", "dense"))
-# mamba2: K4 at Q = 64 on admission, 255 warm steps
+# mamba2: K4 at Q = 64 on admission, 127 warm steps
 SSM_ENGINE_ARGS = ["--arch", SSM, "--batch", "4", "--prompt-len", "1024",
-                   "--gen", "256"]
+                   "--gen", "128"]
 
 K1, K1_INT8, K2 = "decode_attention", "decode_attention_int8", \
     "flash_attention"
@@ -374,6 +404,16 @@ SHARING_POOL = {("tlin", "bfloat16"): 30, ("tlin", "float32"): 31,
 # layers and kernels (mamba2 6 of 24 layers, smollm 8 of 32)
 SSM_F32_DEPTH = 6
 SMOLLM_F32_DEPTH = 8
+# a paged run whose numerics are its twin layout's (paging is exact):
+# its f32 streams are held to the twin's run, which were held to their
+# solo runs, and its logits to the twin's CPU reference (the same prompts
+# and weights)
+TWIN_LAYOUT = {("smollm", "paged"): "dense", ("full", "paged_int8"): "int8",
+               ("deepseek", "paged"): "dense"}
+# session prompts of the logit checks (cpu_reference) where not two: one
+# for mamba2 (600 tokens: 10 chunks of 64, the last 24 rows), smollm (600)
+# and deepseek in tconst mode (700); tconst/dense checks every prompt
+LOGIT_PROMPTS = {"mamba2": 1, "smollm": 1, "deepseek-tconst": 1}
 RUN_OVERRIDES = {("deepseek", "float32"): {"n_layers": DEEPSEEK_CHECK_DEPTH},
                  ("deepseek-tconst", "float32"): {
                      "n_layers": DEEPSEEK_TCONST_CHECK_DEPTH},
@@ -606,6 +646,47 @@ WORKLOAD_PREDICTION = {
                                             0, 0, 0, 256, 0, 0, 0, 0, 0, 0],
                          "deferrals": [4, 19],
                          "crossed_resync": 0}}
+# the enc-dec phase (4g): whisper-small at full width (12 encoder and 12
+# decoder layers, d 768, 12 heads over 12 KV heads of 64: G 1 at D 64; an
+# encoder of 1500 frames from the audio stub, seeded frame embeddings) on
+# one seeded draw of the weights.  Sessions: 4 over 2 slots, each with its
+# own audio, prompts 40-200, gen 96, chunks of 32 (the admission chunk
+# too); max_len 328 (the longest prompt + gen + a chunk of headroom).
+# Paged: pages of 32 (a chunked admission writes whole pages), 11 a slot,
+# a pool of 17 below the full 22: the sessions hold 6, 7, 9 and 11 pages,
+# so the last waits for pages.  The tiering run: the 4 sessions over 1
+# slot through a RAM tier (ENCDEC_SHORT_GEN tokens each).
+ENCDEC = "whisper_small"
+ENCDEC_PROMPTS = (40, 96, 150, 200)
+ENCDEC_GEN = 96
+# the tiered run: the first 48 tokens of each stream (two chunks: every
+# session is spilled and resumed), held to those of the untiered run
+ENCDEC_SHORT_GEN = 48
+ENCDEC_CHUNK = 32
+ENCDEC_MAX_LEN = max(ENCDEC_PROMPTS) + ENCDEC_GEN + ENCDEC_CHUNK
+ENCDEC_PAGE, ENCDEC_POOL = 32, 17
+ENCDEC_RUNS = (("dense", "bfloat16"), ("int8", "bfloat16"),
+               ("paged", "bfloat16"), ("paged_int8", "bfloat16"),
+               ("dense", "float32"), ("paged", "float32"))
+ENCDEC_LAYOUTS = ("dense", "int8", "paged", "paged_int8")
+# the uniform-batch Engine path of the launcher (zero audio frames, as
+# JAX's launcher puts into its batch)
+ENCDEC_ENGINE_ARGS = ["--arch", ENCDEC, "--batch", "4", "--prompt-len", "64",
+                      "--gen", "128"]
+ENCDEC_STORE_BYTES = 4 << 30
+# the self-attention reads its layout (K1 / K1-int8 / K3 / K3-int8); the
+# cross-attention reads the cross K/V, dense under the paged layouts (K1,
+# K1-int8); every admission is K2
+ENCDEC_KERNELS = {"dense": (K1, K2), "int8": (K1_INT8, K2),
+                  "paged": (K1, K2, K3), "paged_int8": (K1_INT8, K2, K3_INT8)}
+# whisper-small's bf16 logits (one session: its admission and LOGIT_STEPS
+# steps) against the CPU f32 plain path on the four layouts: 3x the CPU
+# plain path's own bf16-against-f32 error there (tools/torch_logit_err.py
+# --arch whisper_small, on the GPU machine's CPU: 0.0272 dense and paged,
+# 0.0262 int8 and paged_int8; 0.0266 / 0.0281 with LayerNorm spelled out
+# as JAX's)
+LOGIT_TOL_ENCDEC = {"bfloat16": 0.085}
+
 # device items of a restore (host <-> device and device copies), and the
 # names cuBLAS gives its GEMM kernels
 RESTORE_RE = "copy|memcpy|memset|fill"
@@ -650,7 +731,7 @@ KERNELS = {
 # in modes tconst, tlin and full (the base transformer) on one seeded
 # init, in turns A B C C B A, each run TRAIN_STEPS steps of AdamW (lr
 # 3e-3, the launcher's cosine schedule) over the same synthetic batches
-TRAIN_STEPS = 6
+TRAIN_STEPS = 4      # the loss falls by step 3
 TRAIN_ARGS = ["--arch", "tconst-41m", "--batch", "8", "--seq", "1024",
               "--steps", str(TRAIN_STEPS), "--log-every", "1"]
 TRAIN_TURNS = ("tconst", "tlin", "full")
@@ -690,16 +771,22 @@ def card_line() -> str:
 def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
     """Median device time of one call, from CUDA events.  Each round
     queues ``reps`` calls behind a sleep kernel, so the device runs them
-    back to back and host launch gaps are not measured."""
+    back to back and host launch gaps are not measured.  The sleep lasts
+    twice the host time of queueing the round (the fastest warm-up call's
+    host time, at 2 GHz), from 1M cycles up to 20M."""
     import torch
+    host = []
     for _ in range(3):
+        t0 = time.perf_counter()
         fn()
+        host.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
+    cycles = int(min(20e6, max(1e6, 2 * reps * min(host) * 2e9)))
     per = []
     for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)
+        torch.cuda._sleep(cycles)
         start.record()
         for _ in range(reps):
             fn()
@@ -1073,13 +1160,12 @@ def k1_rows(torch, rows, cfg, dev, randn, gen, dname: str, max_len: int,
 
 
 def k3_rows(torch, rows, cfg, dev, randn, gen, dname: str, max_len: int,
-            cases=None, quants=(False, True)):
-    """K3 and K3-int8 (pages of 64) against their plain versions
+            cases=None, quants=(False, True), page: int = 64):
+    """K3 and K3-int8 (pages of ``page``) against their plain versions
     (``cases``: default :func:`k3_cases`)."""
     from repro_torch.kernels import paged_decode_attention as PD
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     dt = getattr(torch, dname)
-    page = 64
     for quant in quants:
         for label, vlist, window, cap in cases or k3_cases(max_len):
             B, pps = len(vlist), -(-cap // page)
@@ -1125,7 +1211,9 @@ def k2_rows(torch, rows, cfg, dev, randn, dname: str, max_len: int,
         q = randn((B, Lq, H, D), dt)
         k = randn((B, Lk, KV, D), dt)
         v = randn((B, Lk, KV, D), dt)
-        mask = FA.position_mask(qp, kp, causal, window)
+        # (B, Lq, Lk): without causality or a window the mask broadcasts
+        # over the queries
+        mask = FA.position_mask(qp, kp, causal, window).expand(B, Lq, Lk)
         square = causal and not window and qp is kp
         pairs = int(mask.sum())
         # K/V bytes only of the keys some query attends (dead keys and
@@ -1535,6 +1623,45 @@ def chunk_rows(torch, rows, dev, randn, dname: str):
             library=sdpa_chunk)
 
 
+def sdpa_full(torch, q, k, v, mask, square_causal=False, window=0):
+    """SDPA with no mask (every key attended: the enc-dec's encoder and
+    cross-attention), which lets it take its fused kernels."""
+    import torch.nn.functional as F
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                  enable_gqa=True)
+
+
+def encdec_rows(torch, rows, dev, randn, gen, dname: str):
+    """The kernels at the shapes whisper-small's phase gives them (12
+    heads over 12 KV heads of 64: G 1 at D 64), two slots: K1 and K1-int8
+    over the 1500 cross-attention slots, K1 over the self-attention cache
+    (max_len 328, hi 136 and 296), K3 and K3-int8 over the same cache in
+    pages of 32 (the paged layouts' self-attention), K2's non-causal
+    encoder (1500 x 1500) and cross prefill (128 queries over 1500
+    frames)."""
+    from repro_torch.config import get_config
+    cfg = get_config(ENCDEC)
+    T = cfg.encoder_seq
+    t = lambda xs: torch.tensor(xs, dtype=torch.int32, device=dev)  # noqa
+    k1_rows(torch, rows, cfg, dev, randn, gen, dname, ENCDEC_MAX_LEN,
+            cases=[("whisper_cross", 2, T, t([0, 0]), t([T, T])),
+                   ("whisper_self", 2, ENCDEC_MAX_LEN, t([0, 0]),
+                    t([136, 296]))],
+            int8_cases=[("whisper_int8_cross", 2, T, t([0, 0]), t([T, T]))])
+    k3_rows(torch, rows, cfg, dev, randn, gen, dname, ENCDEC_MAX_LEN,
+            cases=[("whisper_hist", [136, 296], 0, ENCDEC_MAX_LEN)],
+            page=ENCDEC_PAGE)
+
+    def pos(n):
+        return torch.arange(n, dtype=torch.int32, device=dev)[None].expand(
+            2, n).contiguous()
+    k2_rows(torch, rows, cfg, dev, randn, dname, ENCDEC_MAX_LEN,
+            cases=[("whisper_encoder", pos(T), pos(T), False),
+                   ("whisper_cross_prefill", pos(128), pos(T), False)],
+            library=sdpa_full)
+
+
 def kernel_phase(torch, cfg, dev, max_len: int):
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
@@ -1556,6 +1683,7 @@ def kernel_phase(torch, cfg, dev, max_len: int):
         timed(k2_rows, torch, rows, cfg, dev, randn, dname, max_len)
         timed(lm_rows, torch, rows, dev, randn, gen, dname, max_len)
         timed(chunk_rows, torch, rows, dev, randn, dname)
+        timed(encdec_rows, torch, rows, dev, randn, gen, dname)
         timed(k2_bwd_rows, torch, rows, cfg, dev, randn, dname)
     timed(ssd_phase, torch, rows, dev, gen)
     print("[kernel] seconds by row group: " + ", ".join(
@@ -1665,6 +1793,33 @@ def cow_watch(torch):
         S.SlotScheduler._admit = orig_admit
 
 
+# the seeded weights of the models drawn on the CPU (every family but the
+# MoE one, which draws on the card in the run's dtype, one model at a
+# time), with the config they were drawn for, by arch, --reduced, seed and
+# config overrides: the runs of one model serve the tensors one draw made
+CPU_WEIGHTS = {}
+
+
+def load_run(serve, args, **overrides):
+    """``serve.load`` of a run's argv, drawing a model's seeded weights
+    once if they are drawn on the CPU (float32 whatever the run's dtype;
+    serving casts copies of them): a later run of the model takes them
+    with its own dtype's config."""
+    from repro_torch.config import get_config
+    from repro_torch.models.api import build_model
+    key = (args.arch, args.reduced, args.seed, tuple(sorted(
+        (k, v) for k, v in overrides.items() if k != "dtype")))
+    if key in CPU_WEIGHTS:
+        cfg, params = CPU_WEIGHTS[key]
+        cfg = cfg.replace(dtype=overrides.get("dtype") or args.dtype or
+                          get_config(args.arch).dtype)
+        return cfg, build_model(cfg, device=args.device), params
+    cfg, api, params = serve.load(args, **overrides)
+    if not cfg.is_moe:
+        CPU_WEIGHTS[key] = cfg, params
+    return cfg, api, params
+
+
 def serve_phase(torch, runtime, serve, mode: str, layout: str, dtype: str,
                 kernels, sharing: bool = False, extra=(), ref_streams=None,
                 **overrides):
@@ -1674,14 +1829,15 @@ def serve_phase(torch, runtime, serve, mode: str, layout: str, dtype: str,
     ``sharing``: the run with ``--prefix-sharing`` (``sharing_argv``),
     its chunks and admissions under :func:`cow_watch`.  ``extra``: argv
     appended (``--prefill-chunk``).  ``ref_streams``: the streams of a
-    run of the same argv whose streams were held to their solo runs; an
-    f32 run is then held to them instead of running its own solo runs.
+    run of the same prompts (the same argv, or its ``TWIN_LAYOUT``'s)
+    whose streams were held to their solo runs; an f32 run is then held
+    to them instead of running its own solo runs.
     ``overrides`` replace config fields of the run's model (deepseek's
     depth)."""
     args = serve.parse_args((sharing_argv if sharing else session_argv)(
         mode, layout, dtype) + list(extra))
     t0 = time.time()
-    cfg, api, params = serve.load(args, **MODELS[mode][1], **overrides)
+    cfg, api, params = load_run(serve, args, **MODELS[mode][1], **overrides)
     torch.cuda.synchronize()
     parts_s = {"load": time.time() - t0}
     with (cow_watch(torch) if sharing else contextlib.nullcontext()) \
@@ -1747,8 +1903,8 @@ def serve_phase(torch, runtime, serve, mode: str, layout: str, dtype: str,
     if ref_streams is not None:
         rep["streams_equal_ref"] = rep["streams"] == ref_streams
         check(dtype != "float32" or rep["streams_equal_ref"], f"{what}: "
-              f"f32 greedy streams differ from the same argv's run "
-              f"without {list(extra)}")
+              f"f32 greedy streams differ from the run they are held to "
+              f"(extra argv {list(extra)})")
     elif dtype == "float32":
         t0 = time.time()
         chk = serve.check_sessions(api, params, served, args)
@@ -1877,11 +2033,11 @@ def summarize(errs) -> dict:
             "routed": sum(e["routed"] for e in errs)}
 
 
-def moe_logits_phase(torch, serve, cfg, args, params) -> dict:
+def moe_logits_phase(torch, serve, cfg, args, params, ref) -> dict:
     """deepseek at ``DEEPSEEK_CHECK_DEPTH`` on f32 weights: the card's f32
     path and its bf16 path (these weights cast, as the bf16 init draws
-    them) against one CPU f32 reference, within ``LOGIT_TOL_MOE``."""
-    ref = cpu_reference(torch, serve, cfg, args, params, n_prompts=2)
+    them) against one CPU f32 reference ``ref`` (:func:`cpu_reference`),
+    within ``LOGIT_TOL_MOE``."""
     return {dtype: summarize(logits_phase(
         torch, serve, cfg.replace(dtype=dtype), args, params,
         LOGIT_TOL_MOE[dtype], ref=ref)) for dtype in ("float32", "bfloat16")}
@@ -2085,12 +2241,16 @@ def window_phase(torch, runtime, serve) -> dict:
     ~3e-4 while the window holds it and can flip a near-tied greedy token
     of these random weights: there the streams are recorded, not
     required equal, and a TConst model's logits are held from the card's
-    stored cache (:func:`adopted_logits`)."""
+    stored cache (:func:`adopted_logits`).  A paged layout's CPU plain
+    path computes its dense (int8) twin's: its streams and logit reference
+    are the twin's (paging is exact)."""
     from repro_torch.models.api import build_model
     from repro_torch.models.lm import layer_windows
     out = {}
+    cpu = {}        # (model, layout): (CPU streams, CPU logit reference)
     for name, (arch, over) in WINDOW_MODELS.items():
         for layout in LAYOUT_KERNELS:
+            twin = {"paged": "dense", "paged_int8": "int8"}.get(layout)
             argv = WINDOW_ARGS + ["--arch", arch, "--layout", layout]
             streams, counts = {}, None
             # one set of weights: the MoE family draws its own on the card
@@ -2098,7 +2258,7 @@ def window_phase(torch, runtime, serve) -> dict:
             cfg, _, params = serve.load(
                 serve.parse_args(argv + ["--device", "cuda"]), **over)
             kernels = layout_kernels(cfg, layout)
-            for device in ("cuda", "cpu"):
+            for device in ("cuda",) if twin else ("cuda", "cpu"):
                 args = serve.parse_args(argv + ["--device", device])
                 runtime.reset_counters()
                 served = serve.serve_sessions(
@@ -2114,8 +2274,18 @@ def window_phase(torch, runtime, serve) -> dict:
                 check((c["kernel"] > 0) == (n in kernels) and
                       c["plain"] == 0, f"{what}: launches {counts}")
             adopt = "int8" in layout and cfg.attention_mode in TCONST_MODES
-            errs = (adopted_logits if adopt else logits_phase)(
-                torch, serve, cfg, args, params, LOGIT_TOL["float32"])
+            if twin:
+                streams["cpu"], ref = cpu[name, twin]
+            else:
+                ref = None if adopt else cpu_reference(torch, serve, cfg,
+                                                       args, params)
+                cpu[name, layout] = streams["cpu"], ref
+            if adopt:
+                errs = adopted_logits(torch, serve, cfg, args, params,
+                                      LOGIT_TOL["float32"])
+            else:
+                errs = logits_phase(torch, serve, cfg, args, params,
+                                    LOGIT_TOL["float32"], ref=ref)
             same = streams["cuda"] == streams["cpu"]
             check(same or "int8" in layout, f"{what}: greedy streams "
                   f"differ from the CPU plain path's")
@@ -2832,6 +3002,295 @@ def workload_phase(torch, runtime, serve, weights) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4g: the encoder-decoder (whisper-small)
+# ---------------------------------------------------------------------------
+
+
+def encdec_inputs(cfg):
+    """The phase's session prompts and each session's own audio frames
+    (encoder_seq x frontend_dim, float32), from seeds."""
+    import numpy as np
+    rng = np.random.RandomState(28)
+    prompts = [rng.randint(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in ENCDEC_PROMPTS]
+    audio = [np.random.RandomState(100 + i).randn(
+        cfg.encoder_seq, cfg.frontend_dim).astype(np.float32)
+        for i in range(len(ENCDEC_PROMPTS))]
+    return prompts, audio
+
+
+def encdec_spec(layout: str, full_pool: bool = False):
+    from repro_torch.models.layouts import LayoutSpec
+    return LayoutSpec(kind=layout, page_size=ENCDEC_PAGE, pool_pages=None
+                      if full_pool or not layout.startswith("paged")
+                      else ENCDEC_POOL)
+
+
+def encdec_launches(counts, kernels, what: str, n_layers: int, steps: int,
+                    admit_k2: int, admissions: int) -> dict:
+    """Exactly ``kernels`` launched and no plain version; a decode step
+    launches 2 x n_layers (self- and cross-attention; on a paged layout
+    half K3, half K1), the ``admissions`` cold admissions' K2 launches
+    ``admit_k2`` in all.  Returns the launches per step and K2's per
+    admission, as counted."""
+    for name, c in counts.items():
+        check((c["kernel"] > 0) == (name in kernels) and c["plain"] == 0,
+              f"{what}: launches {counts}, expected exactly {kernels}")
+    decode = {n: counts[n]["kernel"] for n in kernels if n != K2}
+    check(sum(decode.values()) == 2 * n_layers * steps and
+          all(v == n_layers * steps * (2 // len(decode))
+              for v in decode.values()), f"{what}: decode launches "
+          f"{decode} over {steps} steps of {n_layers} layers")
+    check(counts[K2]["kernel"] == admit_k2, f"{what}: K2 launched "
+          f"{counts[K2]['kernel']} times, {admit_k2} expected")
+    return {"per_step": {n: v / steps for n, v in decode.items()},
+            "k2_per_admission": counts[K2]["kernel"] / admissions}
+
+
+def encdec_run(torch, runtime, cfg, weights, prompts, audio, layout: str,
+               what: str, slots: int = 2, prefill_chunk=None,
+               store=None, gen: int = ENCDEC_GEN) -> dict:
+    """One sessions run of the enc-dec on the card, ``gen`` tokens a
+    session, counted alone: the counters reset right before the scheduler
+    and read right after it.  Sessions are staggered (one chunk between
+    submissions), or with a tier store submitted up front and spilled
+    every chunk while others wait.  Checks the launches
+    (:func:`encdec_launches`), the tokens of every session, and on a
+    paged layout a page wait and no page leaked."""
+    from repro_torch.models.api import build_decode
+    from repro_torch.serving.scheduler import SlotScheduler
+    from repro_torch.serving.session import Session
+    dec = build_decode(cfg, encdec_spec(layout), device="cuda",
+                       prefill_chunk=prefill_chunk)
+    torch.cuda.synchronize()
+    runtime.reset_counters()
+    t0 = time.time()
+    sched = SlotScheduler(dec, weights, slots=slots, max_len=ENCDEC_MAX_LEN,
+                          chunk_size=ENCDEC_CHUNK, tier_store=store,
+                          preempt_chunks=None if store is None else 1)
+    sessions = []
+    for p, a in zip(prompts, audio):
+        sessions.append(sched.submit(Session(
+            p, max_new_tokens=gen, extras={"audio_feats": a})))
+        if store is None:
+            sched.step()
+    sched.run()
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    counts = runtime.read_counters()
+    for s in sessions:
+        check(len(s.tokens) == gen, f"{what}: session {s.sid}: "
+              f"{len(s.tokens)} tokens")
+    steps = ENCDEC_CHUNK * sum(1 for x in sched.stats if x.kind == "chunk")
+    cold = [a for a in sched.admit_stats if a.source == "cold"]
+    n_enc, n_dec = cfg.encoder_layers, cfg.n_layers
+    admit_k2 = sum(n_enc + 2 * n_dec * (a.forward_tokens // prefill_chunk
+                                        if prefill_chunk else 1)
+                   for a in cold)
+    rep = {"seconds": seconds, "steps": steps,
+           "launches": {n: c["kernel"] for n, c in counts.items()
+                        if c["kernel"]},
+           "streams": [list(s.tokens) for s in sessions],
+           "forward_tokens": [a.forward_tokens for a in sched.admit_stats],
+           "sources": [a.source for a in sched.admit_stats],
+           "page_waits": sched.page_waits, "peak_active": sched.peak_active,
+           "kv_bytes": sched.kv_bytes()}
+    rep.update(encdec_launches(counts, ENCDEC_KERNELS[layout], what, n_dec,
+                               steps, admit_k2, len(cold)))
+    if prefill_chunk:
+        rep["chunks_per_admission"] = [a.forward_tokens // prefill_chunk
+                                       for a in cold]
+    if sched._paged:
+        check(sched.page_waits >= 1 and sched.peak_active >= 2,
+              f"{what}: {sched.page_waits} page waits, "
+              f"{sched.peak_active} sessions at once")
+        check(sorted(sched.free_pages) == list(range(ENCDEC_POOL)),
+              f"{what}: pages leaked")
+    if store is not None:
+        sp = sched.spill_stats
+        spills = [x.tokens for x in sched.stats if x.kind == "spill"]
+        per_spill = [snapshot_bytes(sched, n) for n in spills]
+        check(sp["spills"] == sp["resumes"] == len(spills) > 0 and
+              sp["spilled_bytes"] == sum(per_spill), f"{what}: spilled "
+              f"{sp['spilled_bytes']} bytes in {sp['spills']} spills, "
+              f"predicted {sum(per_spill)}")
+        check(sum(1 for s in sessions if s.resumes >= 1) >=
+              len(sessions) - slots, f"{what}: too few spill->resume "
+              f"cycles")
+        check(sp["admit_store_hits"] == sp["admit_store_puts"] == 0,
+              f"{what}: sessions with extras were stored or hit ({sp})")
+        check(all(a.forward_tokens == 0 for a in sched.admit_stats
+                  if a.source == "resume"), f"{what}: a resume forwarded")
+        check(not tuple(store.pinned_keys()), f"{what}: pins left")
+        rep["tiering"] = {k: sp[k] for k in ("spills", "resumes",
+                                             "spilled_bytes",
+                                             "admit_store_hits")}
+        rep["bytes_per_spill"] = sorted(set(per_spill))
+    return rep
+
+
+def encdec_solo(torch, cfg, weights, prompts, audio, layout: str):
+    """Each session alone through the Engine on ``layout`` (full pool):
+    its greedy stream."""
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.engine import Engine
+    eng = Engine(build_model(cfg, device="cuda"), weights,
+                 max_len=ENCDEC_MAX_LEN,
+                 layout=encdec_spec(layout, full_pool=True))
+    return [eng.generate({"tokens": p[None], "audio_feats": a[None]},
+                         ENCDEC_GEN)[0].tolist()
+            for p, a in zip(prompts, audio)]
+
+
+def encdec_logits(torch, cfg, weights, prompt, audio, layouts, tol,
+                  device="cuda") -> dict:
+    """One session's logits on ``device`` (``cfg``'s dtype) against the
+    plain path on the CPU in f32, same weights, on each of ``layouts``:
+    the admission (one encoder run on the CPU, its cache packed into each
+    layout) and ``LOGIT_STEPS`` steps fed the reference's greedy tokens.
+    Returns {layout: the largest error}, each within ``tol``."""
+    from repro_torch.models import encdec as ED
+    from repro_torch.models.api import build_decode
+    f32 = cfg.replace(dtype="float32")
+    batch = {"tokens": prompt[None], "audio_feats": audio[None]}
+    ref = {}
+    p = ED.prepare_params(weights, torch.device("cpu"), torch.float32)
+    logits, cache = ED.encdec_prefill(
+        p, torch.as_tensor(prompt[None]), torch.as_tensor(audio[None]), f32,
+        ENCDEC_MAX_LEN)
+    for layout in layouts:
+        dec = build_decode(f32, encdec_spec(layout, full_pool=True),
+                           device="cpu")
+        st = dec._wrap({k: v.clone() for k, v in cache.items()},
+                       dec.bind(1, ENCDEC_MAX_LEN))
+        steps = [logits]
+        for _ in range(LOGIT_STEPS):
+            lg, st = dec.raw_step(p, st, steps[-1].argmax(dim=-1).to(
+                torch.int32))
+            steps.append(lg)
+        ref[layout] = steps
+    errs = {}
+    for layout in layouts:
+        dec = build_decode(cfg, encdec_spec(layout, full_pool=True),
+                           device=device)
+        p = dec.prepare_params(weights)
+        got, st = dec.prefill(p, batch, ENCDEC_MAX_LEN)
+        worst = 0.0
+        for i, want in enumerate(ref[layout]):
+            if i:
+                tok = ref[layout][i - 1].argmax(dim=-1).to(torch.int32)
+                got, st = dec.raw_step(p, st, tok.to(device))
+            check(bool(torch.isfinite(got).all()), f"{cfg.name} {layout}: "
+                  f"non-finite logits at step {i}")
+            worst = max(worst, (got.float().cpu() - want).abs().max().item())
+        check(worst <= tol, f"{cfg.name} {layout} {cfg.dtype}: logits "
+              f"differ from the CPU f32 plain path by {worst} > {tol}")
+        errs[layout] = worst
+    return errs
+
+
+def encdec_phase(torch, runtime, serve) -> dict:
+    """Phase 4g: whisper-small at full width on one draw of the weights:
+    the launcher's uniform-batch Engine path; sessions on the four
+    layouts in bf16 and on dense and paged in f32 (f32 streams equal
+    their solo runs; paged's equal dense's); chunked admission on paged
+    in f32 (streams equal the one-shot run's); 4 sessions over 1 slot
+    through a RAM tier on dense in f32, 48 tokens each (streams equal the
+    untiered run's first 48, no store hit); one
+    session's bf16 logits on the four layouts against the CPU f32 plain
+    path.  Every run launches exactly its layout's kernels, no plain
+    version."""
+    from repro_torch.config import get_config
+    from repro_torch.layers.common import to_device
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.tier_store import TierStore
+    parts = {}
+    t0 = time.time()
+    full = get_config(ENCDEC)
+    weights = to_device(build_model(full, device="cuda").init(0),
+                        torch.device("cuda"))
+    prompts, audio = encdec_inputs(full)
+    parts["load"] = time.time() - t0
+    out = {}
+    # the launcher's Engine path (what serve.main runs after its load)
+    t0 = time.time()
+    eargs = serve.parse_args(ENCDEC_ENGINE_ARGS)
+    runtime.reset_counters()
+    erep = serve.run_batch(full, build_model(full, device="cuda"), weights,
+                           eargs)
+    torch.cuda.synchronize()
+    counts = runtime.read_counters()
+    steps = eargs.gen - 1
+    check(erep["hit_ms"] is not None and erep["n_misses"] == 0,
+          f"whisper engine: no warm step, or a resync ({erep['n_misses']})")
+    out["engine"] = {k: erep[k] for k in ("prefill_ms", "hit_ms", "n_hits",
+                                          "seconds")}
+    out["engine"].update(encdec_launches(
+        counts, ENCDEC_KERNELS["dense"], "whisper engine", full.n_layers,
+        steps, full.encoder_layers + 2 * full.n_layers, 1))
+    parts["engine"] = time.time() - t0
+    # sessions
+    for layout, dtype in ENCDEC_RUNS:
+        key = f"{layout}/{dtype}"
+        t0 = time.time()
+        cfg = full.replace(dtype=dtype)
+        rep = encdec_run(torch, runtime, cfg, weights, prompts, audio,
+                         layout, f"whisper {key}")
+        if key == "dense/float32":
+            t1 = time.time()
+            solo = encdec_solo(torch, cfg, weights, prompts, audio, layout)
+            rep["solo_s"] = time.time() - t1
+            rep["streams_equal_solo"] = rep["streams"] == solo
+            check(rep["streams_equal_solo"], f"whisper {key}: f32 streams "
+                  f"differ from their solo runs")
+        elif dtype == "float32":
+            # paging is exact: held to the dense run, held to its solo runs
+            rep["streams_equal_dense"] = \
+                rep["streams"] == out["dense/float32"]["streams"]
+            check(rep["streams_equal_dense"], f"whisper {key}: f32 streams "
+                  f"differ from the dense run's")
+        rep["phase_s"] = time.time() - t0
+        out[key] = rep
+    f32 = full.replace(dtype="float32")
+    # chunked admission on paged: streams equal the one-shot run's
+    t0 = time.time()
+    rep = encdec_run(torch, runtime, f32, weights, prompts, audio, "paged",
+                     "whisper paged/float32 chunked",
+                     prefill_chunk=ENCDEC_CHUNK)
+    rep["streams_equal_one_shot"] = \
+        rep["streams"] == out["paged/float32"]["streams"]
+    check(rep["streams_equal_one_shot"], "whisper chunked: f32 streams "
+          "differ from the one-shot run's")
+    check(rep["forward_tokens"] == [-(-n // ENCDEC_CHUNK) * ENCDEC_CHUNK
+                                    for n in ENCDEC_PROMPTS],
+          f"whisper chunked: forward tokens {rep['forward_tokens']}")
+    rep["phase_s"] = time.time() - t0
+    out["paged/float32/chunked"] = rep
+    # tiering: 4 sessions over 1 slot through a RAM tier
+    t0 = time.time()
+    rep = encdec_run(torch, runtime, f32, weights, prompts, audio, "dense",
+                     "whisper dense/float32 tiered", slots=1,
+                     store=TierStore(capacity_bytes=ENCDEC_STORE_BYTES),
+                     gen=ENCDEC_SHORT_GEN)
+    rep["streams_equal_untiered"] = rep["streams"] == [
+        s[:ENCDEC_SHORT_GEN] for s in out["dense/float32"]["streams"]]
+    check(rep["streams_equal_untiered"], "whisper tiered: f32 streams "
+          "differ from the untiered run's")
+    rep["phase_s"] = time.time() - t0
+    out["dense/float32/tiered"] = rep
+    # one session's bf16 logits against the CPU f32 plain path
+    t0 = time.time()
+    out["logit_max_err"] = encdec_logits(
+        torch, full, weights, prompts[0], audio[0], ENCDEC_LAYOUTS,
+        LOGIT_TOL_ENCDEC["bfloat16"])
+    parts["logits"] = time.time() - t0
+    for rep in out.values():
+        rep.pop("streams", None)
+    out["parts_s"] = parts
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: training
 # ---------------------------------------------------------------------------
 
@@ -3071,15 +3530,25 @@ def main() -> int:
           f"{per_call}")
     phase_s = {"kernels": time.time() - t_phase}
 
-    # 4. serve at full width: every run is a main path, counted alone
+    # 4. serve at full width: every run is a main path, counted alone.  A
+    # run with a TWIN_LAYOUT computes what its twin's run does: its f32
+    # streams are held to the twin's (which equal their solo runs), its
+    # logits to the twin's CPU reference
     runs = {}
+    cpu_refs = {}
     for mode, layout, kernels in SESSION_RUNS:
+        twin = TWIN_LAYOUT.get((mode, layout))
         for dtype in ("bfloat16", "float32"):
             t_phase = time.time()
             cfg, args, params, rep = serve_phase(
                 torch, runtime, serve, mode, layout, dtype, kernels,
+                ref_streams=runs[f"{mode}/{twin}/{dtype}"]["streams"]
+                if twin and dtype == "float32" else None,
                 **RUN_OVERRIDES.get((mode, dtype), {}))
             t_logits = time.time()
+            ref_key = (mode, twin or layout, dtype)
+            n_prompts = None if (mode, layout) == ("tconst", "dense") \
+                else LOGIT_PROMPTS.get(mode, 2)
             tol = LOGIT_TOL_MOE if mode in MOE_MODES else \
                 {"mamba2": LOGIT_TOL_SSM, **LOGIT_TOL_LM}.get(
                     mode, LOGIT_TOL).get(dtype)
@@ -3089,18 +3558,22 @@ def main() -> int:
             elif mode in MOE_MODES:
                 # both dtypes' logits at the checked depth, on the bf16
                 # runs' prompts (600 and 605: those of LOGIT_TOL_MOE; 700
-                # and 705 in tconst mode)
+                # in tconst mode)
+                bf16_args = serve.parse_args(
+                    session_argv(mode, layout, "bfloat16"))
+                if ref_key not in cpu_refs:
+                    cpu_refs[ref_key] = cpu_reference(
+                        torch, serve, cfg, bf16_args, params, n_prompts)
                 rep["logit_max_err"] = moe_logits_phase(
-                    torch, serve, cfg, serve.parse_args(
-                        session_argv(mode, layout, "bfloat16")), params)
+                    torch, serve, cfg, bf16_args, params, cpu_refs[ref_key])
             elif dtype == "bfloat16" or (mode, layout) == ("tconst",
                                                            "dense"):
-                # mamba2: prompts 600 and 605 (10 chunks of 64, the last
-                # 24 and 29 rows)
+                if ref_key not in cpu_refs:
+                    cpu_refs[ref_key] = cpu_reference(
+                        torch, serve, cfg, args, params, n_prompts)
                 rep["logit_err"] = logits_phase(
                     torch, serve, cfg, args, params, tol,
-                    n_prompts=None if (mode, layout) == ("tconst", "dense")
-                    else 2)
+                    ref=cpu_refs[ref_key])
                 rep["logit_max_err"] = summarize(rep["logit_err"])
             rep["parts_s"]["logits"] = time.time() - t_logits
             runs[f"{mode}/{layout}/{dtype}"] = rep
@@ -3203,7 +3676,7 @@ def main() -> int:
     # the O(1) TConst re-admission, the disk tier
     t_phase = time.time()
     # the seeded weights 4e and 4f both serve, drawn once
-    weights = {arch: serve.load(serve.parse_args(["--arch", arch]))[2]
+    weights = {arch: load_run(serve, serve.parse_args(["--arch", arch]))[2]
                for arch in ("tconst-41m", SMOLLM)}
     tiering = tiering_phase(torch, runtime, serve, runs, sharing, weights)
     phase_s["tiering"] = time.time() - t_phase
@@ -3269,6 +3742,37 @@ def main() -> int:
                   f"{att['slo']} vs fifo {att['fifo']} (recorded, not gated)")
     print(f"[workload] {phase_s['workload']:.1f}s")
 
+    # 4g. the encoder-decoder: whisper-small at full width
+    t_phase = time.time()
+    encdec = encdec_phase(torch, runtime, serve)
+    phase_s["encdec"] = time.time() - t_phase
+    e = encdec["engine"]
+    print(f"[encdec] engine (serve --arch {ENCDEC}, bf16 batch 4, prompt 64,"
+          f" gen 128, dense): step {e['hit_ms']:.3f} ms (mean of "
+          f"{e['n_hits']}), admission {e['prefill_ms']:.3f} ms; launches a "
+          f"step {e['per_step']}, K2 an admission {e['k2_per_admission']}")
+    for key, r in encdec.items():
+        if key in ("engine", "logit_max_err", "parts_s"):
+            continue
+        checks = ", ".join(f"{k} {r[k]}" for k in (
+            "streams_equal_solo", "streams_equal_dense",
+            "streams_equal_one_shot", "streams_equal_untiered") if k in r)
+        chunks = (f" of {r['chunks_per_admission']} chunks"
+                  if "chunks_per_admission" in r else "")
+        print(f"[encdec] {key}: launches {r['launches']} (plain 0) over "
+              f"{r['steps']} steps, a step {r['per_step']}, K2 an admission"
+              f"{chunks} {r['k2_per_admission']}; forward tokens "
+              f"{r['forward_tokens']} ({r['sources']}); page waits "
+              f"{r['page_waits']}; {checks or 'streams not held (bf16)'}"
+              f"{'; tiering ' + str(r['tiering']) if 'tiering' in r else ''}"
+              f"; {r['phase_s']:.1f}s (serve {r['seconds']:.1f}"
+              f"{', solo %.1f' % r['solo_s'] if 'solo_s' in r else ''})")
+    print(f"[encdec] bf16 logits vs the CPU f32 plain path (one session, "
+          f"{LOGIT_STEPS} steps): {encdec['logit_max_err']} (tol "
+          f"{LOGIT_TOL_ENCDEC['bfloat16']}); parts "
+          f"{ {k: round(v, 1) for k, v in encdec['parts_s'].items()} }; "
+          f"{phase_s['encdec']:.1f}s; {card}")
+
     # 5. training at full width: the paper's three variants on one init
     t_phase = time.time()
     training = train_phase(torch, runtime)
@@ -3301,7 +3805,7 @@ def main() -> int:
     for mode, layout in ENGINE_TURNS + ENGINE_TURNS[::-1]:
         t_phase = time.time()
         eargs = serve.parse_args(ENGINE_ARGS + ["--layout", layout])
-        ecfg, eapi, eparams = serve.load(eargs, attention_mode=mode)
+        ecfg, eapi, eparams = load_run(serve, eargs, attention_mode=mode)
         erep = serve.run_batch(ecfg, eapi, eparams, eargs)
         check(erep["hit_ms"] is not None and
               (erep["miss_ms"] is not None) == (mode in RESYNCING),
@@ -3321,7 +3825,7 @@ def main() -> int:
                     f" ms" for k, v in engines.items()))
     t_phase = time.time()
     sargs = serve.parse_args(SSM_ENGINE_ARGS)
-    scfg, sapi, sparams = serve.load(sargs)
+    scfg, sapi, sparams = load_run(serve, sargs)
     srep = serve.run_batch(scfg, sapi, sparams, sargs)
     check(srep["hit_ms"] is not None and srep["n_misses"] == 0,
           f"mamba2 engine run: no warm step, or a resync ({srep['n_misses']})")
@@ -3365,13 +3869,33 @@ def main() -> int:
         "max_abs_err": max(x["max_abs_err"] for x in chunk_rows_),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # whisper-small's shapes (phase 3's whisper rows; launches of the
+    # phase 4g bf16 runs: dense for K1 and K2, int8 for K1-int8)
+    for name, case, run in ((K1, "whisper_cross", "dense/bfloat16"),
+                            (K1_INT8, "whisper_int8_cross",
+                             "int8/bfloat16"),
+                            (K2, "whisper_encoder", "dense/bfloat16"),
+                            (K2, "whisper_cross_prefill", "dense/bfloat16"),
+                            (K3, "whisper_hist", "paged/bfloat16"),
+                            (K3_INT8, "whisper_hist",
+                             "paged_int8/bfloat16")):
+        _, src, repl, _ = KERNELS[name]
+        mine = [x for x in rows if (x["kernel"], x["case"]) == (name, case)]
+        r = next(x for x in mine if x["dtype"] == "bfloat16")
+        line.append({
+            "name": name, "case": case, "route": "cuda", "source": src,
+            "replaces": repl, "launches": encdec[run]["launches"][name],
+            "max_abs_err": max(x["max_abs_err"] for x in mine),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
     detail = {
         "card": card, "kind": kind, "torch": torch.__version__,
         "cuda": torch.version.cuda, "build_s": built,
         "kernel_rows": rows, "sass_tensor_core_ops": sass,
         "launches_per_call": per_call, "sessions": runs,
         "sharing": sharing, "chunked": chunked, "windows": windows,
-        "tiering": tiering, "workload": workloads,
+        "tiering": tiering, "workload": workloads, "encdec": encdec,
         "engines": engines,
         "training": training, "grad_check": grads,
         "phase_s": phase_s, "total_s": time.time() - t_start,

@@ -19,12 +19,19 @@ the mixer's ``in_proj``/``conv_w``/``conv_b``/``dt_bias``/``a_log``/
 DeepSeek's leading ``dense_layers`` are already a list in JAX) -- beside
 ``embed.tok`` / ``embed.head`` and ``final_norm``.
 
+The JAX encoder-decoder (``models/encdec.py::init_encdec``) stacks
+``enc_layers`` and ``dec_layers`` on a leading axis each; the port keeps
+two lists of per-layer dicts (LayerNorms ``{"scale", "bias"}``, ``attn``
+and the decoder's ``cross`` as above, the GELU ``ffn`` ``w_in`` (d, ff)
+/ ``b_in`` / ``w_out`` (ff, d) / ``b_out``), beside ``embed`` (``tok``
+and ``frontend_proj``), ``enc_pos``, ``enc_norm`` and ``dec_norm``.
+
 The trainer keeps its parameters and optimizer state in the JAX tree
 layout (:func:`stack_params`; AdamW's decay and factoring depend on a
 leaf's rank, :mod:`repro_torch.training.optim`), and the model reads
 per-block / per-layer views of it (:func:`unstack_params`).
-:func:`params_to_jax` is the inverse of :func:`params_from_jax` and
-:func:`lm_params_from_jax`; :func:`opt_state_to_jax` /
+:func:`params_to_jax` is the inverse of :func:`params_from_jax`,
+:func:`lm_params_from_jax` and :func:`encdec_params_from_jax`; :func:`opt_state_to_jax` /
 :func:`opt_state_from_jax` carry the optimizer state (step, m, v, the
 factored ``vr`` / ``vc``) both ways.  numpy has no bfloat16 without
 ``ml_dtypes``: a bf16 tensor goes to JAX as its exact float32 values, and
@@ -81,23 +88,31 @@ def params_from_jax(tree: Any, device: Any = None) -> Any:
     }
 
 
-def lm_params_from_jax(tree: Any, device: Any = None) -> Any:
-    """``tree``: the JAX ``init_lm`` pytree with numpy leaves (layers
-    stacked on a leading ``n_layers - n_dense`` axis; an MoE model's
-    leading ``dense_layers`` a list of unstacked layers).  Returns the
-    port's LM params (float32 tensors as stored) on ``device`` (default:
-    CPU)."""
-    layers = tree["layers"]
+# the stacked per-layer lists of the LM and the enc-dec
+_LAYER_LISTS = ("layers", "enc_layers", "dec_layers")
+
+
+def _unstack(layers: Any, fn) -> List[Any]:
+    """A tree whose leaves carry a leading layer axis as a list of
+    per-layer trees, each leaf through ``fn(leaf, i)``."""
     n = int(np.shape(layers["ln1"]["scale"])[0])
-    out = {"embed": _map(tree["embed"], lambda a: _tensor(a, device))}
-    if "dense_layers" in tree:
-        out["dense_layers"] = _map(tree["dense_layers"],
-                                   lambda a: _tensor(a, device))
-    out["layers"] = [_map(layers, lambda a, i=i: _tensor(a[i], device))
-                     for i in range(n)]
-    out["final_norm"] = _map(tree["final_norm"],
-                             lambda a: _tensor(a, device))
-    return out
+    return [_map(layers, lambda a, i=i: fn(a, i)) for i in range(n)]
+
+
+def lm_params_from_jax(tree: Any, device: Any = None) -> Any:
+    """``tree``: the JAX ``init_lm`` or ``init_encdec`` pytree with numpy
+    leaves (``layers``, or ``enc_layers`` / ``dec_layers``, stacked on a
+    leading axis; an MoE model's leading ``dense_layers`` a list of
+    unstacked layers).  Returns the port's params (float32 tensors as
+    stored; every list of ``_LAYER_LISTS`` unstacked) on ``device``
+    (default: CPU)."""
+    return {k: _unstack(v, lambda a, i: _tensor(a[i], device))
+            if k in _LAYER_LISTS else _map(v, lambda a: _tensor(a, device))
+            for k, v in tree.items()}
+
+
+# the enc-dec's trees take the same unstacking
+encdec_params_from_jax = lm_params_from_jax
 
 
 # ---------------------------------------------------------------------------
@@ -114,21 +129,19 @@ def _stack(trees: List[Any]) -> Any:
 
 
 def stack_params(params: Any) -> Any:
-    """The port's params (TConst: ``"blocks"``; LM: ``"layers"``) in the
-    JAX package's tree layout, as tensors: each TConst layer's leaves
-    stacked over the blocks, an LM's layers stacked on a leading axis
-    (DeepSeek's ``dense_layers`` stay a list).  Copies."""
-    out = {"embed": params["embed"]}
-    if "blocks" in params:
-        blocks = params["blocks"]
-        out["blocks"] = {"layers": [
-            _stack([b["layers"][i] for b in blocks])
-            for i in range(len(blocks[0]["layers"]))]}
-    else:
-        if "dense_layers" in params:
-            out["dense_layers"] = params["dense_layers"]
-        out["layers"] = _stack(params["layers"])
-    out["final_norm"] = params["final_norm"]
+    """The port's params (TConst: ``"blocks"``; LM: ``"layers"``; enc-dec:
+    ``"enc_layers"`` and ``"dec_layers"``) in the JAX package's tree
+    layout, as tensors: each TConst layer's leaves stacked over the
+    blocks, a list of layers stacked on a leading axis (DeepSeek's
+    ``dense_layers`` stay a list).  Copies."""
+    out = {}
+    for k, v in params.items():
+        if k == "blocks":
+            v = {"layers": [_stack([b["layers"][i] for b in v])
+                            for i in range(len(v[0]["layers"]))]}
+        elif k in _LAYER_LISTS:
+            v = _stack(v)
+        out[k] = v
     return out
 
 
@@ -136,27 +149,23 @@ def unstack_params(tree: Any) -> Any:
     """Inverse of :func:`stack_params`: the port's per-block / per-layer
     params as views of the stacked leaves (no copy; autograd carries the
     gradients back to them)."""
-    out = {"embed": tree["embed"]}
-    if "blocks" in tree:
-        layers = tree["blocks"]["layers"]
-        nb = int(layers[0]["ln1"]["scale"].shape[0])
-        out["blocks"] = [{"layers": [_map(layer, lambda a, i=ib: a[i])
-                                     for layer in layers]}
-                         for ib in range(nb)]
-    else:
-        if "dense_layers" in tree:
-            out["dense_layers"] = tree["dense_layers"]
-        n = int(tree["layers"]["ln1"]["scale"].shape[0])
-        out["layers"] = [_map(tree["layers"], lambda a, i=i: a[i])
-                         for i in range(n)]
-    out["final_norm"] = tree["final_norm"]
+    out = {}
+    for k, v in tree.items():
+        if k == "blocks":
+            layers = v["layers"]
+            nb = int(layers[0]["ln1"]["scale"].shape[0])
+            v = [{"layers": [_map(layer, lambda a, i=ib: a[i])
+                             for layer in layers]} for ib in range(nb)]
+        elif k in _LAYER_LISTS:
+            v = _unstack(v, lambda a, i: a[i])
+        out[k] = v
     return out
 
 
 def params_to_jax(params: Any) -> Any:
     """The port's params as the JAX package's pytree with numpy leaves:
-    the inverse of :func:`params_from_jax` and
-    :func:`lm_params_from_jax`."""
+    the inverse of :func:`params_from_jax`, :func:`lm_params_from_jax`
+    and :func:`encdec_params_from_jax`."""
     return _map(stack_params(params), _numpy)
 
 

@@ -202,12 +202,12 @@ def register_arch(name: str) -> Callable:
     return deco
 
 
-# The paper's own model, the SSM family, the dense attention LMs and the
-# MoE family are ported so far; the other families are ROADMAP Queue 1
-# item 9.
+# The paper's own model, the SSM family, the dense attention LMs, the MoE
+# family and the encoder-decoder (whisper-small) are ported so far; the
+# hybrid and VLM families are ROADMAP Queue 1 item 9.
 _ARCH_MODULES = ["tconst_41m", "mamba2_130m", "smollm_360m", "llama3_405b",
                  "gemma3_4b", "minicpm_2b", "deepseek_moe_16b",
-                 "mixtral_8x22b"]
+                 "mixtral_8x22b", "whisper_small"]
 
 
 def _load_all() -> None:

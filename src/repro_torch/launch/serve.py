@@ -255,9 +255,12 @@ def validate_layout_args(ap, args, max_len: int) -> None:
 
 def paged_layout_note(cfg, args) -> None:
     """Pure tconst KV is O(1): nothing has a length axis, so a paged
-    layout stores nothing in pages for it (tlin does page)."""
+    layout stores nothing in pages for it (tlin does page; so do the
+    enc-dec and the SSM configs, whatever their mode field says, as in
+    JAX's launcher)."""
     if args.layout in ("paged", "paged_int8") and \
-            cfg.attention_mode == "tconst":
+            cfg.attention_mode == "tconst" and \
+            cfg.arch_type not in ("ssm", "audio"):
         print("[serve] note: pure tconst KV is O(1); the paged layout "
               "stores nothing in pages for this config (--page-size/"
               "--pool-pages are inert)")
@@ -528,6 +531,10 @@ def run_batch(cfg, api, params, args) -> Dict[str, Any]:
     rng = np.random.RandomState(args.seed + 1)
     batch = {"tokens": rng.randint(0, cfg.vocab_size,
                                    size=(args.batch, args.prompt_len))}
+    if cfg.is_encdec:
+        # the stub frontend's frames, zeros as in JAX's launcher
+        batch["audio_feats"] = np.zeros(
+            (args.batch, cfg.encoder_seq, cfg.frontend_dim), np.float32)
     t0 = time.time()
     out = eng.generate(batch, args.gen, record_stats=True)
     dt = time.time() - t0

@@ -14,7 +14,8 @@ Without ``--reduced`` it trains ``tconst-41m`` at full width on the card.
 Prints loss, grad norm and tok/s lines as the JAX launcher does; with
 ``--ckpt-dir`` it writes the final train state in the JAX package's
 msgpack format.  The MoE and SSM families raise (ROADMAP Queue 1 items
-10b, 10c); the VLM and enc-dec families are not ported (item 9).
+10b, 10c), so does the enc-dec, which is served but not trained (item
+10); the VLM family is not ported (item 9).
 """
 from __future__ import annotations
 
@@ -69,10 +70,15 @@ def load(args) -> tuple:
         cfg = reduced(cfg, vocab_size=args.vocab)
     if args.mode:
         cfg = cfg.replace(attention_mode=args.mode)
-    if cfg.arch_type in ("vlm", "audio") or cfg.is_encdec:
+    if cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.arch_type} family is not ported "
-            f"yet: ROADMAP Queue 1 item 9 (enc-dec, hybrid and VLM)")
+            f"{cfg.name}: training the enc-dec family (K2's backward at "
+            f"the non-causal encoder shape) is not ported yet: ROADMAP "
+            f"Queue 1 item 10")
+    if cfg.arch_type == "vlm":
+        raise NotImplementedError(
+            f"{cfg.name}: the vlm family is not ported yet: ROADMAP Queue 1 "
+            f"item 9 (hybrid and VLM)")
     if cfg.attention_mode in ("tconst", "tlin") and \
             args.seq % cfg.tconst.w_og:
         raise ValueError(f"--seq must be a multiple of W_og="

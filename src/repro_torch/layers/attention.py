@@ -1,7 +1,9 @@
-"""Grouped-query attention for the TConst paths and the dense LM.
+"""Grouped-query attention for the TConst paths, the dense LM and the
+enc-dec.
 
 Port of ``src/repro/layers/attention.py`` (projections, ``make_mask``,
-the masked-safe ``sdpa`` and the KVView decode / cross attends).  Every
+the masked-safe ``sdpa``, ``attention_block`` with or without RoPE,
+``cross_attend_cached`` and the KVView decode / cross attends).  Every
 attention the model runs goes through :mod:`repro_torch.kernels.ops`:
 multi-query attention is K2 (flash, positional masks); one-query decode
 attention is K1 over a per-row ``[lo, hi)`` slot range on dense views,
@@ -112,18 +114,43 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_block(params: Params, xq: torch.Tensor, xkv: torch.Tensor,
                     q_pos: torch.Tensor, k_pos: torch.Tensor,
-                    cos_q: torch.Tensor, sin_q: torch.Tensor,
-                    cos_k: torch.Tensor, sin_k: torch.Tensor,
+                    cos_q: Optional[torch.Tensor] = None,
+                    sin_q: Optional[torch.Tensor] = None,
+                    cos_k: Optional[torch.Tensor] = None,
+                    sin_k: Optional[torch.Tensor] = None,
                     logit_softcap: float = 0.0,
                     causal: bool = True) -> torch.Tensor:
-    """Projected multi-query attention (K2): RoPE'd q/k, a key attended
-    iff ``k_pos != INVALID_POS`` and (causal) ``k_pos <= q_pos``."""
+    """Projected multi-query attention (K2): q/k RoPE'd where their
+    cos/sin are given (the encoder and the cross-attention of the
+    enc-dec have none), a key attended iff ``k_pos != INVALID_POS`` and
+    (causal) ``k_pos <= q_pos``."""
     dtype = xq.dtype
     q, k, v = qkv_proj(params, xq, xkv, dtype)
-    q = apply_rope(q, cos_q, sin_q)
-    k = apply_rope(k, cos_k, sin_k)
+    if cos_q is not None:
+        q = apply_rope(q, cos_q, sin_q)
+    if cos_k is not None:
+        k = apply_rope(k, cos_k, sin_k)
     o = ops.flash_attention(q, k, v, q_pos, k_pos, causal=causal,
                             softcap=logit_softcap)
+    return out_proj(params, o, dtype)
+
+
+def cross_attend_cached(params: Params, x: torch.Tensor,
+                        k_cache: torch.Tensor, v_cache: torch.Tensor
+                        ) -> torch.Tensor:
+    """Multi-query cross-attention of x (B, Lq, d) to pre-projected K/V
+    (B, S, KV, D) with no RoPE and no mask: the enc-dec decoder reading
+    its encoder memory (K2, not causal, every key live).  The query is
+    projected with this block's own ``wq``."""
+    dtype = x.dtype
+    B, Lq = x.shape[:2]
+    S = k_cache.shape[1]
+    q = q_proj(params, x, dtype)
+    q_pos = torch.arange(Lq, dtype=torch.int32, device=x.device)
+    k_pos = torch.arange(S, dtype=torch.int32, device=x.device)
+    o = ops.flash_attention(q, k_cache.to(dtype), v_cache.to(dtype),
+                            q_pos[None].expand(B, Lq),
+                            k_pos[None].expand(B, S), causal=False)
     return out_proj(params, o, dtype)
 
 

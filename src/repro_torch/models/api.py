@@ -1,9 +1,10 @@
 """Model facade and the decode-side serving protocol.
 
 Port of ``src/repro/models/api.py`` for the TConst family (tconst and
-tlin modes) and the decoder-only LM's SSM family, dense attention LMs
+tlin modes), the decoder-only LM's SSM family, dense attention LMs
 (among them the paper's base transformer, ``tconst-41m`` with
-``attention_mode="full"``) and MoE family: the typed
+``attention_mode="full"``) and MoE family, and the encoder-decoder
+(:class:`EncDecDecode`, whisper-small): the typed
 :class:`DecodeState` (explicit kv / bookkeeping partition, a pluggable
 physical layout from :mod:`repro_torch.models.layouts`, slot surgery
 through the layout), per-slot sampling, the :class:`DecodeAPI` protocol,
@@ -36,6 +37,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.core import tconst as TC
 from repro_torch.layers.common import (put_rows, take_rows, to_device,
                                        where_rows)
+from repro_torch.models import encdec as ED
 from repro_torch.models import layouts as LT
 from repro_torch.models import lm as LM
 
@@ -287,6 +289,7 @@ class DecodeAPI(Protocol):
 
     def prefill_into_slot(self, params, state: DecodeState, slot: int,
                           tokens: Any,
+                          extras: Optional[Dict[str, Any]] = None,
                           page_write_mask: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, DecodeState]: ...
 
@@ -309,13 +312,15 @@ class DecodeAPI(Protocol):
     def sync_anticipated(self, state: DecodeState, n_steps: int
                          ) -> np.ndarray: ...
 
-    def supports_chunked_prefill(self) -> bool: ...
+    def supports_chunked_prefill(self, extras: Optional[Dict[str, Any]]
+                                 = None) -> bool: ...
 
     def chunked_prefill_fits(self, prompt_len: int, resident_len: int,
                              chunk: int, max_len: int) -> bool: ...
 
     def prefill_into_slot_chunked(
             self, params, state: DecodeState, slot: int, tokens: Any,
+            extras: Optional[Dict[str, Any]] = None,
             page_write_mask: Optional[torch.Tensor] = None,
             resident_len: int = 0, chunk: int = 32
     ) -> Tuple[torch.Tensor, DecodeState, Dict[str, int]]: ...
@@ -403,9 +408,10 @@ class ChunkedAdmission:
     ``_chunk_fn`` and ``_wrap``.  :class:`TConstDecode` overrides the
     loop itself with the bucketed admission."""
 
-    def supports_chunked_prefill(self) -> bool:
-        """True when this family can admit through
-        :meth:`prefill_into_slot_chunked`."""
+    def supports_chunked_prefill(self, extras: Optional[Dict[str, Any]]
+                                 = None) -> bool:
+        """True when this family (with these per-request extras) can admit
+        through :meth:`prefill_into_slot_chunked`."""
         return True
 
     def _chunk_resident_start(self, resident_len: int) -> int:
@@ -429,6 +435,7 @@ class ChunkedAdmission:
 
     def prefill_into_slot_chunked(
             self, params, state: DecodeState, slot: int, tokens: Any,
+            extras: Optional[Dict[str, Any]] = None,
             page_write_mask: Optional[torch.Tensor] = None,
             resident_len: int = 0, chunk: int = 32
     ) -> Tuple[torch.Tensor, DecodeState, Dict[str, int]]:
@@ -440,8 +447,10 @@ class ChunkedAdmission:
         row -- so the forward covers the unshared tail only, and every
         chunk has one shape whatever the prompt's length.
 
-        Seed a batch-1 row cache, copy the resident prefix into it from
-        the slot (``read_slot``), then per chunk: the forward
+        Seed a batch-1 row cache (from the request's ``extras`` where the
+        family needs them: the enc-dec's encoder runs there), copy the
+        resident prefix into it from the slot (``read_slot``), then per
+        chunk: the forward
         (``_chunk_fn``) and the chunk's length-axis KV into the slot
         (``write_span``); then the bookkeeping and the other state
         (``_chunk_finalize``).  ``resident_len`` is page-aligned (adopted
@@ -466,7 +475,8 @@ class ChunkedAdmission:
         buf = np.zeros((1, n_chunks * chunk), np.int32)
         buf[0, :L - start0] = tokens[start0:]
         buf = torch.as_tensor(buf, device=self.device)
-        row = self._chunk_seed_row(self._state_max_len(state))
+        row = self._chunk_seed_row(params, extras,
+                                   self._state_max_len(state))
         min_page = None
         if resident_len > 0 and isinstance(state.layout, LT.PagedLayout):
             min_page = resident_len // state.layout.page
@@ -599,13 +609,16 @@ class TConstDecode:
 
     def prefill_into_slot(self, params, state: DecodeState, slot: int,
                           tokens: Any,
+                          extras: Optional[Dict[str, Any]] = None,
                           page_write_mask: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, DecodeState]:
         """Admit one request: prefill prompt ``tokens`` (L,) as a dense
         batch-1 row and write it into ``slot`` through the state's layout
         (in place; paged: the slot's own pages, which the scheduler has
-        assigned, only those ``page_write_mask`` selects).  Returns
-        (logits (V,), state)."""
+        assigned, only those ``page_write_mask`` selects).  ``extras`` are
+        not read (JAX's TConst admission reads none).  Returns (logits
+        (V,), state)."""
+        del extras
         max_len = state.bookkeeping["tokens"].shape[1]
         logits, cache, g0 = self._prefill(
             params, np.asarray(tokens, np.int32).reshape(1, -1), max_len)
@@ -618,7 +631,8 @@ class TConstDecode:
     # padded to W_og -- one set of shapes for every prompt length.  The
     # forward is not tail-only: the paper's resync rebuilds the compressed
     # context from the whole history by construction.
-    def supports_chunked_prefill(self) -> bool:
+    def supports_chunked_prefill(self, extras: Optional[Dict[str, Any]]
+                                 = None) -> bool:
         return True
 
     def chunked_prefill_fits(self, prompt_len: int, resident_len: int,
@@ -628,16 +642,17 @@ class TConstDecode:
 
     def prefill_into_slot_chunked(
             self, params, state: DecodeState, slot: int, tokens: Any,
+            extras: Optional[Dict[str, Any]] = None,
             page_write_mask: Optional[torch.Tensor] = None,
             resident_len: int = 0, chunk: int = 32
     ) -> Tuple[torch.Tensor, DecodeState, Dict[str, int]]:
         """The bucketed admission (:func:`~repro_torch.core.tconst.
         prefill_bucketed`): the prompt zero-padded into a (1, max_len)
         buffer, written into ``slot`` as :meth:`prefill_into_slot` writes
-        its row.  ``resident_len`` and ``chunk`` do not apply (see the
-        comment above).  Returns (logits (V,), state, {"forward_tokens":
-        max_len, "chunks": 1})."""
-        del resident_len, chunk
+        its row.  ``extras``, ``resident_len`` and ``chunk`` do not apply
+        (see the comment above).  Returns (logits (V,), state,
+        {"forward_tokens": max_len, "chunks": 1})."""
+        del extras, resident_len, chunk
         tokens = np.asarray(tokens, np.int32).reshape(-1)
         L = int(tokens.shape[0])
         max_len = state.bookkeeping["tokens"].shape[1]
@@ -854,13 +869,16 @@ class DenseDecode(ChunkedAdmission):
 
     def prefill_into_slot(self, params, state: DecodeState, slot: int,
                           tokens: Any,
+                          extras: Optional[Dict[str, Any]] = None,
                           page_write_mask: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, DecodeState]:
         """Admit one request: prefill prompt ``tokens`` (L,) as a batch-1
         row as long as the state's K/V buffers and write it into ``slot``
         through the state's layout (in place; paged: the slot's own pages,
         which the scheduler has assigned, only those ``page_write_mask``
-        selects).  Returns (logits (V,), state)."""
+        selects).  ``extras`` are not read (JAX reads only a VLM's, and
+        the VLM is not ported).  Returns (logits (V,), state)."""
+        del extras
         toks = self._tokens(tokens).reshape(1, -1)
         logits, cache = LM.lm_prefill(params, toks, self.cfg,
                                       self._max_len(state, toks.shape[1]))
@@ -918,8 +936,10 @@ class DenseDecode(ChunkedAdmission):
     def _state_max_len(self, state: DecodeState) -> int:
         return self._max_len(state, 0)
 
-    def _chunk_seed_row(self, max_len: int) -> Dict[str, torch.Tensor]:
+    def _chunk_seed_row(self, params, extras: Optional[Dict[str, Any]],
+                        max_len: int) -> Dict[str, torch.Tensor]:
         """A fresh dense batch-1 row cache."""
+        del params, extras
         return LM.init_kv_cache(self.cfg, 1, max_len, device=self.device)
 
     def _chunk_fn(self, params, row: Dict[str, torch.Tensor],
@@ -936,6 +956,118 @@ class DenseDecode(ChunkedAdmission):
         return self.cfg.arch_type != "ssm" and not self.cfg.hybrid_parallel
 
 
+# ---------------------------------------------------------------------------
+# EncDecDecode: the encoder-decoder (whisper-small)
+# ---------------------------------------------------------------------------
+
+AUDIO_MISSING = ("encoder-decoder sessions need extras={'audio_feats': "
+                 "(T_enc, frontend_dim)} at submission")
+
+
+def _audio_feats(extras: Optional[Dict[str, Any]]) -> Any:
+    """The request's ``audio_feats``; JAX's ValueError without them."""
+    if not extras or "audio_feats" not in extras:
+        raise ValueError(AUDIO_MISSING)
+    return extras["audio_feats"]
+
+
+@dataclasses.dataclass(frozen=True)
+class EncDecDecode(DenseDecode):
+    """Encoder-decoder: each session's encoder memory is pre-projected at
+    admission into the per-layer cross K/V (``cross_k`` / ``cross_v`` of
+    (layers, B, encoder_seq, KV, hd): no length axis, so dense under the
+    paged layouts, int8 under the int8 ones), beside the decoder's growing
+    ``k`` / ``v`` (paged by the paged layouts).  No periodic sync: the
+    sync, prefix and chunk-grid hooks are :class:`DenseDecode`'s.  A
+    request carries ``extras={"audio_feats": (encoder_seq,
+    frontend_dim)}``; the chunked admission runs the encoder once in its
+    seed row, then the decoder chunk by chunk."""
+
+    _LENGTH_AXES = ED.LENGTH_AXES
+
+    def __post_init__(self):
+        ED.check_family(self.cfg)
+
+    def prepare_params(self, params: Any) -> Any:
+        return ED.prepare_params(params, self.device, self.dtype)
+
+    def bind(self, slots: int, max_len: int) -> Any:
+        return LT.bind_layout(self.layout, slots=slots, max_len=max_len,
+                              length_axes=ED.LENGTH_AXES,
+                              quant_fields=ED.QUANT_FIELDS,
+                              dtype=self.cfg.dtype)
+
+    def _wrap(self, cache: Dict[str, torch.Tensor], layout: Any = None
+              ) -> DecodeState:
+        return DecodeState.from_dense(cache, ED.KV_KEYS,
+                                      ED.CACHE_BATCH_AXES, layout)
+
+    def init_state(self, slots: int, max_len: int) -> DecodeState:
+        cache = ED.init_encdec_cache(self.cfg, slots, max_len,
+                                     device=self.device)
+        return self._wrap(cache, self.bind(slots, max_len))
+
+    def _feats(self, feats: Any) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(feats), device=self.device)
+
+    def prefill(self, params, batch: Dict[str, Any], max_len: int
+                ) -> Tuple[torch.Tensor, DecodeState]:
+        """Full-batch prefill (same-length prompts, ``batch["audio_feats"]``
+        (B, encoder_seq, frontend_dim)) into this decode's layout."""
+        logits, cache = ED.encdec_prefill(
+            params, self._tokens(batch["tokens"]),
+            self._feats(batch["audio_feats"]), self.cfg, max_len)
+        layout = self.bind(cache["done"].shape[0], max_len)
+        _check_prefill_layout(layout, cache)
+        return logits, self._wrap(cache, layout)
+
+    def prefill_into_slot(self, params, state: DecodeState, slot: int,
+                          tokens: Any,
+                          extras: Optional[Dict[str, Any]] = None,
+                          page_write_mask: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, DecodeState]:
+        """Admit one request: encode its ``extras["audio_feats"]``, prefill
+        prompt ``tokens`` (L,) as a batch-1 row and write it into
+        ``slot`` through the state's layout (in place; paged: the slot's
+        own pages, only those ``page_write_mask`` selects).  Returns
+        (logits (V,), state)."""
+        feats = self._feats(_audio_feats(extras))[None]
+        toks = self._tokens(tokens).reshape(1, -1)
+        logits, cache = ED.encdec_prefill(params, toks, feats, self.cfg,
+                                          self._state_max_len(state))
+        return logits[0], state.with_slot(slot, self._wrap(cache),
+                                          page_write_mask=page_write_mask)
+
+    def raw_step(self, params, state: DecodeState, token: torch.Tensor,
+                 live: Optional[torch.Tensor] = None,
+                 active: Optional[np.ndarray] = None
+                 ) -> Tuple[torch.Tensor, DecodeState]:
+        """One decode step over the state's KVViews, IN PLACE (``live`` as
+        :meth:`DenseDecode.raw_step`)."""
+        logits, views = ED.encdec_decode_step_views(
+            params, state.decode_views(), token, self.cfg, live=live)
+        return logits, state.absorb(views)
+
+    def _chunk_seed_row(self, params, extras: Optional[Dict[str, Any]],
+                        max_len: int) -> Dict[str, torch.Tensor]:
+        """The encoder run once on the request's audio and each layer's
+        cross K/V pre-projected into a fresh batch-1 row cache."""
+        feats = self._feats(_audio_feats(extras))[None]
+        return ED.encdec_seed_cache(params, feats, self.cfg, max_len)
+
+    def _chunk_fn(self, params, row: Dict[str, torch.Tensor],
+                  tokens: torch.Tensor, start: int, n_valid: int,
+                  logits_at: Optional[int] = None):
+        return ED.encdec_prefill_chunk(params, row, tokens, start, n_valid,
+                                       self.cfg, logits_at=logits_at)
+
+    # supports_speculative: DenseDecode's True, JAX's answer
+    def verify_chunk(self, params, state: DecodeState, feed: Any):
+        raise NotImplementedError(
+            f"{self.cfg.name}: verify_chunk (speculative decoding) is not "
+            f"ported yet: ROADMAP Queue 1 item 8")
+
+
 def build_decode(cfg: ModelConfig, layout: Any = None,
                  device: Any = None, prefill_chunk: Optional[int] = None
                  ) -> DecodeAPI:
@@ -945,7 +1077,8 @@ def build_decode(cfg: ModelConfig, layout: Any = None,
     chunk of chunked admission (None: one-shot), which the scheduler
     reads unless given its own.  Ported: the TConst family (tconst and
     tlin modes), the SSM family, the dense attention LMs (a TConst config
-    in ``full`` or ``sliding`` mode among them) and the MoE family."""
+    in ``full`` or ``sliding`` mode among them), the MoE family and the
+    encoder-decoder."""
     spec = LT.as_spec(layout)
     if prefill_chunk is not None and prefill_chunk < 1:
         raise ValueError("prefill_chunk must be positive (or None for "
@@ -953,6 +1086,8 @@ def build_decode(cfg: ModelConfig, layout: Any = None,
     dev = runtime.resolve_device(device)
     if _is_tconst(cfg):
         return TConstDecode(cfg, dev, spec, prefill_chunk)
+    if cfg.is_encdec:
+        return EncDecDecode(cfg, dev, spec, prefill_chunk)
     # DenseDecode raises for the families not ported yet
     return DenseDecode(cfg, dev, spec, prefill_chunk)
 
@@ -968,27 +1103,38 @@ class ModelAPI:
     def init(self, seed: int = 0) -> Any:
         if _is_tconst(self.cfg):
             return TC.init_tconst_lm(self.cfg, seed, self.device)
+        if self.cfg.is_encdec:
+            return ED.init_encdec(self.cfg, seed, self.device)
         return LM.init_lm(self.cfg, seed, self.device)
 
     # -- training -----------------------------------------------------------
     def forward(self, params, batch: Dict[str, Any]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Teacher-forced forward of ``batch["tokens"]`` (B, L):
-        (logits (B, L, V) f32, aux loss); differentiable for the TConst
-        family and the dense attention LMs."""
+        """Teacher-forced forward of ``batch["tokens"]`` (B, L) (the
+        enc-dec: and ``batch["audio_feats"]``): (logits (B, L, V) f32, aux
+        loss); differentiable for the TConst family and the dense
+        attention LMs."""
         cfg = self.cfg
         tokens = batch["tokens"]
         if _is_tconst(cfg):
             return TC.tconst_forward(params, tokens, cfg,
                                      mode=cfg.attention_mode)
+        if cfg.is_encdec:
+            return ED.encdec_forward(params, tokens, batch["audio_feats"],
+                                     cfg)
         return LM.lm_forward(params, tokens, cfg)
 
     def loss(self, params, batch: Dict[str, Any]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Next-token CE plus ``router_aux_coef`` times the aux loss:
-        (total, {"ce", "aux"}).  The MoE and SSM families raise (their
-        training is not ported)."""
+        (total, {"ce", "aux"}).  The MoE, SSM and enc-dec families raise
+        (their training is not ported)."""
         cfg = self.cfg
+        if cfg.is_encdec:
+            raise NotImplementedError(
+                f"{cfg.name}: enc-dec training (K2's backward at the "
+                f"non-causal encoder shape) is not ported yet: ROADMAP "
+                f"Queue 1 item 10")
         if cfg.is_moe:
             raise NotImplementedError(
                 f"{cfg.name}: MoE training (the router aux loss through "
@@ -1009,6 +1155,22 @@ class ModelAPI:
     def decode(self) -> DecodeAPI:
         """The dense-layout decode (``build_decode`` takes a layout)."""
         return build_decode(self.cfg, device=self.device)
+
+    def input_specs(self, shape: Any) -> Dict[str, torch.Tensor]:
+        """Meta-tensor stand-ins (no allocation; the JAX package's
+        ``ShapeDtypeStruct``) for every model input of ``shape``
+        (a ``ShapeConfig``): ``tokens`` and, for the enc-dec,
+        ``audio_feats`` (B, encoder_seq, frontend_dim)."""
+        cfg = self.cfg
+        B, L = shape.global_batch, shape.seq_len
+        meta = torch.device("meta")
+        specs = {"tokens": torch.empty((B, L), dtype=torch.int32,
+                                       device=meta)}
+        if cfg.is_encdec:
+            specs["audio_feats"] = torch.empty(
+                (B, cfg.encoder_seq, cfg.frontend_dim),
+                dtype=getattr(torch, cfg.dtype), device=meta)
+        return specs
 
 
 def build_model(cfg: ModelConfig, device: Any = None) -> ModelAPI:

@@ -48,7 +48,8 @@ the chunk's shape), and an SSM layer's mixer runs from the carried
 
 Not ported: ``lm_verify_chunk_views`` comes with its caller (speculative
 decoding, ROADMAP Queue 1 item 8); the hybrid (hymba) and VLM (qwen2-vl)
-families are item 9.
+families are item 9.  The encoder-decoder is :mod:`repro_torch.models.
+encdec`.
 """
 from __future__ import annotations
 
@@ -69,12 +70,16 @@ from repro_torch.models import layouts as LT
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise for the families of this module that are not ported."""
-    if cfg.hybrid_parallel or cfg.arch_type in ("hybrid", "vlm", "audio"):
+    """Raise for the families of this module that are not ported, and for
+    the enc-dec, which is :mod:`repro_torch.models.encdec`'s."""
+    if cfg.hybrid_parallel or cfg.arch_type in ("hybrid", "vlm"):
         raise NotImplementedError(
             f"{cfg.name}: {cfg.arch_type} models of models/lm.py are not "
-            f"ported yet: ROADMAP Queue 1 item 9 (enc-dec, hybrid and VLM "
+            f"ported yet: ROADMAP Queue 1 item 9 (hybrid and VLM "
             f"families)")
+    if cfg.is_encdec:
+        raise ValueError(f"{cfg.name}: an encoder-decoder is served by "
+                         f"models/encdec.py, not the decoder-only LM")
 
 
 def _has_attention(cfg: ModelConfig) -> bool:

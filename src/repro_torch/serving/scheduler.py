@@ -703,7 +703,7 @@ class SlotScheduler:
         # JAX's rule, not a device fallback: a prompt whose chunk grid
         # would run past max_len is admitted in one shot
         chunked = self.prefill_chunk is not None and \
-            self.decode.supports_chunked_prefill() and \
+            self.decode.supports_chunked_prefill(session.extras) and \
             self.decode.chunked_prefill_fits(len(session.prompt), resident,
                                              self.prefill_chunk,
                                              self.max_len)
@@ -726,8 +726,8 @@ class SlotScheduler:
             logits, self.state, info = \
                 self.decode.prefill_into_slot_chunked(
                     self.params, self.state, slot, session.prompt,
-                    page_write_mask=mask, resident_len=resident,
-                    chunk=self.prefill_chunk)
+                    extras=session.extras, page_write_mask=mask,
+                    resident_len=resident, chunk=self.prefill_chunk)
             fwd = info["forward_tokens"]
             sig = ("chunked", self.prefill_chunk, resident > 0,
                    mask is not None)
@@ -735,7 +735,7 @@ class SlotScheduler:
         else:
             logits, self.state = self.decode.prefill_into_slot(
                 self.params, self.state, slot, session.prompt,
-                page_write_mask=mask)
+                extras=session.extras, page_write_mask=mask)
             fwd = len(session.prompt)
             sig = (len(session.prompt), mask is not None)
             source = "cold"

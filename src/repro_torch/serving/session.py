@@ -42,8 +42,10 @@ class Session:
     slot's ``done`` flag freezes it for the rest of the decode chunk;
     the scheduler evicts it at the chunk boundary.
     on_token: optional ``f(session, token)`` streaming callback.
-    extras: per-request model inputs beyond tokens (e.g. ``audio_feats``
-    for the encoder-decoder, ``vision_embeds``/``vision_mask`` for VLMs).
+    extras: per-request model inputs beyond tokens: ``audio_feats``
+    (encoder_seq, frontend_dim) for the encoder-decoder, which its
+    admission requires (a VLM's ``vision_embeds``/``vision_mask`` come
+    with the VLM, ROADMAP Queue 1 item 9).
     seed: optional per-session sampling seed.  When set, the session's
     ``torch.Generator`` is seeded with it and draws once per sampled
     token — a pure function of this session's own progress, so replaying

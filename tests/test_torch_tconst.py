@@ -60,7 +60,8 @@ def reduced41():
 
 def test_config_copy_matches_jax():
     archs = ["deepseek_moe_16b", "gemma3_4b", "llama3_405b", "mamba2_130m",
-             "minicpm_2b", "mixtral_8x22b", "smollm_360m", "tconst_41m"]
+             "minicpm_2b", "mixtral_8x22b", "smollm_360m", "tconst_41m",
+             "whisper_small"]
     for arch in archs:
         j = JC.get_config(arch)
         p = PC.get_config(arch)

@@ -5,6 +5,7 @@
         [--arch smollm-360m] [--arch tconst-41m --mode full]
         [--arch deepseek_moe_16b --layers 3]
         [--arch deepseek_moe_16b --mode tconst --layers 8 --prompt-len 700]
+        [--arch whisper_small]
 
 Runs ``chip_smoke.py``'s logit check with both sides on the CPU: the
 plain PyTorch path in bf16 against the same path in f32, same weights
@@ -17,7 +18,9 @@ logits cannot beat, from which the smoke's bf16 tolerance of a family is
 set -- and, for an MoE model, how many routed tokens (token x MoE layer)
 chose another expert set in bf16 than in f32.  ``--layers`` cuts the
 depth (deepseek's logits are checked at 3 layers: the dense one and two
-MoE layers).
+MoE layers).  ``--arch whisper_small`` runs the smoke's enc-dec check
+instead (``chip_smoke.encdec_logits``): the phase's first session (its
+own audio frames) on the four layouts.
 """
 import argparse
 import json
@@ -55,6 +58,15 @@ def main(argv=None) -> int:
         over["n_layers"] = args_.layers
     cfg, _, params = serve.load(args, **over)
     cfg = cfg.replace(dtype="bfloat16")
+    if cfg.is_encdec:
+        prompts, audio = CS.encdec_inputs(cfg)
+        errs = CS.encdec_logits(torch, cfg, params, prompts[0], audio[0],
+                                CS.ENCDEC_LAYOUTS, float("inf"),
+                                device="cpu")
+        print(f"[logit_err] {cfg.name} CPU bf16 vs CPU f32 plain path, "
+              f"the admission and {CS.LOGIT_STEPS} steps, largest error "
+              f"by layout: {errs}")
+        return 0
     errs = CS.logits_phase(torch, serve, cfg, args, params, float("inf"),
                            n_prompts=args_.prompts, device="cpu")
     s = CS.summarize(errs)
