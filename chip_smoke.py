@@ -47,8 +47,16 @@ Phases (any failure raises, so the exit code is non-zero):
    K1 at S 999 and K2's causal prefill of 1024.  whisper-small's (12
    heads over 12 KV heads of 64: G 1 at D 64): K1 and K1-int8 over the
    1500 cross-attention slots (B 2), K1 over the self-attention cache
-   (S 328), K3 and K3-int8 over it in pages of 32, K2's non-causal encoder (B 2, 1500 x 1500) and cross prefill
-   (B 2, 128 x 1500), SDPA with no mask the yardstick.  Prints the kernel's,
+   (S 296), K3 and K3-int8 over it in pages of 32, K2's non-causal encoder (B 2, 1500 x 1500) and cross prefill
+   (B 2, 128 x 1500), SDPA with no mask the yardstick.  hymba-1.5b's (25
+   heads over 5 KV heads of 64: G 5, window 1024): K1, K1-int8, K3 and
+   K3-int8 over rows of 1101 (slots [77, 1101)) and 701 slots, K2's
+   causal prefill of 1060 tokens under the window and a chunk of 128
+   queries at 1024, and K4 at its mixer (H 25, P 64, N 16: a 1060-token
+   admission, a 128-row chunk from a carried state).  qwen2-vl-2b's (12
+   heads over 2 KV heads of 128: G 6): K1, K1-int8, K3 and K3-int8 at hi
+   500 and 600, K2's causal prefill of 600 and a chunk of 128 at 512.
+   Prints the kernel's,
    the plain version's and ``F.scaled_dot_product_attention``'s times (a
    yardstick only, with the gather or dequantisation it needs; the port
    never calls it; no one PyTorch call computes K4) and the least time
@@ -146,10 +154,12 @@ Phases (any failure raises, so the exit code is non-zero):
    ``lo > 0`` and K3 with ``window > 0`` through a model; and reduced
    deepseek in tconst mode, mixtral in tlin mode (MoE FFNs in the TConst
    core, W 8: resyncs inside the logit checks) and minicpm-2b the same
-   way.  The card's logits against the CPU plain path's, the streams
-   equal on the float layouts.  gemma3 and mixtral run again on the card
-   with ``--prefill-chunk 16`` on every layout: the streams equal its
-   one-shot run's.
+   way, and reduced hymba-1.5b (window 8, K4 beside the attention) and
+   qwen2-vl-2b (each session its own seeded patches).  The card's logits
+   against the CPU plain path's, the streams equal on the float layouts.
+   gemma3, mixtral and hymba run again on the card with
+   ``--prefill-chunk 16`` on every layout: the streams equal its one-shot
+   run's.
    A tiering phase (4e) serves sessions beyond the slots through a tier
    store (``--spill-capacity-mb``: a slot that decoded a chunk spills to
    the host while sessions wait, and resumes into any free slot):
@@ -200,7 +210,7 @@ Phases (any failure raises, so the exit code is non-zero):
    the launcher's uniform-batch Engine path (``serve.run_batch`` with
    ``--arch whisper_small --batch 4 --prompt-len 64 --gen 128``, zero
    audio frames as JAX's launcher puts in); 4 sessions over 2 slots
-   (prompts 40-200, gen 96, chunks of 32) on dense, int8, paged and
+   (prompts 40-200, gen 64, chunks of 32) on dense, int8, paged and
    paged_int8 in bf16 and on dense and paged in f32 (pages of 32, a pool
    of 17 below the full 22: an admission waits for pages); paged again in
    f32 with chunked admission in chunks of 32; the 4 sessions over one
@@ -216,6 +226,30 @@ Phases (any failure raises, so the exit code is non-zero):
    key) and every spill's bytes as predicted.  One session's bf16 logits
    on the four layouts (the admission and ``LOGIT_STEPS`` steps) are
    held against the CPU f32 plain path on the same layout.
+   A hybrid and VLM phase (4h) serves hymba-1.5b (32 layers, d 1600, 25
+   heads over 5 KV heads of 64, a window of 1024, parallel mamba2 heads
+   with state 16) and qwen2-vl-2b (28 layers, d 1536, 12 heads over 2 KV
+   heads of 128, M-RoPE, vocab 151936; the vision encoder a stub) at
+   full width, each on one seeded draw of the weights (float32, on the
+   card), bf16 at full depth and f32 at ``HYBRID_CHECK_DEPTH`` layers.
+   hymba: 4 sessions over 2 slots on dense, prompts 1060-1075 (past the
+   window at admission), gen 32 (K1, K2, K4); on paged a 1024-token
+   system prompt plus 8-token tails, with ``--prefix-sharing
+   --prefill-chunk 128`` over 3 slots and a pool of 18 (K2, K3, K4): a
+   sharer adopts the shared pages and forwards its whole prompt (the
+   ssm / conv state is a function of it), an admission waits for pages.
+   qwen2-vl: 4 sessions over 2 slots on int8 (K1-int8, K2) and
+   paged_int8 (K2, K3-int8), prompts 420-600, gen 32, three with their
+   own seeded patches (256 x 1280 over prompt positions 16-271) admitted
+   one-shot and a text-only one in chunks of 128.  Every run launches
+   exactly its kernels, as many as a CPU replay of its schedule at
+   reduced width predicts (32 decode launches a hymba step, K2 and both
+   K4 launches 32 an admission or chunk; 28 a qwen2-vl step), and no
+   plain version; f32 streams equal their solo runs (paged_int8's the
+   int8 run's).  One prompt's logits in bf16 and f32 at the cut depth
+   are held against the CPU f32 plain path (``LOGIT_TOL_HYBRID`` /
+   ``LOGIT_TOL_VLM``; qwen2-vl on int8, the CPU stepping on from the
+   card's stored codes).
 5. Training (``launch.train``, ``--batch 8 --seq 1024 --steps 4``):
    tconst-41m at full width in bf16 in modes tconst, tlin and full (the
    base transformer) on one seeded init, in turns A B C C B A over the
@@ -435,7 +469,12 @@ WINDOW_MODELS = {"gemma3": ("gemma3_4b", {"n_layers": 6}),
                  "mixtral-tlin": ("mixtral_8x22b",
                                   {"attention_mode": "tlin"}),
                  # minicpm-2b (G 1, tied head), reduced
-                 "minicpm": (MINICPM, {})}
+                 "minicpm": (MINICPM, {}),
+                 # the hybrid (attention beside mamba2 heads, window 8,
+                 # K4 at chunk 8) and the VLM (M-RoPE; each session its
+                 # own seeded patches), reduced: G 4 both
+                 "hymba": ("hymba_1_5b", {}),
+                 "qwen2-vl": ("qwen2_vl_2b", {})}
 WINDOW_ARGS = ["--reduced", "--dtype", "float32", "--sessions", "3",
                "--slots", "2", "--prompt-len", "20", "--gen", "24",
                "--chunk", "4", "--page-size", "16"]
@@ -463,7 +502,7 @@ CHUNKED_RUNS = [("smollm", "paged", ("bfloat16", "float32")),
 # the window phase's chunked runs (card only, streams against the card's
 # one-shot runs): chunks of one page, a per-layer window on K2's chunk
 # shape and MoE routing per chunk
-WINDOW_CHUNK_MODELS = ("gemma3", "mixtral")
+WINDOW_CHUNK_MODELS = ("gemma3", "mixtral", "hymba")
 WINDOW_CHUNK = 16
 # the tiering phase (4e): sessions beyond the slots, a tier store and a
 # spill of every slot that decoded a chunk while sessions wait.  Run 1:
@@ -650,15 +689,16 @@ WORKLOAD_PREDICTION = {
 # decoder layers, d 768, 12 heads over 12 KV heads of 64: G 1 at D 64; an
 # encoder of 1500 frames from the audio stub, seeded frame embeddings) on
 # one seeded draw of the weights.  Sessions: 4 over 2 slots, each with its
-# own audio, prompts 40-200, gen 96, chunks of 32 (the admission chunk
-# too); max_len 328 (the longest prompt + gen + a chunk of headroom).
-# Paged: pages of 32 (a chunked admission writes whole pages), 11 a slot,
-# a pool of 17 below the full 22: the sessions hold 6, 7, 9 and 11 pages,
+# own audio, prompts 40-200, gen 64 (96 before phase 4h came), chunks
+# of 32 (the admission chunk too); max_len 296 (the longest prompt + gen
+# + a chunk of headroom).
+# Paged: pages of 32 (a chunked admission writes whole pages), 10 a slot,
+# a pool of 17 below the full 20: the sessions hold 5, 6, 8 and 10 pages,
 # so the last waits for pages.  The tiering run: the 4 sessions over 1
 # slot through a RAM tier (ENCDEC_SHORT_GEN tokens each).
 ENCDEC = "whisper_small"
 ENCDEC_PROMPTS = (40, 96, 150, 200)
-ENCDEC_GEN = 96
+ENCDEC_GEN = 64
 # the tiered run: the first 48 tokens of each stream (two chunks: every
 # session is spilled and resumed), held to those of the untiered run
 ENCDEC_SHORT_GEN = 48
@@ -701,6 +741,56 @@ GEMM_OPS_RE = "mm|matmul|linear|conv|einsum|attention"
 
 LAYOUT_KERNELS = {"dense": (K1, K2), "int8": (K1_INT8, K2),
                   "paged": (K2, K3), "paged_int8": (K2, K3_INT8)}
+# the hybrid and VLM phase (4h).  hymba-1.5b (arXiv:2411.13676: 32
+# layers, d 1600, 25 heads over 5 KV heads of 64 -- G 5 --, a window of
+# 1024 on every layer, parallel mamba2 heads: 25 of 64, state 16, chunk
+# 64) and qwen2-vl-2b (arXiv:2409.12191: 28 layers, d 1536, 12 heads over
+# 2 KV heads of 128 -- G 6 --, M-RoPE, vocab 151936, tied; the vision
+# encoder a stub: 256 patches of 1280 a request), bf16 at full width and
+# depth, f32 and both dtypes' logit checks at HYBRID_CHECK_DEPTH layers
+# (full width).  Their weights are drawn once, float32, on the card.
+HYBRID, VLM = "hymba_1_5b", "qwen2_vl_2b"
+HYBRID_CHECK_DEPTH = 4
+# hymba on dense: 4 sessions over 2 slots, prompts 1060-1075 (past the
+# window at admission: K2's dead key tiles; K1's lo > 0 at every step),
+# gen 32 in chunks of 16 (two sessions decode together).  On paged: a
+# 1024-token system prompt plus 8-token tails, admitted up front with
+# prefix sharing in chunks of 128 (a sharer adopts 16 pages and still
+# forwards its whole prompt, 1152 tokens: the ssm / conv state is a
+# function of it; max_len 1152 holds that chunk grid), gen 16; 17 pages a
+# session, 1 more a sharer: a pool of 18 makes the third admission wait
+# with a slot free
+HYBRID_DENSE_ARGS = ["--arch", HYBRID, "--sessions", "4", "--slots", "2",
+                     "--prompt-len", "1060", "--gen", "32", "--chunk", "16"]
+HYBRID_PAGED_ARGS = ["--arch", HYBRID, "--sessions", "4", "--slots", "3",
+                     "--prompt-len", "1024", "--gen", "16", "--chunk", "16",
+                     "--max-len", "1152",
+                     "--layout", "paged", "--page-size", "64",
+                     "--pool-pages", "18", "--prefix-sharing",
+                     "--prefill-chunk", "128"]
+# qwen2-vl on int8 and paged_int8: 4 sessions over 2 slots (one chunk
+# between submissions), prompts 420-600, gen 32 in chunks of 16; sessions
+# 0-2 carry their own seeded patches over prompt positions [16, 272),
+# session 3 is text-only; chunked admission of 128 (a vision session is
+# admitted one-shot, the text-only one in chunks).  Pages of 64: 8, 9, 10
+# and 11 a session, a pool of 19 below the full 22 makes the last
+# admission wait
+VLM_PROMPTS = (420, 480, 540, 600)
+VLM_TEXT_ONLY = 3
+VLM_VISION_AT = 16
+VLM_GEN, VLM_CHUNK, VLM_PREFILL_CHUNK = 32, 16, 128
+VLM_MAX_LEN = max(VLM_PROMPTS) + VLM_GEN + VLM_CHUNK
+VLM_PAGE, VLM_POOL = 64, 19
+VLM_RUNS = (("int8", "bfloat16"), ("paged_int8", "bfloat16"),
+            ("int8", "float32"), ("paged_int8", "float32"))
+# the bf16 logits of the two models (one prompt: its admission and
+# LOGIT_STEPS steps, at HYBRID_CHECK_DEPTH layers) against the CPU f32
+# plain path: 3x the CPU plain path's own bf16-against-f32 error on that
+# prompt (tools/torch_logit_err.py --arch hymba_1_5b / qwen2_vl_2b
+# --layers 4, on the GPU machine's CPU); f32 as LOGIT_TOL
+# (0.0843 and 0.0625: first token and 8 steps, the largest of either)
+LOGIT_TOL_HYBRID = {"bfloat16": 0.25, "float32": LOGIT_TOL["float32"]}
+LOGIT_TOL_VLM = {"bfloat16": 0.19, "float32": LOGIT_TOL["float32"]}
 # the kernels line: kernel -> (representative case, source, TPU kernel,
 # the session run whose counts are its launches)
 KERNELS = {
@@ -1054,21 +1144,32 @@ def ssd_flops(B: int, L: int, H: int, P: int, N: int, Q: int):
     return intra, scan
 
 
-def ssd_phase(torch, rows, dev, gen):
+def hybrid_ssd_cases():
+    """(label, B, L, init, dtype): K4 at hymba-1.5b's mixer (H 25, P 64,
+    N 16, chunk 64): a one-shot admission of 1060 tokens (17 chunks, the
+    last 36 rows), in bf16 (the model's inputs) and f32, and one chunk of
+    a chunked admission (128 rows) from a carried state."""
+    return [("hymba_l1060", 1, 1060, False, "bfloat16"),
+            ("hymba_l1060", 1, 1060, False, "float32"),
+            ("hymba_c128", 1, 128, True, "bfloat16")]
+
+
+def ssd_phase(torch, rows, dev, gen, arch=SSM, cases=ssd_cases):
     """K4's two launches against the plain mirror of their ragged tiling,
     each on the mirror's inputs: x, b and c sliced from one conv output as
-    the mixer slices them, dt = softplus, a = -(1..H)."""
+    the mixer slices them, dt = softplus, a = -(1..H); at ``arch``'s
+    mixer, on ``cases()``."""
     from repro_torch.config import get_config
     from repro_torch.kernels import ssd_scan as SS
     from repro_torch.layers.ssm import ssm_dims
-    cfg = get_config(SSM)
+    cfg = get_config(arch)
     dims = ssm_dims(cfg)
     H, P, N, Q = dims.n_heads, dims.head_dim, dims.n_state, cfg.ssm_chunk
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    for label, B, L, init, dname in ssd_cases():
+    for label, B, L, init, dname in cases():
         dtype = getattr(torch, dname)
         xbc = randn(B, L, H * P + 2 * N).to(dtype)
         x = xbc[..., :H * P].reshape(B, L, H, P)
@@ -1501,6 +1602,23 @@ def launch_counts(torch, cfg, dev, max_len: int) -> dict:
         out[name] = launches_per_call(
             torch, lambda: PD.paged_decode_attention_cuda(
                 qd, pk, pv, pt, vl, 0.0, 0, ks, vs))
+    # qwen2-vl-2b's step (G 6, D 128: ~75 KB of shared memory) and
+    # hymba-1.5b's paged history under its window (G 5, D 64)
+    qw, hy = get_config(VLM), get_config(HYBRID)
+    qq = randn((2, qw.n_heads, qw.resolved_head_dim), bf)
+    kq2, vq2 = (randn((2, VLM_MAX_LEN, qw.n_kv_heads, qw.resolved_head_dim),
+                      bf) for _ in "kv")
+    hiq = torch.tensor([500, 600], dtype=torch.int32, device=dev)
+    loq = torch.zeros_like(hiq)
+    out[K1 + "@qwen2-vl"] = launches_per_call(
+        torch, lambda: DA.decode_attention_cuda(qq, kq2, vq2, loq, hiq))
+    pk, pv, ks, vs, pt, vl = paged_pool(torch, randn, gen, 2, hy.n_kv_heads,
+                                        hy.resolved_head_dim, 64, 19,
+                                        [1101, 701], bf, dev)
+    qh = randn((2, hy.n_heads, hy.resolved_head_dim), bf)
+    out[K3 + "@hymba"] = launches_per_call(
+        torch, lambda: PD.paged_decode_attention_cuda(
+            qh, pk, pv, pt, vl, 0.0, hy.sliding_window, ks, vs))
     from repro_torch.kernels import ssd_scan as SS
     from repro_torch.layers.ssm import ssm_dims
     scfg = get_config(SSM)
@@ -1636,7 +1754,7 @@ def encdec_rows(torch, rows, dev, randn, gen, dname: str):
     """The kernels at the shapes whisper-small's phase gives them (12
     heads over 12 KV heads of 64: G 1 at D 64), two slots: K1 and K1-int8
     over the 1500 cross-attention slots, K1 over the self-attention cache
-    (max_len 328, hi 136 and 296), K3 and K3-int8 over the same cache in
+    (max_len 296, hi 136 and 296), K3 and K3-int8 over the same cache in
     pages of 32 (the paged layouts' self-attention), K2's non-causal
     encoder (1500 x 1500) and cross prefill (128 queries over 1500
     frames)."""
@@ -1662,6 +1780,54 @@ def encdec_rows(torch, rows, dev, randn, gen, dname: str):
             library=sdpa_full)
 
 
+def hybrid_vlm_rows(torch, rows, dev, randn, gen, dname: str):
+    """The kernels at the shapes phase 4h gives them, two slots.
+    hymba-1.5b (25 heads over 5 KV heads of 64: G 5, window 1024): K1 and
+    K1-int8 over its KV cache (rows at 1101 slots -- past the window:
+    slots [77, 1101) -- and 701), K3 and K3-int8 over the same rows in
+    pages of 64 under the window (the first attended page mid-table),
+    K2's causal prefill of 1060 tokens under the window and a chunk of
+    128 queries at 1024 over keys [0, 1152) (the paged run's last chunk).
+    qwen2-vl-2b (12 heads over 2 KV heads of 128: G 6, ~75 KB of shared
+    memory in K1 / K3): K1 and K1-int8 over its cache (hi 500 and 600), K3
+    and K3-int8 over its pages, K2's causal prefill of 600 tokens and a
+    chunk of 128 queries at 512 over keys [0, 640)."""
+    from repro_torch.config import get_config
+    t = lambda xs: torch.tensor(xs, dtype=torch.int32, device=dev)  # noqa
+    hymba, qwen = get_config(HYBRID), get_config(VLM)
+    win = hymba.sliding_window
+    S = 1075 + 64 + 64            # the dense run's max_len
+    k1_rows(torch, rows, hymba, dev, randn, gen, dname, S,
+            cases=[("hymba_step", 2, S, t([1101 - win, 0]), t([1101, 701]))],
+            int8_cases=[("hymba_int8_step", 2, S, t([1101 - win, 0]),
+                         t([1101, 701]))])
+    k3_rows(torch, rows, hymba, dev, randn, gen, dname, S,
+            cases=[("hymba_hist", [1101, 701], win, S)])
+
+    def chunk(prefix, start, C, window=0):
+        qp = start + torch.arange(C, dtype=torch.int32, device=dev)[None]
+        kp = torch.arange(start + C, dtype=torch.int32, device=dev)[None]
+        return (f"{prefix}_chunk_{start}", qp, kp, True) + \
+            ((window,) if window else ())
+
+    pos = torch.arange(1060, dtype=torch.int32, device=dev)[None]
+    k2_rows(torch, rows, hymba, dev, randn, dname, S,
+            cases=[(f"hymba_prefill_1060_w{win}", pos, pos, True, win)])
+    k2_rows(torch, rows, hymba, dev, randn, dname, S,
+            cases=[chunk("hymba", 1024, 128, win)], library=sdpa_chunk)
+    k1_rows(torch, rows, qwen, dev, randn, gen, dname, VLM_MAX_LEN,
+            cases=[("qwen_step", 2, VLM_MAX_LEN, t([0, 0]), t([500, 600]))],
+            int8_cases=[("qwen_int8_step", 2, VLM_MAX_LEN, t([0, 0]),
+                         t([500, 600]))])
+    k3_rows(torch, rows, qwen, dev, randn, gen, dname, VLM_MAX_LEN,
+            cases=[("qwen_hist", [500, 600], 0, VLM_MAX_LEN)])
+    pos = torch.arange(600, dtype=torch.int32, device=dev)[None]
+    k2_rows(torch, rows, qwen, dev, randn, dname, VLM_MAX_LEN,
+            cases=[("qwen_prefill_600", pos, pos, True)])
+    k2_rows(torch, rows, qwen, dev, randn, dname, VLM_MAX_LEN,
+            cases=[chunk("qwen", 512, 128)], library=sdpa_chunk)
+
+
 def kernel_phase(torch, cfg, dev, max_len: int):
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
@@ -1684,8 +1850,10 @@ def kernel_phase(torch, cfg, dev, max_len: int):
         timed(lm_rows, torch, rows, dev, randn, gen, dname, max_len)
         timed(chunk_rows, torch, rows, dev, randn, dname)
         timed(encdec_rows, torch, rows, dev, randn, gen, dname)
+        timed(hybrid_vlm_rows, torch, rows, dev, randn, gen, dname)
         timed(k2_bwd_rows, torch, rows, cfg, dev, randn, dname)
     timed(ssd_phase, torch, rows, dev, gen)
+    timed(ssd_phase, torch, rows, dev, gen, HYBRID, hybrid_ssd_cases)
     print("[kernel] seconds by row group: " + ", ".join(
         f"{k} {v:.1f}" for k, v in parts_s.items()))
     for r in rows:
@@ -1822,7 +1990,7 @@ def load_run(serve, args, **overrides):
 
 def serve_phase(torch, runtime, serve, mode: str, layout: str, dtype: str,
                 kernels, sharing: bool = False, extra=(), ref_streams=None,
-                **overrides):
+                argv=None, weights=None, **overrides):
     """One sessions run of the main path: counters reset right before
     the scheduler, read right after it; then the checks: exactly
     ``kernels`` launch (None: ``layout_kernels``), no plain version.
@@ -1833,11 +2001,22 @@ def serve_phase(torch, runtime, serve, mode: str, layout: str, dtype: str,
     whose streams were held to their solo runs; an f32 run is then held
     to them instead of running its own solo runs.
     ``overrides`` replace config fields of the run's model (deepseek's
-    depth)."""
-    args = serve.parse_args((sharing_argv if sharing else session_argv)(
-        mode, layout, dtype) + list(extra))
+    depth).  ``argv``: the run's own argv instead of ``session_argv`` /
+    ``sharing_argv`` (its ``--dtype`` added); ``weights``: (cfg, params)
+    drawn already, served with the run's dtype."""
+    from repro_torch.models.api import build_model
+    argv = (sharing_argv if sharing else session_argv)(
+        mode, layout, dtype) if argv is None else \
+        list(argv) + ["--dtype", dtype]
+    args = serve.parse_args(argv + list(extra))
     t0 = time.time()
-    cfg, api, params = load_run(serve, args, **MODELS[mode][1], **overrides)
+    if weights is None:
+        cfg, api, params = load_run(serve, args, **MODELS[mode][1],
+                                    **overrides)
+    else:
+        cfg, params = weights
+        cfg = cfg.replace(dtype=dtype)
+        api = build_model(cfg, device=args.device)
     torch.cuda.synchronize()
     parts_s = {"load": time.time() - t0}
     with (cow_watch(torch) if sharing else contextlib.nullcontext()) \
@@ -1875,7 +2054,8 @@ def serve_phase(torch, runtime, serve, mode: str, layout: str, dtype: str,
         check(sorted(sched.free_pages) == list(range(
             sched.layout.pool_pages)), f"{what}: pages leaked")
     rep = {"seconds": served["seconds"], "parts_s": parts_s,
-           "launches": counts,
+           "launches": counts, "steps": args.chunk * sum(
+               1 for x in sched.stats if x.kind == "chunk"),
            "page_waits": sched.page_waits, "peak_active": sched.peak_active,
            "kv_bytes": sched.kv_bytes(),
            "streams": [list(s.tokens) for s in served["sessions"]],
@@ -2220,7 +2400,9 @@ def layout_kernels(cfg, layout: str):
     window and the context slots, K2, and in tlin mode K3 / K3-int8 over
     the paged history."""
     if cfg.attention_mode not in TCONST_MODES:
-        return LAYOUT_KERNELS[layout]
+        # the hybrid's mamba2 heads: K4 at admission
+        return LAYOUT_KERNELS[layout] + ((K4_INTRA, K4_SCAN)
+                                         if cfg.hybrid_parallel else ())
     quant = "int8" in layout
     hist = (K3_INT8 if quant else K3,) if cfg.attention_mode == "tlin" \
         and layout.startswith("paged") else ()
@@ -3291,6 +3473,329 @@ def encdec_phase(torch, runtime, serve) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4h: the hybrid and the VLM
+# ---------------------------------------------------------------------------
+
+
+# the CPU replays of the runs' argv: kernel -> calls a layer
+REPLAYS = {}
+
+
+def predicted_launches(runtime, serve, argv, n_layers: int, run=None):
+    """The kernel launches a run of ``argv`` makes at ``n_layers`` layers,
+    predicted on the CPU: the same argv (prompt lengths, slots, chunks,
+    pages, sharing: the schedule) at reduced width in f32, whose plain
+    versions count one call where the card launches a kernel, each layer
+    alike, scaled from the reduced depth.  ``run(cfg, api, params, args)``
+    drives the run (default: ``serve.serve_sessions``).  One replay an
+    argv: its calls a layer are kept."""
+    import io
+    key = tuple(argv)
+    if key not in REPLAYS:
+        args = serve.parse_args(list(argv) + ["--reduced", "--device", "cpu",
+                                              "--dtype", "float32"])
+        cfg, api, params = serve.load(args)
+        runtime.reset_counters()
+        with contextlib.redirect_stdout(io.StringIO()):
+            (run or serve.serve_sessions)(cfg, api, params, args)
+        counts = runtime.read_counters()
+        check(all(c["plain"] % cfg.n_layers == 0 for c in counts.values()),
+              f"{args.arch} CPU replay: a kernel's calls are not the same "
+              f"in every layer ({counts})")
+        REPLAYS[key] = {n: c["plain"] // cfg.n_layers
+                        for n, c in counts.items() if c["plain"]}
+    return {n: c * n_layers for n, c in REPLAYS[key].items()}
+
+
+def hybrid_phase(torch, runtime, serve) -> dict:
+    """Phase 4h, hymba-1.5b on one draw of the weights (float32 on the
+    card): sessions on dense (K1, K2, K4) and on paged with prefix sharing
+    and chunked admission (K2, K3, K4), in bf16 at full depth and in f32
+    at ``HYBRID_CHECK_DEPTH`` layers (full width), through
+    :func:`serve_phase`'s checks (exactly the layout's kernels, no plain
+    version; paged: a page wait, two sessions at once, no page leaked;
+    sharing: shared pages never written; f32 streams equal their solo
+    runs).  Every run's launches equal the CPU replay's prediction
+    (:func:`predicted_launches`); a sharer adopts the shared pages and
+    forwards its whole prompt.  Then one prompt's logits in both dtypes at
+    that depth against the CPU f32 plain path (``LOGIT_TOL_HYBRID``)."""
+    parts = {}
+    t0 = time.time()
+    full, _, weights = serve.load(serve.parse_args(HYBRID_DENSE_ARGS))
+    cut = full.replace(n_layers=HYBRID_CHECK_DEPTH)
+    # the first layers of the full draw are a cut model's own draw
+    cut_weights = {**weights, "layers": weights["layers"][:cut.n_layers]}
+    torch.cuda.synchronize()
+    parts["load"] = time.time() - t0
+    out = {}
+    for argv, layout in ((HYBRID_DENSE_ARGS, "dense"),
+                         (HYBRID_PAGED_ARGS, "paged")):
+        sharing = "--prefix-sharing" in argv
+        for dtype in ("bfloat16", "float32"):
+            key = f"{layout}/{dtype}"
+            cfg, params = (full, weights) if dtype == "bfloat16" else \
+                (cut, cut_weights)
+            t0 = time.time()
+            pred = predicted_launches(runtime, serve, argv, cfg.n_layers)
+            t_pred = time.time() - t0
+            args, rep = serve_phase(torch, runtime, serve, "hymba", layout,
+                                    dtype, None, sharing=sharing, argv=argv,
+                                    weights=(cfg, params))[1::2]
+            got = {n: c["kernel"] for n, c in rep["launches"].items()
+                   if c["kernel"]}
+            check(got == pred, f"hymba {key}: launches {got}, predicted on "
+                  f"the CPU {pred}")
+            rep["launches"] = got
+            check(rep["peak_active"] >= 2, f"hymba {key}: fewer than two "
+                  f"sessions decoded at once")
+            # a step: the layout's decode kernel once a layer; an
+            # admission (one-shot) or a chunk of one: K2 and both K4
+            # launches once a layer
+            chunk = args.prefill_chunk or None
+            pieces = sum(-(-f // chunk) if chunk else 1
+                         for f in rep["forward_tokens"])
+            rep["per_step"] = {n: c / rep["steps"] for n, c in got.items()
+                               if n in (K1, K3)}
+            rep["per_piece"] = {n: c / pieces for n, c in got.items()
+                                if n not in (K1, K3)}
+            check(set(rep["per_step"].values()) == {cfg.n_layers} ==
+                  set(rep["per_piece"].values()), f"hymba {key}: "
+                  f"{rep['per_step']} a step, {rep['per_piece']} an "
+                  f"admission or chunk, {cfg.n_layers} layers")
+            if sharing:
+                lens = serve.session_prompt_lens(args)
+                check(all(f >= n for f, n in zip(rep["forward_tokens"],
+                                                  lens)) and
+                      sum(a > 0 for a in rep["adopted"]) >= 1,
+                      f"hymba {key}: a sharer forwarded {rep['forward_tokens']}"
+                      f" of prompts {lens}, adopting {rep['adopted']} pages")
+            rep.update(predicted=pred, predict_s=t_pred,
+                       phase_s=time.time() - t0)
+            rep.pop("streams")
+            out[key] = rep
+    t0 = time.time()
+    largs = serve.parse_args(HYBRID_DENSE_ARGS + ["--dtype", "float32"])
+    ref = cpu_reference(torch, serve, cut, largs, cut_weights, n_prompts=1)
+    out["logit_max_err"] = {dtype: summarize(logits_phase(
+        torch, serve, cut.replace(dtype=dtype), largs, cut_weights,
+        LOGIT_TOL_HYBRID[dtype], ref=ref)) for dtype in ("float32",
+                                                         "bfloat16")}
+    parts["logits"] = time.time() - t0
+    out["parts_s"] = parts
+    return out
+
+
+def vlm_inputs(cfg):
+    """The phase's session prompts and extras: sessions but
+    ``VLM_TEXT_ONLY`` carry their own seeded patches (frontend_tokens x
+    frontend_dim, float32) over prompt positions ``[VLM_VISION_AT,
+    VLM_VISION_AT + frontend_tokens)``."""
+    import numpy as np
+    rng = np.random.RandomState(29)
+    prompts = [rng.randint(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in VLM_PROMPTS]
+    extras = []
+    for i, p in enumerate(prompts):
+        if i == VLM_TEXT_ONLY:
+            extras.append(None)
+            continue
+        mask = np.zeros((len(p),), bool)
+        mask[VLM_VISION_AT:VLM_VISION_AT + cfg.frontend_tokens] = True
+        extras.append({"vision_embeds": np.random.RandomState(200 + i).randn(
+            cfg.frontend_tokens, cfg.frontend_dim).astype(np.float32),
+            "vision_mask": mask})
+    return prompts, extras
+
+
+def vlm_spec(layout: str, full_pool: bool = False):
+    from repro_torch.models.layouts import LayoutSpec
+    return LayoutSpec(kind=layout, page_size=VLM_PAGE, pool_pages=None
+                      if full_pool or not layout.startswith("paged")
+                      else VLM_POOL)
+
+
+def vlm_sessions(cfg, params, layout: str, device: str = "cuda"):
+    """The phase's sessions through the scheduler on ``device``: one
+    chunk between submissions, chunked admission of
+    ``VLM_PREFILL_CHUNK``.  Returns (scheduler, sessions)."""
+    from repro_torch.models.api import build_decode
+    from repro_torch.serving.scheduler import SlotScheduler
+    from repro_torch.serving.session import Session
+    prompts, extras = vlm_inputs(cfg)
+    dec = build_decode(cfg, vlm_spec(layout), device=device,
+                       prefill_chunk=VLM_PREFILL_CHUNK)
+    sched = SlotScheduler(dec, params, slots=2, max_len=VLM_MAX_LEN,
+                          chunk_size=VLM_CHUNK)
+    sessions = []
+    for p, e in zip(prompts, extras):
+        sessions.append(sched.submit(Session(p, max_new_tokens=VLM_GEN,
+                                             extras=e)))
+        sched.step()
+    sched.run()
+    return sched, sessions
+
+
+def vlm_run(torch, runtime, serve, cfg, params, layout: str, what: str,
+            ref_streams=None) -> dict:
+    """One sessions run of qwen2-vl on the card, counted alone (counters
+    reset right before the scheduler, read right after it).  Checks:
+    exactly the layout's kernels and no plain version, as many as the CPU
+    replay predicts (28 decode launches a step at full depth); every
+    session's tokens; the vision sessions admitted one-shot, the
+    text-only one in chunks; on paged_int8 a page wait, two sessions at
+    once, no page leaked.  f32: the streams equal their solo runs
+    (:func:`vlm_solo`), or ``ref_streams`` (the twin layout's run)."""
+    argv = ["--arch", VLM, "--layout", layout, "--page-size", str(VLM_PAGE)]
+    t0 = time.time()
+    pred = predicted_launches(runtime, serve, argv, cfg.n_layers,
+                              run=lambda c, a, p, args: vlm_sessions(
+                                  c, p, layout, device="cpu"))
+    t_pred = time.time() - t0
+    torch.cuda.synchronize()
+    runtime.reset_counters()
+    t0 = time.time()
+    sched, sessions = vlm_sessions(cfg, params, layout)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    counts = runtime.read_counters()
+    kernels = LAYOUT_KERNELS[layout]
+    for n, c in counts.items():
+        check((c["kernel"] > 0) == (n in kernels) and c["plain"] == 0,
+              f"{what}: launches {counts}, expected exactly {kernels}")
+    got = {n: c["kernel"] for n, c in counts.items() if c["kernel"]}
+    check(got == pred, f"{what}: launches {got}, predicted on the CPU "
+          f"{pred}")
+    steps = VLM_CHUNK * sum(1 for x in sched.stats if x.kind == "chunk")
+    step_kernel = next(n for n in kernels if n != K2)
+    check(got[step_kernel] == cfg.n_layers * steps, f"{what}: "
+          f"{got[step_kernel]} decode launches over {steps} steps")
+    for s in sessions:
+        check(len(s.tokens) == VLM_GEN, f"{what}: session {s.sid}: "
+              f"{len(s.tokens)} tokens")
+    fwd = [a.forward_tokens for a in sched.admit_stats]
+    want = [-(-n // VLM_PREFILL_CHUNK) * VLM_PREFILL_CHUNK
+            if i == VLM_TEXT_ONLY else n for i, n in enumerate(VLM_PROMPTS)]
+    check(fwd == want, f"{what}: forward tokens {fwd}, expected {want} (the "
+          f"vision sessions one-shot, the text-only one in chunks)")
+    if sched._paged:
+        check(sched.page_waits >= 1 and sched.peak_active >= 2,
+              f"{what}: {sched.page_waits} page waits, "
+              f"{sched.peak_active} sessions at once")
+        check(sorted(sched.free_pages) == list(range(VLM_POOL)),
+              f"{what}: pages leaked")
+    rep = {"seconds": seconds, "steps": steps, "launches": got,
+           "per_step": got[step_kernel] / steps,
+           "predicted": pred, "predict_s": t_pred, "forward_tokens": fwd,
+           "page_waits": sched.page_waits,
+           "peak_active": sched.peak_active, "kv_bytes": sched.kv_bytes(),
+           "streams": [list(s.tokens) for s in sessions]}
+    if cfg.dtype == "float32" and ref_streams is not None:
+        rep["streams_equal_twin"] = rep["streams"] == ref_streams
+        check(rep["streams_equal_twin"], f"{what}: f32 streams differ from "
+              f"the twin layout's run")
+    elif cfg.dtype == "float32":
+        t0 = time.time()
+        rep["streams_equal_solo"] = rep["streams"] == vlm_solo(
+            torch, cfg, params, layout)
+        rep["solo_s"] = time.time() - t0
+        check(rep["streams_equal_solo"], f"{what}: f32 streams differ from "
+              f"their solo runs")
+    return rep
+
+
+def vlm_solo(torch, cfg, params, layout: str):
+    """Each session alone through the Engine on ``layout`` (full pool),
+    its vision inputs in the batch: its greedy stream."""
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.engine import Engine
+    prompts, extras = vlm_inputs(cfg)
+    eng = Engine(build_model(cfg, device="cuda"), params,
+                 max_len=VLM_MAX_LEN, layout=vlm_spec(layout, True))
+    return [eng.generate({"tokens": p[None], **{k: v[None] for k, v in (
+        e or {}).items()}}, VLM_GEN)[0].tolist()
+        for p, e in zip(prompts, extras)]
+
+
+def vlm_logits(torch, cfg, weights, layout: str, tol, device="cuda"):
+    """The first session's logits (its patches in the prompt) on
+    ``device`` in ``cfg``'s dtype against the plain path on the CPU in
+    f32, same weights and layout (full pool): the admission and
+    ``LOGIT_STEPS`` steps fed the reference's greedy tokens, the CPU
+    stepping on from the stored int8 cache of the other side after each
+    call (a K/V at a .5 boundary of x / scale may be stored one code
+    apart: the two sides' GEMMs sum in other orders).  Returns the
+    largest error, within ``tol``, and the codes adopted."""
+    from repro_torch.models.api import build_decode
+    prompts, extras = vlm_inputs(cfg)
+    batch = {"tokens": prompts[0][None],
+             **{k: v[None] for k, v in extras[0].items()}}
+    spec = vlm_spec(layout, full_pool=True)
+    cpu = build_decode(cfg.replace(dtype="float32"), spec, device="cpu")
+    card = build_decode(cfg, spec, device=device)
+    rp, cp = cpu.prepare_params(weights), card.prepare_params(weights)
+    worst, adopted = 0.0, 0
+    for step in range(LOGIT_STEPS + 1):
+        if step == 0:
+            want, ref = cpu.prefill(rp, batch, VLM_MAX_LEN)
+            got, st = card.prefill(cp, batch, VLM_MAX_LEN)
+        else:
+            tok = want.argmax(dim=-1).to(torch.int32)
+            want, ref = cpu.raw_step(rp, ref, tok)
+            got, st = card.raw_step(cp, st, tok.to(device))
+        check(bool(torch.isfinite(got).all()), f"{cfg.name} {layout}: "
+              f"non-finite logits at step {step}")
+        worst = max(worst, (got.float().cpu() - want).abs().max().item())
+        for f, v in st.kv.items():
+            v = v.cpu()
+            if f.endswith("__q"):
+                adopted += int((v != ref.kv[f]).sum())
+            ref.kv[f].copy_(v)
+    check(worst <= tol, f"{cfg.name} {layout} {cfg.dtype}: logits differ "
+          f"from the CPU f32 plain path by {worst} > {tol}")
+    return worst, adopted
+
+
+def vlm_phase(torch, runtime, serve) -> dict:
+    """Phase 4h, qwen2-vl-2b on one draw of the weights (float32 on the
+    card): 4 sessions over 2 slots, three with their own patches, on int8
+    (K1-int8, K2) and paged_int8 (K2, K3-int8), bf16 at full depth and f32
+    at ``HYBRID_CHECK_DEPTH`` layers (:func:`vlm_run`; paged_int8's f32
+    streams held to int8's: paging is exact); then the first session's
+    logits on int8 in both dtypes at that depth against the CPU f32 plain
+    path (:func:`vlm_logits`, ``LOGIT_TOL_VLM``)."""
+    parts = {}
+    t0 = time.time()
+    full, _, weights = serve.load(serve.parse_args(["--arch", VLM]))
+    cut = full.replace(n_layers=HYBRID_CHECK_DEPTH)
+    cut_weights = {**weights, "layers": weights["layers"][:cut.n_layers]}
+    torch.cuda.synchronize()
+    parts["load"] = time.time() - t0
+    out = {}
+    for layout, dtype in VLM_RUNS:
+        key = f"{layout}/{dtype}"
+        t0 = time.time()
+        cfg, params = (full, weights) if dtype == "bfloat16" else \
+            (cut, cut_weights)
+        rep = vlm_run(torch, runtime, serve, cfg.replace(dtype=dtype),
+                      params, layout, f"qwen2-vl {key}",
+                      ref_streams=out.get("int8/float32", {}).get("streams")
+                      if layout == "paged_int8" else None)
+        rep["phase_s"] = time.time() - t0
+        out[key] = rep
+    t0 = time.time()
+    out["logit_max_err"] = {}
+    for dtype in ("float32", "bfloat16"):
+        err, adopted = vlm_logits(torch, cut.replace(dtype=dtype),
+                                  cut_weights, "int8", LOGIT_TOL_VLM[dtype])
+        out["logit_max_err"][dtype] = {"err": err, "codes_adopted": adopted}
+    parts["logits"] = time.time() - t0
+    for rep in out.values():
+        rep.pop("streams", None)
+    out["parts_s"] = parts
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: training
 # ---------------------------------------------------------------------------
 
@@ -3773,6 +4278,57 @@ def main() -> int:
           f"{ {k: round(v, 1) for k, v in encdec['parts_s'].items()} }; "
           f"{phase_s['encdec']:.1f}s; {card}")
 
+    # 4h. the hybrid and the VLM at full width
+    t_phase = time.time()
+    hybrid = hybrid_phase(torch, runtime, serve)
+    torch.cuda.empty_cache()
+    phase_s["hybrid"] = time.time() - t_phase
+    for key, r in hybrid.items():
+        if key in ("logit_max_err", "parts_s"):
+            continue
+        held = r.get("streams_equal_ref") if "streams_equal_ref" in r else \
+            all(x["matches"] for x in r["sessions"]) if "sessions" in r \
+            else "not held (bf16)"
+        print(f"[hybrid] hymba-1.5b {key}: launches {r['launches']} (plain "
+              f"0; predicted on the CPU: {r['predicted'] == r['launches']})"
+              f" over {r['steps']} steps: a step {r['per_step']}, an "
+              f"admission or chunk {r['per_piece']}; forward tokens {r['forward_tokens']} (adopted pages "
+              f"{r.get('adopted', '-')}); page waits {r['page_waits']}, "
+              f"{r['peak_active']} at once; f32 streams equal their solo "
+              f"runs: {held}; {r['phase_s']:.1f}s (serve "
+              f"{r['seconds']:.1f}, " + ", ".join(
+                  f"{k} {v:.1f}" for k, v in r["parts_s"].items()) +
+              f", predict {r['predict_s']:.1f})")
+    print(f"[hybrid] logits vs the CPU f32 plain path ({HYBRID_CHECK_DEPTH} "
+          f"layers, one prompt, {LOGIT_STEPS} steps): "
+          f"{hybrid['logit_max_err']} (tol {LOGIT_TOL_HYBRID}); parts "
+          f"{ {k: round(v, 1) for k, v in hybrid['parts_s'].items()} }; "
+          f"{phase_s['hybrid']:.1f}s; {card}")
+    t_phase = time.time()
+    vlm = vlm_phase(torch, runtime, serve)
+    torch.cuda.empty_cache()
+    phase_s["vlm"] = time.time() - t_phase
+    for key, r in vlm.items():
+        if key in ("logit_max_err", "parts_s"):
+            continue
+        held = ", ".join(f"{k} {r[k]}" for k in (
+            "streams_equal_solo", "streams_equal_twin") if k in r)
+        print(f"[vlm] qwen2-vl-2b {key}: launches {r['launches']} (plain 0; "
+              f"predicted on the CPU: {r['predicted'] == r['launches']}) "
+              f"over {r['steps']} steps ({r['per_step']} a step); forward "
+              f"tokens "
+              f"{r['forward_tokens']} (session {VLM_TEXT_ONLY} text-only, "
+              f"chunks of {VLM_PREFILL_CHUNK}); page waits "
+              f"{r['page_waits']}, {r['peak_active']} at once; "
+              f"{held or 'streams not held (bf16)'}; {r['phase_s']:.1f}s "
+              f"(serve {r['seconds']:.1f}, predict {r['predict_s']:.1f}"
+              f"{', solo %.1f' % r['solo_s'] if 'solo_s' in r else ''})")
+    print(f"[vlm] logits on int8 vs the CPU f32 plain path "
+          f"({HYBRID_CHECK_DEPTH} layers, one vision prompt, {LOGIT_STEPS} "
+          f"steps): {vlm['logit_max_err']} (tol {LOGIT_TOL_VLM}); parts "
+          f"{ {k: round(v, 1) for k, v in vlm['parts_s'].items()} }; "
+          f"{phase_s['vlm']:.1f}s; {card}")
+
     # 5. training at full width: the paper's three variants on one init
     t_phase = time.time()
     training = train_phase(torch, runtime)
@@ -3871,20 +4427,29 @@ def main() -> int:
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     # whisper-small's shapes (phase 3's whisper rows; launches of the
     # phase 4g bf16 runs: dense for K1 and K2, int8 for K1-int8)
-    for name, case, run in ((K1, "whisper_cross", "dense/bfloat16"),
-                            (K1_INT8, "whisper_int8_cross",
-                             "int8/bfloat16"),
-                            (K2, "whisper_encoder", "dense/bfloat16"),
-                            (K2, "whisper_cross_prefill", "dense/bfloat16"),
-                            (K3, "whisper_hist", "paged/bfloat16"),
-                            (K3_INT8, "whisper_hist",
-                             "paged_int8/bfloat16")):
+    # and the hybrid's and the VLM's (phase 4h's bf16 runs)
+    hy_dense, hy_paged = hybrid["dense/bfloat16"], hybrid["paged/bfloat16"]
+    vl_int8, vl_paged = vlm["int8/bfloat16"], vlm["paged_int8/bfloat16"]
+    for name, case, run in (
+            (K1, "whisper_cross", encdec["dense/bfloat16"]),
+            (K1_INT8, "whisper_int8_cross", encdec["int8/bfloat16"]),
+            (K2, "whisper_encoder", encdec["dense/bfloat16"]),
+            (K2, "whisper_cross_prefill", encdec["dense/bfloat16"]),
+            (K3, "whisper_hist", encdec["paged/bfloat16"]),
+            (K3_INT8, "whisper_hist", encdec["paged_int8/bfloat16"]),
+            (K1, "hymba_step", hy_dense), (K1_INT8, "qwen_int8_step", vl_int8),
+            (K2, "hymba_prefill_1060_w1024", hy_dense),
+            (K2, "hymba_chunk_1024", hy_paged),
+            (K2, "qwen_prefill_600", vl_int8),
+            (K3, "hymba_hist", hy_paged), (K3_INT8, "qwen_hist", vl_paged),
+            (K4_INTRA, "hymba_l1060", hy_dense),
+            (K4_SCAN, "hymba_l1060", hy_dense)):
         _, src, repl, _ = KERNELS[name]
         mine = [x for x in rows if (x["kernel"], x["case"]) == (name, case)]
         r = next(x for x in mine if x["dtype"] == "bfloat16")
         line.append({
             "name": name, "case": case, "route": "cuda", "source": src,
-            "replaces": repl, "launches": encdec[run]["launches"][name],
+            "replaces": repl, "launches": run["launches"][name],
             "max_abs_err": max(x["max_abs_err"] for x in mine),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -3896,6 +4461,7 @@ def main() -> int:
         "launches_per_call": per_call, "sessions": runs,
         "sharing": sharing, "chunked": chunked, "windows": windows,
         "tiering": tiering, "workload": workloads, "encdec": encdec,
+        "hybrid": hybrid, "vlm": vlm,
         "engines": engines,
         "training": training, "grad_check": grads,
         "phase_s": phase_s, "total_s": time.time() - t_start,

@@ -202,12 +202,13 @@ def register_arch(name: str) -> Callable:
     return deco
 
 
-# The paper's own model, the SSM family, the dense attention LMs, the MoE
-# family and the encoder-decoder (whisper-small) are ported so far; the
-# hybrid and VLM families are ROADMAP Queue 1 item 9.
+# Every family of the JAX package: the paper's own model, the SSM family,
+# the dense attention LMs, the MoE family, the encoder-decoder
+# (whisper-small), the hybrid (hymba) and the VLM (qwen2-vl).
 _ARCH_MODULES = ["tconst_41m", "mamba2_130m", "smollm_360m", "llama3_405b",
                  "gemma3_4b", "minicpm_2b", "deepseek_moe_16b",
-                 "mixtral_8x22b", "whisper_small"]
+                 "mixtral_8x22b", "whisper_small", "hymba_1_5b",
+                 "qwen2_vl_2b"]
 
 
 def _load_all() -> None:

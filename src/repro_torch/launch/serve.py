@@ -32,6 +32,17 @@ has no mode flag, so this one has none)::
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
       --reduced --sessions 3 --slots 2 --gen 24 --device cpu
 
+``--arch hymba_1_5b`` serves the hybrid (attention beside mamba2 heads
+in every layer, a sliding window: K2 and K4 at admission, the layout's
+decode kernel and the O(1) recurrent step after it) and ``--arch
+qwen2_vl_2b`` the VLM (M-RoPE; the vision encoder is a stub, as in JAX:
+in sessions mode each session carries its own seeded patch embeddings
+over its first ``frontend_tokens`` prompt positions, and is admitted in
+one shot; a uniform batch carries zeros, as JAX's launcher does)::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba_1_5b \
+      --reduced --sessions 3 --slots 2 --gen 24 --device cpu
+
 ``--arch deepseek_moe_16b`` and ``--arch mixtral_8x22b`` serve the MoE
 family the same way (its routing and expert products are PyTorch, as
 they are XLA in JAX; deepseek-moe-16b fits one 80 GB card at full width,
@@ -154,6 +165,32 @@ def session_prompts(cfg, args) -> List[np.ndarray]:
             for n in lens]
     return [rng.randint(1, cfg.vocab_size, size=n).astype(np.int32)
             for n in lens]
+
+
+def vision_inputs(cfg, n: int, prompt_len: int, seeds=None):
+    """A VLM's stub vision inputs for ``n`` prompts of ``prompt_len``:
+    ``vision_embeds`` (n, frontend_tokens, frontend_dim) float32 -- zeros,
+    as JAX's launcher puts into a batch, or one seeded draw per row from
+    ``seeds`` -- and ``vision_mask`` (n, prompt_len) bool over the first
+    ``frontend_tokens`` positions."""
+    shape = (cfg.frontend_tokens, cfg.frontend_dim)
+    embeds = np.zeros((n,) + shape, np.float32) if seeds is None else \
+        np.stack([np.random.RandomState(s).randn(*shape).astype(np.float32)
+                  for s in seeds])
+    mask = np.zeros((n, prompt_len), bool)
+    mask[:, :cfg.frontend_tokens] = True
+    return {"vision_embeds": embeds, "vision_mask": mask}
+
+
+def session_extras(cfg, args, prompts) -> List[Any]:
+    """Each session's extras: a VLM's own seeded vision inputs
+    (:func:`vision_inputs`, seeded by ``--seed`` and the session's
+    index); None for the other families."""
+    if cfg.arch_type != "vlm":
+        return [None] * len(prompts)
+    return [{k: v[0] for k, v in vision_inputs(
+        cfg, 1, len(p), [[args.seed, 100 + i]]).items()}
+        for i, p in enumerate(prompts)]
 
 
 def sessions_max_len(args) -> int:
@@ -303,11 +340,11 @@ def serve_sessions(cfg, api, params, args) -> Dict[str, Any]:
     t0 = time.time()
     sessions = []
     sharing = None
-    for p in prompts:
+    for p, extras in zip(prompts, session_extras(cfg, args, prompts)):
         sessions.append(sched.submit(Session(
             p, max_new_tokens=args.gen, temperature=args.temperature,
             eos_id=args.eos if args.eos >= 0 else None,
-            on_token=stream if args.verbose else None)))
+            on_token=stream if args.verbose else None, extras=extras)))
         # staggered admission: one chunk between submissions, so slots sit
         # at different W_og resync phases.  Prefix sharing admits up front
         # instead: sessions in flight together keep the prefix resident.
@@ -511,7 +548,9 @@ def check_sessions(api, params, served, args) -> Dict[str, Any]:
         line = (f"[serve]   session {s.sid} (prompt {len(p)}): "
                 f"{len(s.tokens)} tokens, {rec['resyncs']} resyncs")
         if eng is not None:              # greedy: must match the solo run
-            ref = eng.generate({"tokens": p[None]}, args.gen)[0].tolist()
+            batch = {"tokens": p[None], **{k: v[None] for k, v in (
+                s.extras or {}).items()}}
+            ref = eng.generate(batch, args.gen)[0].tolist()
             rec["matches"] = s.tokens == ref
             ok = ok and rec["matches"]
             line += f", matches solo run: {rec['matches']}"
@@ -531,6 +570,9 @@ def run_batch(cfg, api, params, args) -> Dict[str, Any]:
     rng = np.random.RandomState(args.seed + 1)
     batch = {"tokens": rng.randint(0, cfg.vocab_size,
                                    size=(args.batch, args.prompt_len))}
+    if cfg.arch_type == "vlm":
+        # the stub vision encoder's patches, zeros as in JAX's launcher
+        batch.update(vision_inputs(cfg, args.batch, args.prompt_len))
     if cfg.is_encdec:
         # the stub frontend's frames, zeros as in JAX's launcher
         batch["audio_feats"] = np.zeros(

@@ -13,9 +13,9 @@ override of JAX's ``examples/train_lm.py``: ``tconst``, ``tlin``, or
 Without ``--reduced`` it trains ``tconst-41m`` at full width on the card.
 Prints loss, grad norm and tok/s lines as the JAX launcher does; with
 ``--ckpt-dir`` it writes the final train state in the JAX package's
-msgpack format.  The MoE and SSM families raise (ROADMAP Queue 1 items
-10b, 10c), so does the enc-dec, which is served but not trained (item
-10); the VLM family is not ported (item 9).
+msgpack format.  The MoE, SSM and hybrid families raise (ROADMAP Queue
+1 items 10b, 10c), so do the enc-dec (item 10) and the VLM (item 10e),
+which are served but not trained.
 """
 from __future__ import annotations
 
@@ -77,8 +77,14 @@ def load(args) -> tuple:
             f"Queue 1 item 10")
     if cfg.arch_type == "vlm":
         raise NotImplementedError(
-            f"{cfg.name}: the vlm family is not ported yet: ROADMAP Queue 1 "
-            f"item 9 (hybrid and VLM)")
+            f"{cfg.name}: VLM training (K2's backward at G 6, D 128, and "
+            f"the vision batch under autograd) is not ported yet: ROADMAP "
+            f"Queue 1 item 10e")
+    if cfg.hybrid_parallel:
+        raise NotImplementedError(
+            f"{cfg.name}: hybrid training (the parallel mamba2 heads: K4 "
+            f"has no backward) is not ported yet: ROADMAP Queue 1 item "
+            f"10c")
     if cfg.attention_mode in ("tconst", "tlin") and \
             args.seq % cfg.tconst.w_og:
         raise ValueError(f"--seq must be a multiple of W_og="

@@ -51,28 +51,31 @@ def ssm_dims(cfg: ModelConfig, d_model: Optional[int] = None) -> SSMDims:
 
 def init_ssm(cfg: ModelConfig, gen: torch.Generator,
              d_model: Optional[int] = None) -> Params:
-    """The port's own seeded init (float32, drawn from ``gen``): in_proj,
-    conv_w, dt_bias and out_proj are random; ``dt_bias`` is the inverse
-    softplus of a log-uniform draw in [1e-3, 1e-1], ``a_log = log(1..H)``,
-    ``d_skip`` and ``norm_scale`` are ones, ``conv_b`` zeros."""
+    """The port's own seeded init (float32, drawn from ``gen`` on its
+    device): in_proj, conv_w, dt_bias and out_proj are random;
+    ``dt_bias`` is the inverse softplus of a log-uniform draw in [1e-3,
+    1e-1], ``a_log = log(1..H)``, ``d_skip`` and ``norm_scale`` are ones,
+    ``conv_b`` zeros."""
     d = d_model or cfg.d_model
     dims = ssm_dims(cfg, d)
+    dev = gen.device
     d_proj = 2 * dims.d_inner + 2 * dims.n_state + dims.n_heads
     in_proj = dense_init((d, d_proj), d, gen)
     conv_w = dense_init((dims.d_conv, dims.conv_dim), dims.d_conv, gen)
-    u = torch.rand((dims.n_heads,), generator=gen, dtype=torch.float32)
+    u = torch.rand((dims.n_heads,), generator=gen, dtype=torch.float32,
+                   device=dev)
     log_dt = math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3))
     dt_bias = torch.log(torch.expm1(torch.exp(log_dt)))
     out_proj = dense_init((dims.d_inner, d), dims.d_inner, gen)
     return {
         "in_proj": in_proj,
         "conv_w": conv_w,
-        "conv_b": torch.zeros((dims.conv_dim,)),
+        "conv_b": torch.zeros((dims.conv_dim,), device=dev),
         "dt_bias": dt_bias,
         "a_log": torch.log(torch.arange(1, dims.n_heads + 1,
-                                        dtype=torch.float32)),
-        "d_skip": torch.ones((dims.n_heads,)),
-        "norm_scale": torch.ones((dims.d_inner,)),
+                                        dtype=torch.float32, device=dev)),
+        "d_skip": torch.ones((dims.n_heads,), device=dev),
+        "norm_scale": torch.ones((dims.d_inner,), device=dev),
         "out_proj": out_proj,
     }
 

@@ -1,10 +1,10 @@
 """Model facade and the decode-side serving protocol.
 
 Port of ``src/repro/models/api.py`` for the TConst family (tconst and
-tlin modes), the decoder-only LM's SSM family, dense attention LMs
-(among them the paper's base transformer, ``tconst-41m`` with
-``attention_mode="full"``) and MoE family, and the encoder-decoder
-(:class:`EncDecDecode`, whisper-small): the typed
+tlin modes), the decoder-only LM's families (SSM, dense attention LMs --
+among them the paper's base transformer, ``tconst-41m`` with
+``attention_mode="full"`` -- MoE, the hybrid and the VLM), and the
+encoder-decoder (:class:`EncDecDecode`, whisper-small): the typed
 :class:`DecodeState` (explicit kv / bookkeeping partition, a pluggable
 physical layout from :mod:`repro_torch.models.layouts`, slot surgery
 through the layout), per-slot sampling, the :class:`DecodeAPI` protocol,
@@ -794,21 +794,35 @@ class TConstDecode:
 
 
 # ---------------------------------------------------------------------------
-# DenseDecode: the decoder-only LM family (SSM and dense attention LMs)
+# DenseDecode: the decoder-only LM families
 # ---------------------------------------------------------------------------
+
+VISION_KEYS = ("vision_embeds", "vision_mask")
+
+
+def _vision(extras: Optional[Dict[str, Any]], batched: bool
+            ) -> Dict[str, Any]:
+    """A VLM request's ``vision_embeds`` / ``vision_mask`` as
+    ``LM.lm_prefill`` takes them (a batch axis added to a session's
+    extras unless ``batched``); an empty dict without them."""
+    extras = extras or {}
+    return {k: extras[k] if batched else extras[k][None]
+            for k in VISION_KEYS if k in extras}
 
 
 @dataclasses.dataclass(frozen=True)
 class DenseDecode(ChunkedAdmission):
-    """Decoder-only LM family, served through the same protocol, with no
-    periodic sync.  Ported so far: the dense attention LMs and the MoE
-    family (mixtral, deepseek), whose cache is a growing K/V buffer (``k``
-    / ``v`` of (layers, B, max_len, KV, hd), and DeepSeek's leading dense
-    layers' ``dense_k`` / ``dense_v``: paged by the paged layouts on one
-    shared page table, int8 under the int8 ones), and the SSM family
-    (mamba2), whose O(1) recurrent state (``ssm`` / ``conv`` per layer)
-    has no length axis and is never quantized, so every layout holds it
-    dense.  ``raw_step`` updates the cache IN PLACE; rows that are not
+    """Decoder-only LM families, served through the same protocol, with
+    no periodic sync.  The attention LMs (dense, MoE -- mixtral, deepseek
+    -- and the VLM) hold a growing K/V buffer (``k`` / ``v`` of (layers,
+    B, max_len, KV, hd), and DeepSeek's leading dense layers' ``dense_k``
+    / ``dense_v``: paged by the paged layouts on one shared page table,
+    int8 under the int8 ones); the SSM family (mamba2) an O(1) recurrent
+    state (``ssm`` / ``conv`` per layer) that has no length axis and is
+    never quantized, so every layout holds it dense; the hybrid (hymba)
+    both.  A VLM request carries ``extras={"vision_embeds": (Tv,
+    frontend_dim), "vision_mask": (L,) bool}``, read at admission (one
+    shot).  ``raw_step`` updates the cache IN PLACE; rows that are not
     ``live`` keep it bit-identical (an MoE step still routes them: they
     take expert capacity, as in JAX)."""
 
@@ -852,10 +866,12 @@ class DenseDecode(ChunkedAdmission):
 
     def prefill(self, params, batch: Dict[str, Any], max_len: int
                 ) -> Tuple[torch.Tensor, DecodeState]:
-        """Full-batch prefill (same-length prompts) into this decode's
+        """Full-batch prefill (same-length prompts; a VLM batch's
+        ``vision_embeds`` / ``vision_mask`` read) into this decode's
         layout."""
         logits, cache = LM.lm_prefill(params, self._tokens(batch["tokens"]),
-                                      self.cfg, max_len)
+                                      self.cfg, max_len,
+                                      **_vision(batch, batched=True))
         layout = self.bind(cache["done"].shape[0], max_len)
         _check_prefill_layout(layout, cache)
         return logits, self._wrap(cache, layout)
@@ -876,12 +892,12 @@ class DenseDecode(ChunkedAdmission):
         row as long as the state's K/V buffers and write it into ``slot``
         through the state's layout (in place; paged: the slot's own pages,
         which the scheduler has assigned, only those ``page_write_mask``
-        selects).  ``extras`` are not read (JAX reads only a VLM's, and
-        the VLM is not ported).  Returns (logits (V,), state)."""
-        del extras
+        selects).  A VLM's ``extras`` give its vision inputs (JAX reads no
+        other).  Returns (logits (V,), state)."""
         toks = self._tokens(tokens).reshape(1, -1)
         logits, cache = LM.lm_prefill(params, toks, self.cfg,
-                                      self._max_len(state, toks.shape[1]))
+                                      self._max_len(state, toks.shape[1]),
+                                      **_vision(extras, batched=False))
         return logits[0], state.with_slot(slot, self._wrap(cache),
                                           page_write_mask=page_write_mask)
 
@@ -925,11 +941,19 @@ class DenseDecode(ChunkedAdmission):
         """No host mirror to re-align."""
 
     # chunked admission: the hooks of the generic chunk loop
+    def supports_chunked_prefill(self, extras: Optional[Dict[str, Any]]
+                                 = None) -> bool:
+        """False for a request with ``vision_embeds`` (JAX's rule: its
+        vision positions come from a prompt-length mask); such a request
+        is admitted one-shot, a text-only one in chunks."""
+        return not (extras and "vision_embeds" in extras)
+
     def _chunk_resident_start(self, resident_len: int) -> int:
         """The ssm / conv state is a function of the whole prompt, not of
-        adopted KV: an SSM row forwards from position 0 (its adopted
-        pages would still save writes; the SSM state has none)."""
-        if self.cfg.arch_type == "ssm":
+        adopted KV: an SSM or hybrid row forwards from position 0 (its
+        adopted pages still save writes: those below ``resident_len`` go
+        to TRASH)."""
+        if self.cfg.arch_type == "ssm" or self.cfg.hybrid_parallel:
             return 0
         return resident_len
 
@@ -938,7 +962,8 @@ class DenseDecode(ChunkedAdmission):
 
     def _chunk_seed_row(self, params, extras: Optional[Dict[str, Any]],
                         max_len: int) -> Dict[str, torch.Tensor]:
-        """A fresh dense batch-1 row cache."""
+        """A fresh dense batch-1 row cache (no vision request reaches the
+        chunk loop)."""
         del params, extras
         return LM.init_kv_cache(self.cfg, 1, max_len, device=self.device)
 
@@ -949,10 +974,10 @@ class DenseDecode(ChunkedAdmission):
                                    self.cfg, logits_at=logits_at)
 
     def supports_speculative(self) -> bool:
-        """False for SSM (speculative decoding itself is ROADMAP Queue 1
-        item 8): the recurrent ssm/conv state advances through verified-
-        but-rejected tokens and cannot be rolled back by a length
-        decrement."""
+        """False for the SSM and hybrid families (speculative decoding
+        itself is ROADMAP Queue 1 item 8): the recurrent ssm/conv state
+        advances through verified-but-rejected tokens and cannot be
+        rolled back by a length decrement."""
         return self.cfg.arch_type != "ssm" and not self.cfg.hybrid_parallel
 
 
@@ -1075,9 +1100,10 @@ def build_decode(cfg: ModelConfig, layout: Any = None,
     with cache layout ``layout`` ("dense" | "paged" | "int8" |
     "paged_int8" | LayoutSpec | None).  ``prefill_chunk`` is the default
     chunk of chunked admission (None: one-shot), which the scheduler
-    reads unless given its own.  Ported: the TConst family (tconst and
-    tlin modes), the SSM family, the dense attention LMs (a TConst config
-    in ``full`` or ``sliding`` mode among them), the MoE family and the
+    reads unless given its own.  Every family of the JAX package: the
+    TConst family (tconst and tlin modes), the SSM family, the dense
+    attention LMs (a TConst config in ``full`` or ``sliding`` mode among
+    them), the MoE family, the hybrid, the VLM and the
     encoder-decoder."""
     spec = LT.as_spec(layout)
     if prefill_chunk is not None and prefill_chunk < 1:
@@ -1088,7 +1114,6 @@ def build_decode(cfg: ModelConfig, layout: Any = None,
         return TConstDecode(cfg, dev, spec, prefill_chunk)
     if cfg.is_encdec:
         return EncDecDecode(cfg, dev, spec, prefill_chunk)
-    # DenseDecode raises for the families not ported yet
     return DenseDecode(cfg, dev, spec, prefill_chunk)
 
 
@@ -1111,9 +1136,10 @@ class ModelAPI:
     def forward(self, params, batch: Dict[str, Any]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced forward of ``batch["tokens"]`` (B, L) (the
-        enc-dec: and ``batch["audio_feats"]``): (logits (B, L, V) f32, aux
-        loss); differentiable for the TConst family and the dense
-        attention LMs."""
+        enc-dec: and ``batch["audio_feats"]``; a VLM: and its
+        ``vision_embeds`` / ``vision_mask`` / ``positions3`` where given):
+        (logits (B, L, V) f32, aux loss); differentiable for the TConst
+        family and the dense attention LMs."""
         cfg = self.cfg
         tokens = batch["tokens"]
         if _is_tconst(cfg):
@@ -1122,13 +1148,15 @@ class ModelAPI:
         if cfg.is_encdec:
             return ED.encdec_forward(params, tokens, batch["audio_feats"],
                                      cfg)
-        return LM.lm_forward(params, tokens, cfg)
+        return LM.lm_forward(params, tokens, cfg,
+                             positions3=batch.get("positions3"),
+                             **_vision(batch, batched=True))
 
     def loss(self, params, batch: Dict[str, Any]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Next-token CE plus ``router_aux_coef`` times the aux loss:
-        (total, {"ce", "aux"}).  The MoE, SSM and enc-dec families raise
-        (their training is not ported)."""
+        (total, {"ce", "aux"}).  The MoE, SSM, hybrid, VLM and enc-dec
+        families raise (their training is not ported)."""
         cfg = self.cfg
         if cfg.is_encdec:
             raise NotImplementedError(
@@ -1140,11 +1168,17 @@ class ModelAPI:
                 f"{cfg.name}: MoE training (the router aux loss through "
                 f"the expert routing) is not ported yet: ROADMAP Queue 1 "
                 f"item 10b")
-        if cfg.arch_type == "ssm":
+        if cfg.arch_type == "ssm" or cfg.hybrid_parallel:
             raise NotImplementedError(
                 f"{cfg.name}: SSM training is not ported yet (K4 has no "
-                f"backward; JAX differentiates its scan): ROADMAP Queue 1 "
+                f"backward; JAX differentiates its scan; the hybrid's "
+                f"parallel mamba2 heads need it too): ROADMAP Queue 1 "
                 f"item 10c")
+        if cfg.arch_type == "vlm":
+            raise NotImplementedError(
+                f"{cfg.name}: VLM training (K2's backward at G 6, D 128, "
+                f"and the vision batch under autograd) is not ported yet: "
+                f"ROADMAP Queue 1 item 10e")
         logits, aux = self.forward(params, batch)
         tokens = batch["tokens"]
         ce = cross_entropy(logits[:, :-1], tokens[:, 1:])
@@ -1159,13 +1193,21 @@ class ModelAPI:
     def input_specs(self, shape: Any) -> Dict[str, torch.Tensor]:
         """Meta-tensor stand-ins (no allocation; the JAX package's
         ``ShapeDtypeStruct``) for every model input of ``shape``
-        (a ``ShapeConfig``): ``tokens`` and, for the enc-dec,
-        ``audio_feats`` (B, encoder_seq, frontend_dim)."""
+        (a ``ShapeConfig``): ``tokens``; for the VLM, ``vision_embeds``
+        (B, frontend_tokens, frontend_dim) and ``vision_mask`` (B, L);
+        for the enc-dec, ``audio_feats`` (B, encoder_seq,
+        frontend_dim)."""
         cfg = self.cfg
         B, L = shape.global_batch, shape.seq_len
         meta = torch.device("meta")
         specs = {"tokens": torch.empty((B, L), dtype=torch.int32,
                                        device=meta)}
+        if cfg.arch_type == "vlm":
+            specs["vision_embeds"] = torch.empty(
+                (B, cfg.frontend_tokens, cfg.frontend_dim),
+                dtype=getattr(torch, cfg.dtype), device=meta)
+            specs["vision_mask"] = torch.empty((B, L), dtype=torch.bool,
+                                               device=meta)
         if cfg.is_encdec:
             specs["audio_feats"] = torch.empty(
                 (B, cfg.encoder_seq, cfg.frontend_dim),
@@ -1176,5 +1218,5 @@ class ModelAPI:
 def build_model(cfg: ModelConfig, device: Any = None) -> ModelAPI:
     cfg.validate()
     dev = runtime.resolve_device(device)
-    build_decode(cfg, device=dev)         # raises for unported families
+    build_decode(cfg, device=dev)         # checks the family
     return ModelAPI(cfg, dev)

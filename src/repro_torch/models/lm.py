@@ -1,15 +1,22 @@
 """Decoder-only language model: the SSM family (``arch_type == "ssm"``),
-the dense attention LMs (``arch_type == "dense"``) and the MoE family
-(``cfg.is_moe``: mixtral, deepseek).
+the dense attention LMs (``arch_type == "dense"``), the MoE family
+(``cfg.is_moe``: mixtral, deepseek), the hybrid (``hybrid_parallel``:
+hymba) and the VLM (``arch_type == "vlm"``: qwen2-vl).
 
-Port of the SSM, attention and MoE parts of ``src/repro/models/lm.py``:
-the per-layer windows, the per-layer params (``ln1`` + the mamba2 mixer,
-or ``ln1`` + GQA attention + ``ln2`` + an FFN: a SwiGLU, or the MoE FFN of
-:mod:`repro_torch.layers.moe`), the teacher-forced forward (returning the
-summed MoE aux loss), the serving cache (``ssm`` / ``conv`` recurrent
-state, O(1) in the sequence length; or ``k`` / ``v`` of shape (layers,
-B, max_len, KV, hd)), the layout-native one-token decode step and the
-prefill.  DeepSeek's ``first_dense_layers`` are SwiGLU layers kept apart
+Port of ``src/repro/models/lm.py``: the per-layer windows, the per-layer
+params (``ln1`` + the mamba2 mixer, or ``ln1`` + GQA attention + ``ln2``
++ an FFN: a SwiGLU, or the MoE FFN of :mod:`repro_torch.layers.moe`; a
+hybrid layer holds a mamba2 mixer beside its attention, on the same
+normed input, and takes the mean of the two outputs), the teacher-forced
+forward (returning the summed MoE aux loss), the serving cache (``ssm`` /
+``conv`` recurrent state, O(1) in the sequence length; ``k`` / ``v`` of
+shape (layers, B, max_len, KV, hd); a hybrid holds both), the
+layout-native one-token decode step and the prefill.  The VLM's inputs
+are JAX's: ``vision_embeds`` (B, Tv, frontend_dim) from the stub vision
+encoder, projected by ``frontend_proj`` and scattered, in order, into
+the prompt positions ``vision_mask`` (B, L) marks; ``positions3`` (3, B,
+L) drive its M-RoPE sections (text positions, all three streams equal,
+when absent).  DeepSeek's ``first_dense_layers`` are SwiGLU layers kept apart
 as JAX keeps them: ``params["dense_layers"]`` runs before
 ``params["layers"]`` with windows ``[0, n_dense)``, and caches its K/V
 in ``dense_k`` / ``dense_v`` of shape (n_dense, B, max_len, KV, hd),
@@ -19,8 +26,9 @@ them for ``jax.lax.scan``; :func:`repro_torch.bridge.lm_params_from_jax`
 unstacks them).  The teacher-forced :func:`lm_forward` is
 differentiable for the dense attention LMs (training: K2 with its
 backward); the serving entry points run under ``torch.no_grad``.
-Training the MoE and SSM families is not ported (``ModelAPI.loss``
-refuses them: ROADMAP Queue 1 items 10b and 10c).
+Training the MoE, SSM, hybrid and VLM families is not ported
+(``ModelAPI.loss`` refuses them: ROADMAP Queue 1 items 10b, 10c and
+10e).
 
 Attention runs on the port's kernels: every multi-query attention
 (forward, prefill) is K2, causal with the layer's window; the decode step
@@ -43,13 +51,12 @@ batch (GShard semantics).
 :func:`lm_prefill_chunk` is one fixed-shape chunk of the chunked,
 KV-conditioned admission (``models/api.py``): the chunk's queries attend
 the batch-1 row cache's resident positions and the chunk itself (K2 at
-the chunk's shape), and an SSM layer's mixer runs from the carried
+the chunk's shape), and an SSM (or hybrid) layer's mixer runs from the carried
 ``ssm`` / ``conv`` state (K4 from an initial state).
 
 Not ported: ``lm_verify_chunk_views`` comes with its caller (speculative
-decoding, ROADMAP Queue 1 item 8); the hybrid (hymba) and VLM (qwen2-vl)
-families are item 9.  The encoder-decoder is :mod:`repro_torch.models.
-encdec`.
+decoding, ROADMAP Queue 1 item 8).  The encoder-decoder is
+:mod:`repro_torch.models.encdec`.
 """
 from __future__ import annotations
 
@@ -65,18 +72,14 @@ from repro_torch.layers import ssm as S
 from repro_torch.layers.common import Params, rmsnorm, to_device
 from repro_torch.layers.mlp import init_swiglu, swiglu
 from repro_torch.layers.moe import init_moe, moe_ffn
-from repro_torch.layers.rope import apply_rope, rope_cos_sin
+from repro_torch.layers.rope import (apply_rope, mrope_cos_sin,
+                                     rope_cos_sin, text_positions3)
 from repro_torch.models import layouts as LT
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise for the families of this module that are not ported, and for
-    the enc-dec, which is :mod:`repro_torch.models.encdec`'s."""
-    if cfg.hybrid_parallel or cfg.arch_type in ("hybrid", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.arch_type} models of models/lm.py are not "
-            f"ported yet: ROADMAP Queue 1 item 9 (hybrid and VLM "
-            f"families)")
+    """Raise for the enc-dec, which is :mod:`repro_torch.models.encdec`'s;
+    every decoder-only family is served here."""
     if cfg.is_encdec:
         raise ValueError(f"{cfg.name}: an encoder-decoder is served by "
                          f"models/encdec.py, not the decoder-only LM")
@@ -84,6 +87,12 @@ def check_family(cfg: ModelConfig) -> None:
 
 def _has_attention(cfg: ModelConfig) -> bool:
     return cfg.arch_type != "ssm"
+
+
+def _has_ssm(cfg: ModelConfig) -> bool:
+    """A mamba2 mixer in every layer: the SSM family, or beside the
+    attention in the hybrid's."""
+    return cfg.arch_type == "ssm" or cfg.hybrid_parallel
 
 
 def n_dense_layers(cfg: ModelConfig) -> int:
@@ -135,31 +144,39 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator, moe: bool = False,
     if not _has_attention(cfg):
         return {"ln1": norm(), "ssm": S.init_ssm(cfg, gen)}
     # attention, then the FFN: the draws of a TConst layer, so the base
-    # transformer of tconst-41m gets the TConst model's weights
-    return {"ln1": norm(), "attn": A.init_attention(cfg, gen, dtype),
-            "ln2": norm(),
-            "ffn": init_moe(cfg, gen, dtype) if moe else
-            init_swiglu(d, cfg.d_ff, gen, dtype)}
+    # transformer of tconst-41m gets the TConst model's weights; a
+    # hybrid draws its mixer between the two
+    layer = {"ln1": norm(), "attn": A.init_attention(cfg, gen, dtype)}
+    if cfg.hybrid_parallel:
+        layer["ssm"] = S.init_ssm(cfg, gen)
+    layer["ln2"] = norm()
+    layer["ffn"] = init_moe(cfg, gen, dtype) if moe else \
+        init_swiglu(d, cfg.d_ff, gen, dtype)
+    return layer
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0,
             device: Optional[torch.device] = None) -> Params:
     """The port's own seeded init: the embedding, then the layers in
     order, from one ``torch.Generator``.  It does not reproduce
-    ``jax.random``: parity tests bridge the JAX weights.
+    ``jax.random``: parity tests bridge the JAX weights.  A model of n
+    layers draws the first n layers of a deeper one of its config.
 
     The SSM and dense attention LMs draw float32 on the CPU (their weights
-    are fixed by that).  The MoE family draws on ``device`` with a
-    generator of that device and casts each tensor to the activation
-    dtype as it is drawn, so at most one float32 tensor is the extra peak
-    (deepseek-moe-16b: 16.4 B parameters, its largest tensor ``w_gate``
-    738 MB in float32) and a full-width init takes seconds on a card; its
-    norm scales stay float32.  So an MoE model's weights depend on the
-    device's generator: a run that compares two devices copies one
+    are fixed by that).  The hybrid and the VLM (1.4-1.5 B parameters at
+    full width: ~6 GB of float32 and tens of seconds on a host) draw
+    float32 on ``device``.  The MoE family draws on ``device`` too and
+    casts each tensor to the activation dtype as it is drawn, so at most
+    one float32 tensor is the extra peak (deepseek-moe-16b: 16.4 B
+    parameters, its largest tensor ``w_gate`` 738 MB in float32) and a
+    full-width init takes seconds on a card; its norm scales stay
+    float32.  So the weights of a family drawn on ``device`` depend on
+    the device's generator: a run that compares two devices copies one
     device's weights to the other."""
     check_family(cfg)
     moe = cfg.is_moe
-    dev = torch.device("cpu") if device is None or not moe \
+    on_device = moe or cfg.hybrid_parallel or cfg.arch_type == "vlm"
+    dev = torch.device("cpu") if device is None or not on_device \
         else torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = getattr(torch, cfg.dtype) if moe else None
@@ -186,9 +203,18 @@ def prepare_params(params: Params, device: torch.device,
 # ---------------------------------------------------------------------------
 
 
-def _rope(pos: torch.Tensor, cfg: ModelConfig
+def _rope(pos: torch.Tensor, cfg: ModelConfig,
+          positions3: Optional[torch.Tensor] = None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    return rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
+    """RoPE tables of ``pos`` (JAX's ``_rope_tables``): an M-RoPE config
+    rotates by ``positions3`` (3, ..., L), or by ``pos`` on all three
+    streams without them."""
+    hd = cfg.resolved_head_dim
+    if cfg.mrope and cfg.mrope_sections:
+        p3 = text_positions3(pos) if positions3 is None else \
+            torch.as_tensor(positions3, device=pos.device)
+        return mrope_cos_sin(p3, hd, cfg.rope_theta, cfg.mrope_sections)
+    return rope_cos_sin(pos, hd, cfg.rope_theta)
 
 
 def _ssm_layer_fwd(layer: Params, x: torch.Tensor, cfg: ModelConfig
@@ -207,15 +233,33 @@ def _ffn(layer: Params, xn: torch.Tensor, cfg: ModelConfig, moe: bool
     return swiglu(layer["ffn"], xn), None
 
 
+def _fuse(cfg: ModelConfig, layer: Params, out: torch.Tensor,
+          xn: torch.Tensor, ssm_state: Optional[dict] = None,
+          valid_len: Optional[torch.Tensor] = None
+          ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """A hybrid layer's output: the attention's ``out`` and the mamba2
+    mixer's on the same normed input ``xn`` (from ``ssm_state``, with
+    ``valid_len`` as the mixer takes them), mean-fused; any other layer's
+    ``out`` as it is.  Returns (output, the mixer's new state or None)."""
+    if not cfg.hybrid_parallel:
+        return out, None
+    ssm_out, st = S.ssm_mixer(layer["ssm"], xn, cfg, state=ssm_state,
+                              valid_len=valid_len)
+    return (out + ssm_out) * 0.5, st
+
+
 def _attn_layer_fwd(layer: Params, x: torch.Tensor, pos: torch.Tensor,
                     window: int, cfg: ModelConfig, cos: torch.Tensor,
-                    sin: torch.Tensor, moe: bool = False
+                    sin: torch.Tensor, moe: bool = False,
+                    ssm_state: Optional[dict] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                Optional[torch.Tensor]]:
     """Full-sequence attention layer: causal self-attention (K2) with the
-    layer's window, then the FFN (``moe``: the MoE FFN).  pos (B, L) token
-    positions.  Returns (x, the layer's RoPE'd K (B, L, KV, hd), its V,
-    the MoE aux loss or None)."""
+    layer's window (a hybrid: beside its mamba2 mixer, from
+    ``ssm_state``, which then takes the mixer's new state IN PLACE), then
+    the FFN (``moe``: the MoE FFN).  pos (B, L) token positions.  Returns
+    (x, the layer's RoPE'd K (B, L, KV, hd), its V, the MoE aux loss or
+    None)."""
     eps = cfg.norm_eps
     xn = rmsnorm(layer["ln1"], x, eps)
     dtype = xn.dtype
@@ -224,34 +268,64 @@ def _attn_layer_fwd(layer: Params, x: torch.Tensor, pos: torch.Tensor,
     k = apply_rope(k, cos, sin)
     o = ops.flash_attention(q, k, v, pos, pos, causal=True, window=window,
                             softcap=cfg.logit_softcap)
-    x = x + A.out_proj(layer["attn"], o, dtype)
+    out, st = _fuse(cfg, layer, A.out_proj(layer["attn"], o, dtype), xn,
+                    ssm_state)
+    if st is not None:
+        ssm_state.update(st)
+    x = x + out
     f, aux = _ffn(layer, rmsnorm(layer["ln2"], x, eps), cfg, moe)
     return x + f, k, v, aux
 
 
-def _positions(B: int, L: int, cfg: ModelConfig, device: torch.device):
-    """(B, L) int32 positions 0..L-1 and their RoPE tables (L, hd/2)."""
+def _positions(B: int, L: int, cfg: ModelConfig, device: torch.device,
+               positions3: Optional[torch.Tensor] = None):
+    """(B, L) int32 positions 0..L-1 and their RoPE tables (L, hd/2); (B,
+    L, hd/2) from ``positions3`` (3, B, L) under M-RoPE."""
     pos = torch.arange(L, dtype=torch.int32, device=device)
-    cos, sin = _rope(pos, cfg)
+    cos, sin = _rope(pos, cfg, positions3)
     return pos[None].expand(B, L), cos, sin
 
 
-def embed_inputs(params: Params, tokens: torch.Tensor, cfg: ModelConfig
+def _on(t: Any, device: torch.device) -> Optional[torch.Tensor]:
+    return None if t is None else torch.as_tensor(t, device=device)
+
+
+def embed_inputs(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                 vision_embeds: Optional[torch.Tensor] = None,
+                 vision_mask: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
-    return E.embed_tokens(params["embed"], tokens, getattr(torch, cfg.dtype))
+    """Token embeddings (B, L, d) in the activation dtype; with
+    ``vision_embeds`` (B, Tv, frontend_dim), the projected patches replace
+    the positions ``vision_mask`` (B, L) bool marks, the i-th marked
+    position taking patch i (past Tv: the last patch)."""
+    dtype = getattr(torch, cfg.dtype)
+    x = E.embed_tokens(params["embed"], tokens, dtype)
+    if vision_embeds is None:
+        return x
+    pv = E.project_frontend(params["embed"],
+                            _on(vision_embeds, x.device).to(dtype))
+    mask = _on(vision_mask, x.device).bool()
+    idx = (mask.long().cumsum(dim=1) - 1).clamp(0, pv.shape[1] - 1)
+    gathered = torch.gather(pv, 1, idx[..., None].expand(
+        -1, -1, pv.shape[-1]))
+    return torch.where(mask[..., None], gathered, x)
 
 
-def lm_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig
+def lm_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+               positions3: Optional[torch.Tensor] = None,
+               vision_embeds: Optional[torch.Tensor] = None,
+               vision_mask: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced forward.  tokens (B, L) -> (logits (B, L, V) f32,
-    the MoE layers' summed aux loss, 0 without MoE layers).
+    the MoE layers' summed aux loss, 0 without MoE layers); a VLM's
+    inputs as :func:`embed_inputs` and :func:`_rope` take them.
     Differentiable for the dense attention LMs (JAX remats its layer
     scan; nothing is rematerialised here)."""
     check_family(cfg)
-    x = embed_inputs(params, tokens, cfg)
+    x = embed_inputs(params, tokens, cfg, vision_embeds, vision_mask)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if _has_attention(cfg):
-        pos, cos, sin = _positions(*tokens.shape, cfg, x.device)
+        pos, cos, sin = _positions(*tokens.shape, cfg, x.device, positions3)
         for layer, window, moe, _, _ in _attn_layers(params, cfg):
             x, _, _, a = _attn_layer_fwd(layer, x, pos, window, cfg, cos,
                                          sin, moe)
@@ -294,7 +368,7 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
     DeepSeek's leading dense layers, ``dense_k`` / ``dense_v`` (n_dense,
     B, max_len, KV, hd), in the activation dtype; the SSM ``ssm``
     (n_layers, B, H, P, N) f32 and ``conv`` (n_layers, B, K-1, conv_dim)
-    in the activation dtype -- constant in ``max_len``."""
+    in the activation dtype -- constant in ``max_len``; the hybrid both."""
     check_family(cfg)
     n = cfg.n_layers
     dt = getattr(torch, cfg.dtype)
@@ -308,6 +382,7 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                 for f in ("k", "v"):
                     cache[prefix + f] = torch.zeros((layers,) + row,
                                                     dtype=dt, device=device)
+    if not _has_ssm(cfg):
         return cache
     dims = S.ssm_dims(cfg)
     cache["ssm"] = torch.zeros((n, batch, dims.n_heads, dims.head_dim,
@@ -331,29 +406,37 @@ def _ssm_layer_decode(layer: Params, x: torch.Tensor,
     return x + out, st
 
 
+def _write_state(cache: Dict[str, Any], i: int, new: Dict[str, torch.Tensor],
+                 live: Optional[torch.Tensor]) -> None:
+    """Layer ``i``'s new ``ssm`` / ``conv`` state into the cache IN PLACE,
+    rows that are not ``live`` kept."""
+    for k in ("ssm", "conv"):
+        old = cache[k].layer(i).dense()
+        val = new[k].to(old.dtype)
+        if live is not None:
+            val = torch.where(
+                live.reshape((-1,) + (1,) * (val.ndim - 1)), val, old)
+        old.copy_(val)
+
+
 def _ssm_decode(params: Params, cache: Dict[str, Any], x: torch.Tensor,
                 cfg: ModelConfig, live: Optional[torch.Tensor]
                 ) -> torch.Tensor:
     for i, layer in enumerate(params["layers"]):
         slc = {k: cache[k].layer(i) for k in ("ssm", "conv")}
         x, new = _ssm_layer_decode(layer, x, slc, cfg)
-        for k in ("ssm", "conv"):
-            old = slc[k].dense()
-            val = new[k].to(old.dtype)
-            if live is not None:
-                val = torch.where(
-                    live.reshape((-1,) + (1,) * (val.ndim - 1)), val, old)
-            old.copy_(val)
+        _write_state(cache, i, new, live)
     return x
 
 
 def _attn_decode(params: Params, cache: Dict[str, Any], x: torch.Tensor,
-                 cfg: ModelConfig, live: Optional[torch.Tensor]
-                 ) -> torch.Tensor:
+                 cfg: ModelConfig, live: Optional[torch.Tensor],
+                 positions3: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The attention layers of one decode step: each writes the token's
     K/V at slot ``len`` through the views (masked by ``live``; a row whose
     buffer is full is not written) and attends slots ``[max(0, len + 1 -
-    window), len + 1)``."""
+    window), len + 1)``; a hybrid layer's mixer takes its recurrent step
+    beside it (its state written as :func:`_write_state` writes it)."""
     eps = cfg.norm_eps
     length = cache["len"]
     max_len = LT.field_length(cache["k"])
@@ -362,12 +445,17 @@ def _attn_decode(params: Params, cache: Dict[str, Any], x: torch.Tensor,
         write = write & live
     slot = length.clamp(max=max_len - 1)
     hi = length + 1
-    cos, sin = _rope(length[:, None], cfg)
+    cos, sin = _rope(length[:, None], cfg, positions3)
     for layer, window, moe, prefix, i in _attn_layers(params, cfg):
+        xn = rmsnorm(layer["ln1"], x, eps)
         out, _ = A.decode_attend_view(
-            layer["attn"], rmsnorm(layer["ln1"], x, eps),
-            cache[prefix + "k"].layer(i), cache[prefix + "v"].layer(i), slot,
-            write, None, hi, cos, sin, cfg.logit_softcap, window)
+            layer["attn"], xn, cache[prefix + "k"].layer(i),
+            cache[prefix + "v"].layer(i), slot, write, None, hi, cos, sin,
+            cfg.logit_softcap, window)
+        if cfg.hybrid_parallel:
+            out, new = _fuse(cfg, layer, out, xn, {
+                k: cache[k].layer(i).dense() for k in ("ssm", "conv")})
+            _write_state(cache, i, new, live)
         x = x + out
         f, _ = _ffn(layer, rmsnorm(layer["ln2"], x, eps), cfg, moe)
         x = x + f
@@ -377,17 +465,20 @@ def _attn_decode(params: Params, cache: Dict[str, Any], x: torch.Tensor,
 @torch.no_grad()
 def lm_decode_step_views(params: Params, cache: Dict[str, Any],
                          token: torch.Tensor, cfg: ModelConfig,
+                         positions3: Optional[torch.Tensor] = None,
                          live: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Layout-native one-token decode.  ``cache`` maps bookkeeping names
     to tensors and KV names to FieldViews.  token (B,) -> (logits (B, V),
     cache), the cache updated IN PLACE; rows where ``live`` (B,) bool is
-    False keep their state and ``len`` bit-identical."""
+    False keep their state and ``len`` bit-identical.  ``positions3`` (3,
+    B, 1): an M-RoPE model's position streams of the token (default: its
+    slot ``len`` on all three)."""
     check_family(cfg)
     x = E.embed_tokens(params["embed"], token[:, None],
                        getattr(torch, cfg.dtype))
-    decode = _attn_decode if _has_attention(cfg) else _ssm_decode
-    x = decode(params, cache, x, cfg, live)
+    x = _attn_decode(params, cache, x, cfg, live, positions3) \
+        if _has_attention(cfg) else _ssm_decode(params, cache, x, cfg, live)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = E.lm_head(params["embed"], x, cfg.logit_softcap)[:, 0]
     cache["len"] += 1 if live is None else live.to(cache["len"].dtype)
@@ -397,6 +488,7 @@ def lm_decode_step_views(params: Params, cache: Dict[str, Any],
 @torch.no_grad()
 def lm_decode_step(params: Params, cache: Dict[str, torch.Tensor],
                    token: torch.Tensor, cfg: ModelConfig,
+                   positions3: Optional[torch.Tensor] = None,
                    live: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Dense-dict one-token decode: :func:`lm_decode_step_views` over
@@ -404,37 +496,66 @@ def lm_decode_step(params: Params, cache: Dict[str, torch.Tensor],
     layout-native step.  Returns (logits (B, V), cache)."""
     views = {k: LT.DenseView(v, CACHE_BATCH_AXES[k]) if k in KV_KEYS else v
              for k, v in cache.items()}
-    logits, _ = lm_decode_step_views(params, views, token, cfg, live)
+    logits, _ = lm_decode_step_views(params, views, token, cfg,
+                                     positions3, live)
     return logits, cache
+
+
+def _zero_state(cache: Dict[str, torch.Tensor], i: int
+                ) -> Optional[Dict[str, torch.Tensor]]:
+    """A zero ``ssm`` / ``conv`` state of layer ``i`` (None without)."""
+    if "ssm" not in cache:
+        return None
+    return {k: torch.zeros_like(cache[k][i]) for k in ("ssm", "conv")}
+
+
+def _row_state(row: Dict[str, torch.Tensor], i: int
+               ) -> Optional[Dict[str, torch.Tensor]]:
+    """Layer ``i``'s carried ``ssm`` / ``conv`` state of a row cache (None
+    without)."""
+    if "ssm" not in row:
+        return None
+    return {k: row[k][i] for k in ("ssm", "conv")}
+
+
+def _put_state(cache: Dict[str, torch.Tensor], i: int,
+               st: Optional[Dict[str, torch.Tensor]]) -> None:
+    if st is not None:
+        cache["ssm"][i] = st["ssm"]
+        cache["conv"][i] = st["conv"].to(cache["conv"].dtype)
 
 
 @torch.no_grad()
 def lm_prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-               max_len: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+               max_len: int, positions3: Optional[torch.Tensor] = None,
+               vision_embeds: Optional[torch.Tensor] = None,
+               vision_mask: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Process a prompt, filling the cache: an attention layer writes its
     RoPE'd K/V into the first L slots of its fields (the forward's own K2
     pass; DeepSeek's dense layers into ``dense_k`` / ``dense_v``); an SSM
-    layer's mixer runs in streaming mode from a zero state.  tokens
-    (B, L).  Returns (last-position logits (B, V), cache)."""
+    (or hybrid) layer's mixer runs in streaming mode from a zero state.
+    tokens (B, L); a VLM's inputs as :func:`lm_forward`'s.  Returns
+    (last-position logits (B, V), cache)."""
     check_family(cfg)
     B, L = tokens.shape
-    x = embed_inputs(params, tokens, cfg)
+    x = embed_inputs(params, tokens, cfg, vision_embeds, vision_mask)
     cache = init_kv_cache(cfg, B, max_len, device=tokens.device)
     if _has_attention(cfg):
-        pos, cos, sin = _positions(B, L, cfg, x.device)
+        pos, cos, sin = _positions(B, L, cfg, x.device, positions3)
         for layer, window, moe, prefix, i in _attn_layers(params, cfg):
+            st = _zero_state(cache, i)
             x, k, v, _ = _attn_layer_fwd(layer, x, pos, window, cfg, cos,
-                                         sin, moe)
+                                         sin, moe, st)
             cache[prefix + "k"][i, :, :L] = k
             cache[prefix + "v"][i, :, :L] = v
+            _put_state(cache, i, st)
     else:
         for i, layer in enumerate(params["layers"]):
             xn = rmsnorm(layer["ln1"], x, cfg.norm_eps)
-            st0 = {"ssm": torch.zeros_like(cache["ssm"][i]),
-                   "conv": torch.zeros_like(cache["conv"][i])}
-            out, st = S.ssm_mixer(layer["ssm"], xn, cfg, state=st0)
-            cache["ssm"][i] = st["ssm"]
-            cache["conv"][i] = st["conv"].to(cache["conv"].dtype)
+            out, st = S.ssm_mixer(layer["ssm"], xn, cfg,
+                                  state=_zero_state(cache, i))
+            _put_state(cache, i, st)
             x = x + out
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = E.lm_head(params["embed"], x[:, -1:], cfg.logit_softcap)[:, 0]
@@ -455,14 +576,15 @@ def lm_prefill_chunk(params: Params, row: Dict[str, torch.Tensor],
     ``row`` is the dense batch-1 row cache (:func:`init_kv_cache`):
     ``k`` / ``v`` (and DeepSeek's ``dense_k`` / ``dense_v``) with
     positions ``[0, start)`` written -- the resident prefix copied from
-    adopted pages and every earlier chunk -- or the ``ssm`` / ``conv``
-    state advanced to ``start``.  The chunk's C queries, at their true
+    adopted pages and every earlier chunk -- and / or the ``ssm`` /
+    ``conv`` state advanced to ``start``.  The chunk's C queries, at their true
     positions ``[start, start + C)``, attend those positions and the
     chunk itself (K2, causal, the layer's window), so the result is the
     one-shot :func:`lm_prefill`'s up to float association.  The chunk's
     K/V is written into the row IN PLACE and also returned per
-    length-axis field for the slot's ``write_span``; an SSM layer's new
-    state replaces the row's.
+    length-axis field for the slot's ``write_span``; an SSM or hybrid
+    layer's new mixer state replaces the row's.  An M-RoPE model rotates
+    by text positions (JAX's chunk takes no ``positions3``).
 
     tokens (B, C) int, zero-padded after the prompt: padded positions lie
     after every real query, past ``len`` afterwards, and ``n_valid`` (the
@@ -478,6 +600,9 @@ def lm_prefill_chunk(params: Params, row: Dict[str, torch.Tensor],
     eps = cfg.norm_eps
     x = embed_inputs(params, tokens, cfg)
     chunk_kv: Dict[str, torch.Tensor] = {}
+    # real tokens in this chunk (the last one is zero-padded)
+    vl = torch.full((B,), min(max(n_valid - start, 0), C),
+                    dtype=torch.int32, device=dev)
     if _has_attention(cfg):
         pos = (start + torch.arange(C, dtype=torch.int32, device=dev)
                )[None].expand(B, C)
@@ -497,22 +622,22 @@ def lm_prefill_chunk(params: Params, row: Dict[str, torch.Tensor],
             o = ops.prefill_chunk_attention(q, k_row[:, :live],
                                             v_row[:, :live], pos, kpos,
                                             window, cfg.logit_softcap)
-            x = x + A.out_proj(layer["attn"], o, xn.dtype)
+            out, st = _fuse(cfg, layer, A.out_proj(layer["attn"], o,
+                                                   xn.dtype), xn,
+                            _row_state(row, i), vl)
+            _put_state(row, i, st)
+            x = x + out
             f, _ = _ffn(layer, rmsnorm(layer["ln2"], x, eps), cfg, moe)
             x = x + f
         for f in LENGTH_AXES:
             if f in row:
                 chunk_kv[f] = row[f][:, :, start:live]
     else:
-        # real tokens in this chunk (the last one is zero-padded)
-        vl = torch.full((B,), min(max(n_valid - start, 0), C),
-                        dtype=torch.int32, device=dev)
         for i, layer in enumerate(params["layers"]):
-            st = {"ssm": row["ssm"][i], "conv": row["conv"][i]}
             out, st = S.ssm_mixer(layer["ssm"], rmsnorm(layer["ln1"], x, eps),
-                                  cfg, state=st, valid_len=vl)
-            row["ssm"][i] = st["ssm"]
-            row["conv"][i] = st["conv"].to(row["conv"].dtype)
+                                  cfg, state=_row_state(row, i),
+                                  valid_len=vl)
+            _put_state(row, i, st)
             x = x + out
     if logits_at is None:
         return None, row, chunk_kv

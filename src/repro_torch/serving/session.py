@@ -44,8 +44,9 @@ class Session:
     on_token: optional ``f(session, token)`` streaming callback.
     extras: per-request model inputs beyond tokens: ``audio_feats``
     (encoder_seq, frontend_dim) for the encoder-decoder, which its
-    admission requires (a VLM's ``vision_embeds``/``vision_mask`` come
-    with the VLM, ROADMAP Queue 1 item 9).
+    admission requires; a VLM's ``vision_embeds`` (frontend_tokens,
+    frontend_dim) and ``vision_mask`` (prompt length,) bool, without
+    which its request is text-only.
     seed: optional per-session sampling seed.  When set, the session's
     ``torch.Generator`` is seeded with it and draws once per sampled
     token — a pure function of this session's own progress, so replaying

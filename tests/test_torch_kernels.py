@@ -322,3 +322,87 @@ def test_cuda_kernels_vs_plain(dtype, tol):
         out = FA.flash_attention_cuda(q, k, v, qp, kp, causal, win)
         ref = FA.flash_attention_plain(q, k, v, qp, kp, causal, win)
         assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+# the hybrid's and the VLM's serving shapes (GPU only): hymba-1.5b's 25
+# heads over 5 KV heads of 64 (G 5, window 1024) and qwen2-vl-2b's 12 over
+# 2 of 128 (G 6); G x D (320, 768) is not a multiple of the 128 threads,
+# and G 6 at D 128 needs ~75 KB of shared memory.  K1 / K1-int8 over
+# slots [len + 1 - 1024, len + 1) past the window; K3 / K3-int8 on pages
+# of 64 whose window starts mid-table; K2 causal with the window over a
+# 1100-token prompt and at a chunk's shape from a resident start; K4 at
+# hymba's mixer (H 25, P 64, N 16, chunk 64, a ragged last chunk, from a
+# carried state)
+HYBRID_VLM_HEADS = [(25, 5, 64, 1024), (12, 2, 128, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("H,KV,D,win", HYBRID_VLM_HEADS)
+def test_cuda_kernels_at_hybrid_and_vlm_shapes(H, KV, D, win, dtype, tol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no "
+                    "CPU mode (their plain versions are tested above)")
+    from repro_torch.kernels import paged_decode_attention as PD
+    from repro_torch.kernels import ssd_scan as SD
+    dev = torch.device("cuda")
+    S, page = 1152, 64
+    lens = [1100, 700, 1030]
+    hi = torch.tensor(lens, dtype=torch.int32, device=dev) + 1
+    lo = (hi - win).clamp(min=0) if win else torch.zeros_like(hi)
+    for quant in (False, True):
+        q, k, v, ks, vs, _, _ = _decode_split_inputs(
+            3, H, KV, D, S, [0] * 3, [S] * 3, quant, dtype, dev)
+        out = DA.decode_attention_int8_cuda(q, k, v, ks, vs, lo, hi) \
+            if quant else DA.decode_attention_cuda(q, k, v, lo, hi)
+        ref = DA.decode_attention_plain(q, k, v, lo, hi, 0.0, ks, vs)
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+        # the same rows on pages of 64, scattered over a pool
+        pps = S // page
+        perm = torch.randperm(3 * pps, generator=torch.Generator().manual_seed(
+            3)).reshape(3, pps).to(dev, torch.int32)
+
+        def pool(x, fill):
+            p = torch.full((3 * pps + 1, page) + tuple(x.shape[2:]), fill,
+                           dtype=x.dtype, device=dev)
+            p[perm.reshape(-1).long()] = x.reshape((3 * pps, page) +
+                                                   tuple(x.shape[2:]))
+            return p
+        pk, pv = pool(k, 0), pool(v, 0)
+        pks = pvs = None
+        if quant:
+            pks, pvs = pool(ks, 1.0), pool(vs, 1.0)
+        out = PD.paged_decode_attention_cuda(q, pk, pv, perm, hi, 0.0, win,
+                                             pks, pvs)
+        ref = PD.paged_decode_attention_plain(q, pk, pv, perm, hi, 0.0, win,
+                                              pks, pvs)
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+    # K2: a causal 1100-token prompt, and a chunk of 128 queries at 896
+    # over keys [0, 1024)
+    for Lq, Lk, start in ((1100, 1100, 0), (128, 1024, 896)):
+        q, k, v = (torch.from_numpy(a).to(dev, dtype)
+                   for a in _qkv(1, Lq, Lk, H, KV, D, seed=41))
+        qp = (start + torch.arange(Lq, device=dev, dtype=torch.int32))[None]
+        kp = torch.arange(Lk, device=dev, dtype=torch.int32)[None]
+        out = FA.flash_attention_cuda(q, k, v, qp, kp, True, win)
+        ref = FA.flash_attention_plain(q, k, v, qp, kp, True, win)
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+    if H != 25:
+        return
+    # K4 at hymba's mixer, from a carried state
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, L, P, N = 1, 1067, 64, 16
+    x = torch.randn((B, L, H, P), generator=g, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(
+        (B, L, H), generator=g, device=dev) - 2.0)
+    a = -torch.arange(1, H + 1, device=dev, dtype=torch.float32)
+    b, c = (torch.randn((B, L, N), generator=g, device=dev).to(dtype)
+            for _ in "bc")
+    s0 = torch.randn((B, H, P, N), generator=g, device=dev)
+    y, fin = SD.ssd_scan(x, dt, a, b, c, 64, s0)
+    yr, fr = SD.ssd_scan_tiled_plain(x, dt, a, b, c, 64, s0)
+    scale = max(1.0, yr.float().abs().max().item())
+    assert (y.float() - yr.float()).abs().max().item() <= tol * scale
+    assert (fin - fr).abs().max().item() <= tol * max(
+        1.0, fr.abs().max().item())

@@ -59,9 +59,9 @@ def reduced41():
 
 
 def test_config_copy_matches_jax():
-    archs = ["deepseek_moe_16b", "gemma3_4b", "llama3_405b", "mamba2_130m",
-             "minicpm_2b", "mixtral_8x22b", "smollm_360m", "tconst_41m",
-             "whisper_small"]
+    archs = ["deepseek_moe_16b", "gemma3_4b", "hymba_1_5b", "llama3_405b",
+             "mamba2_130m", "minicpm_2b", "mixtral_8x22b", "qwen2_vl_2b",
+             "smollm_360m", "tconst_41m", "whisper_small"]
     for arch in archs:
         j = JC.get_config(arch)
         p = PC.get_config(arch)

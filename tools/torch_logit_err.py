@@ -6,6 +6,8 @@
         [--arch deepseek_moe_16b --layers 3]
         [--arch deepseek_moe_16b --mode tconst --layers 8 --prompt-len 700]
         [--arch whisper_small]
+        [--arch hymba_1_5b --layers 4 --prompt-len 1060 --prompts 1]
+        [--arch qwen2_vl_2b --layers 4]
 
 Runs ``chip_smoke.py``'s logit check with both sides on the CPU: the
 plain PyTorch path in bf16 against the same path in f32, same weights
@@ -20,7 +22,11 @@ chose another expert set in bf16 than in f32.  ``--layers`` cuts the
 depth (deepseek's logits are checked at 3 layers: the dense one and two
 MoE layers).  ``--arch whisper_small`` runs the smoke's enc-dec check
 instead (``chip_smoke.encdec_logits``): the phase's first session (its
-own audio frames) on the four layouts.
+own audio frames) on the four layouts; ``--arch qwen2_vl_2b`` the VLM's
+(``chip_smoke.vlm_logits``): phase 4h's first session (its own patches in
+the prompt) on the int8 layout, each side stepping on from the other's
+stored cache.  ``--arch hymba_1_5b`` takes the LM path above (phase 4h
+checks its logits on its first dense prompt, 1060 tokens, at 4 layers).
 """
 import argparse
 import json
@@ -66,6 +72,14 @@ def main(argv=None) -> int:
         print(f"[logit_err] {cfg.name} CPU bf16 vs CPU f32 plain path, "
               f"the admission and {CS.LOGIT_STEPS} steps, largest error "
               f"by layout: {errs}")
+        return 0
+    if cfg.arch_type == "vlm":
+        err, adopted = CS.vlm_logits(torch, cfg, params, "int8",
+                                     float("inf"), device="cpu")
+        print(f"[logit_err] {cfg.name} ({cfg.n_layers} layers) CPU bf16 vs "
+              f"CPU f32 plain path on int8, the admission and "
+              f"{CS.LOGIT_STEPS} steps: largest error {err} ({adopted} codes "
+              f"adopted)")
         return 0
     errs = CS.logits_phase(torch, serve, cfg, args, params, float("inf"),
                            n_prompts=args_.prompts, device="cpu")
