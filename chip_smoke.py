@@ -66,8 +66,12 @@ Phases (any failure raises, so the exit code is non-zero):
    (dead keys), the context self-attention, the restore, the generation
    window's self and cross attention and TLinFormer's history cross, a
    compress whose every query is fully masked, the base transformer's
-   causal 1024, one case at G 3, D 64 with a softcap and a window, and
-   deepseek-moe-16b's heads (D 128) on a causal 1024 at B 2;
+   causal 1024, one case at G 3, D 64 with a softcap and a window,
+   deepseek-moe-16b's heads (D 128) on a causal 1024 at B 2, and the
+   shapes phase 5b's train steps give them: whisper-small's encoder
+   (B 8, 1500 x 1500, non-causal, every key live), cross-attention (448
+   x 1500) and causal decoder (448; 12 heads of 64, G 1), qwen2-vl-2b's
+   causal 1024 at B 2 (12 heads over 2 of 128: G 6, D 128);
    dq, dk and dv against the plain backward (TOL times max(1, max
    |plain|)), with SDPA's autograd backward as the yardstick.  Then the
    device launches one call of K1, K1-int8, K2, K3, K3-int8 and each K4
@@ -250,17 +254,29 @@ Phases (any failure raises, so the exit code is non-zero):
    are held against the CPU f32 plain path (``LOGIT_TOL_HYBRID`` /
    ``LOGIT_TOL_VLM``; qwen2-vl on int8, the CPU stepping on from the
    card's stored codes).
-5. Training (``launch.train``, ``--batch 8 --seq 1024 --steps 4``):
+5. Training (``launch.train``, ``--batch 8 --seq 1024 --steps 3``):
    tconst-41m at full width in bf16 in modes tconst, tlin and full (the
-   base transformer) on one seeded init, in turns A B C C B A over the
-   same synthetic batches.  Each run must launch K2's forward and
+   base transformer) on one seeded init, one run each over the same
+   synthetic batches.  Each run must launch K2's forward and
    backward kernels and nothing else, no plain version, and its finite
    loss must fall; it records warm step ms, tok/s and peak device
-   memory, and the first run of each mode one profiled step (device
-   launches, device ms, K2 calls).  Then loss and gradients at full
-   width, B 1 x 512, on the card against the CPU plain path on the same
-   f32 params: f32 within a relative L2 error of 1e-4, bf16 within 3x
-   the CPU plain path's own bf16 error.
+   memory, and one profiled step (device launches, device ms, K2
+   calls).  5b: whisper-small (batch 8 x 448 decoder tokens over 1500
+   frames of zero audio, the JAX launcher's batch) and qwen2-vl-2b
+   (batch 2 x 1024, seeded patches over the JAX launcher's mask, its
+   first 256 positions: under its zero patches the gradient of a model
+   this deep overflows, in JAX too) at full width and depth in bf16,
+   ``--steps 3`` each, through the same launcher: K2's forward and
+   backward launched exactly as often as a CPU run of the counters at
+   reduced width and full depth predicts a step, nothing else, no plain
+   version; a finite loss that falls; warm step ms, tok/s, peak memory
+   and one profiled step.  Then loss and gradients at full width on the card against the
+   CPU plain path on the same f32 params (tconst-41m B 1 x 512 in its
+   three modes; whisper-small at 2 + 2 layers, B 1, 128 tokens over 1500
+   seeded frames; qwen2-vl-2b at 2 layers, B 1, 320 tokens with 256
+   seeded patches): f32 within a relative L2 error of 1e-4 (over all
+   leaves and each top-level group of them), bf16 within 3x the CPU
+   plain path's own bf16 error.
 6. Uniform-batch Engine (``--batch 4 --prompt-len 1024 --gen 264``): the
    paper's three variants on one set of weights -- tconst/dense,
    tlin/paged and the base transformer (full/dense) -- in one call, in
@@ -819,12 +835,35 @@ KERNELS = {
 
 # training (phase 5): tconst-41m at full width in bf16, batch 8 x 1024,
 # in modes tconst, tlin and full (the base transformer) on one seeded
-# init, in turns A B C C B A, each run TRAIN_STEPS steps of AdamW (lr
-# 3e-3, the launcher's cosine schedule) over the same synthetic batches
-TRAIN_STEPS = 4      # the loss falls by step 3
+# init, one run each, each run TRAIN_STEPS steps of AdamW (lr 3e-3, the
+# launcher's cosine schedule) over the same synthetic batches
+TRAIN_STEPS = 3      # the loss has fallen by the third step
 TRAIN_ARGS = ["--arch", "tconst-41m", "--batch", "8", "--seq", "1024",
               "--steps", str(TRAIN_STEPS), "--log-every", "1"]
 TRAIN_TURNS = ("tconst", "tlin", "full")
+# training the enc-dec and the VLM (phase 5b), bf16 at full width and
+# depth through the same launcher, TRAIN_STEPS steps each of the
+# launcher's cosine schedule.  whisper-small: batch 8 x 448 decoder
+# tokens (its decoder's context) over the launcher's 1500 zero frames,
+# lr 1e-3.  qwen2-vl-2b: batch 2 x 1024, lr 5e-4 (on the H100 its loss
+# diverged at 3e-3 and fell less at 1e-3 and 3e-4), seeded patches over
+# the launcher's mask (its first 256 positions): under the launcher's
+# zero patches those rows stay exactly zero through all 28 layers and
+# RMSNorm's backward at zero overflows their gradient to NaN, in JAX's
+# value_and_grad too (launch.train.extra_inputs)
+FAMILY_TRAIN_ARGS = {
+    ENCDEC: ["--arch", ENCDEC, "--batch", "8", "--seq", "448", "--lr",
+             "1e-3"],
+    VLM: ["--arch", VLM, "--batch", "2", "--seq", "1024", "--lr", "5e-4"],
+}
+# the family gradient checks: (arch, config overrides, batch, tokens):
+# whisper-small at 2 + 2 layers over its 1500 seeded frames, 128 decoder
+# tokens; qwen2-vl-2b at 2 layers, 256 seeded patches from position
+# VLM_VISION_AT among 320 tokens (64 text)
+FAMILY_GRAD_CHECKS = {
+    ENCDEC: ({"n_layers": 2, "encoder_layers": 2}, 1, 128),
+    VLM: ({"n_layers": 2}, 1, 320),
+}
 # the gradient checks: loss and gradients at full width, B 1 x 512 (two
 # windows), on the card against the CPU plain path on the same f32
 # params.  Error: the relative L2 norm of the gradient difference over
@@ -1345,9 +1384,13 @@ def k2_bwd_cases(torch, cfg, dev):
     generation window's self and cross attention and TLinFormer's history
     cross; window 0's compress (every query fully masked, every key
     dead); the base transformer's causal 1024; one case at G 3, D 64
-    (smollm-360m's heads) with a softcap and a window; and
+    (smollm-360m's heads) with a softcap and a window;
     deepseek-moe-16b's heads (16 over 16 KV heads, D 128) on a causal 1024
-    at B 2."""
+    at B 2.  Then the shapes phase 5b's train steps give it:
+    whisper-small's encoder (B 8, 1500 frames, non-causal, every key
+    live, a ragged last tile), its cross-attention (448 decoder rows over
+    the 1500 frames) and its causal decoder (448), 12 heads of 64 (G 1);
+    qwen2-vl-2b's causal 1024 at B 2, 12 heads over 2 of 128 (G 6)."""
     from repro_torch.kernels.flash_attention import INVALID_POS
     B, N = 8, 1024
     Wh, Wg = cfg.tconst.w_oh, cfg.tconst.w_og
@@ -1365,6 +1408,7 @@ def k2_bwd_cases(torch, cfg, dev):
     tail, gen = ar(Wh, j * Wg - Wh), ar(Wg, j * Wg)
     heads = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
     p600, p1024 = ar(600, rows=4), ar(N, rows=2)
+    frames, dec = ar(1500), ar(448)
     return [
         ("compress", tail, hist_kp, True, 0, 0.0, heads),
         ("compress_masked", ar(Wh, -Wh), keys(pos, pos < 0), True, 0, 0.0,
@@ -1377,14 +1421,18 @@ def k2_bwd_cases(torch, cfg, dev):
         ("base_causal", pos, pos, True, 0, 0.0, heads),
         ("g3_d64_cap_window", p600, p600, True, 256, 30.0, (15, 5, 64)),
         ("d128_causal", p1024, p1024, True, 0, 0.0, (16, 16, 128)),
+        ("whisper_encoder", frames, frames, False, 0, 0.0, (12, 12, 64)),
+        ("whisper_cross", dec, frames, False, 0, 0.0, (12, 12, 64)),
+        ("whisper_decoder", dec, dec, True, 0, 0.0, (12, 12, 64)),
+        ("qwen_causal_1024", p1024, p1024, True, 0, 0.0, (12, 2, 128)),
     ]
 
 
 def sdpa_bwd(torch, q, k, v, do, mask, square_causal, softcap):
     """``torch.autograd.grad`` through SDPA with the same mask (a square
-    causal prompt: ``is_causal``), K/V repeated over the group, the
-    forward run once outside the timed call; None under a softcap (SDPA
-    has none)."""
+    causal prompt: ``is_causal``; no mask where every pair is attended),
+    K/V repeated over the group, the forward run once outside the timed
+    call; None under a softcap (SDPA has none)."""
     import torch.nn.functional as F
     if softcap > 0.0:
         return None
@@ -1396,6 +1444,8 @@ def sdpa_bwd(torch, q, k, v, do, mask, square_causal, softcap):
         .requires_grad_()
     if square_causal:
         out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    elif bool(mask.all()):
+        out = F.scaled_dot_product_attention(qt, kt, vt)
     else:
         out = F.scaled_dot_product_attention(qt, kt, vt,
                                              attn_mask=mask[:, None])
@@ -1447,7 +1497,9 @@ def k2_bwd_rows(torch, rows, cfg, dev, randn, dname: str):
             errs[name] = (g.float() - w.float()).abs().max().item()
             check(errs[name] <= tol * scale, f"{what}: max |kernel - plain| "
                   f"of {name} = {errs[name]} > {tol} x {scale}")
-        mask = FA.position_mask(qp, kp, causal, window)
+        # (B, Lq, Lk): without causality or a window the mask broadcasts
+        # over the queries
+        mask = FA.position_mask(qp, kp, causal, window).expand(B, Lq, Lk)
         pairs = int(mask.sum())
         used = int(mask.any(dim=1).sum()) * KV * D * k.element_size()
         n_bytes = nbytes(q, o, do, lse, qp, kp, *got) + 2 * used
@@ -1522,8 +1574,9 @@ def launches_per_call(torch, fn) -> int:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the card's activity only: host op events add nothing to a device
+    # count and cost ~10x the traced call (a train step: 13 s against 1)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     return sum(e.count for e in prof.key_averages()
@@ -2369,8 +2422,7 @@ def admission_profile(torch, serve, cfg, args, params, chunk) -> dict:
             fn()
             torch.cuda.synchronize()
             walls.append(1e3 * (time.perf_counter() - t0))
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         dev = [e for e in prof.key_averages()
@@ -3801,15 +3853,14 @@ def vlm_phase(torch, runtime, serve) -> dict:
 
 
 def step_profile(torch, runtime, step_fn, params, opt, batch) -> dict:
-    """One warm train step under torch.profiler: its device launches and
-    device ms (summed kernel time), K2's forward and backward device ms
-    (their kernels' names), and the K2 forward / backward wrapper calls
-    of the step (launch counters)."""
+    """One warm train step under torch.profiler (the card's activity
+    only): its device launches and device ms (summed kernel time), K2's
+    forward and backward device ms (their kernels' names), and the K2
+    forward / backward wrapper calls of the step (launch counters)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     runtime.reset_counters()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = step_fn(params, opt, batch)
         float(out[2]["loss"])
@@ -3838,12 +3889,12 @@ def step_profile(torch, runtime, step_fn, params, opt, batch) -> dict:
 def train_phase(torch, runtime) -> dict:
     """tconst-41m at full width, bf16, batch 8 x 1024, through the train
     launcher (``launch.train.load`` / ``train``) in modes tconst, tlin and
-    full on one seeded init, in turns A B C C B A over the same
-    synthetic batches.  Each run: launch counters reset before it and
-    read after it (K2's forward and backward kernels launched, no plain
-    version, no other kernel); a finite loss that falls; warm step ms
-    (each step ends at its loss read), tok/s and peak device memory.  The
-    first run of each mode also profiles one more step."""
+    full on one seeded init, one run each over the same synthetic
+    batches.  Each run: launch counters reset before it and read after it
+    (K2's forward and backward kernels launched, no plain version, no
+    other kernel); a finite loss that falls; warm step ms (each step ends
+    at its loss read), tok/s and peak device memory; then one more
+    profiled step."""
     import numpy as np
     from repro_torch.data.pipeline import DataConfig, batches
     from repro_torch.launch import train as T
@@ -3856,7 +3907,7 @@ def train_phase(torch, runtime) -> dict:
                                    batch_size=base.batch, seed=base.seed),
                         steps=base.steps))
     out = {"data_s": time.time() - t0, "runs": {}}
-    for mode in TRAIN_TURNS + TRAIN_TURNS[::-1]:
+    for mode in TRAIN_TURNS:
         args = T.build_parser().parse_args(TRAIN_ARGS + ["--mode", mode])
         t0 = time.time()
         cfg, api, params = T.load(args)
@@ -3888,18 +3939,136 @@ def train_phase(torch, runtime) -> dict:
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                "launches": {n: c["kernel"] for n, c in counts.items()
                             if c["kernel"]}, "load_s": load_s}
-        runs = out["runs"].setdefault(mode, [])
-        if not runs:
-            step_fn = make_train_step(api, AdamWConfig(lr=args.lr),
-                                      warmup_cosine(0, args.steps))
-            batch = {"tokens": torch.from_numpy(np.ascontiguousarray(
-                data[0]["tokens"][:, :args.seq])).cuda()}
-            t0 = time.time()
-            rec["profile"] = step_profile(torch, runtime, step_fn,
-                                          res["params"], res["opt"], batch)
-            rec["profile_s"] = time.time() - t0
-        runs.append(rec)
+        step_fn = make_train_step(api, AdamWConfig(lr=args.lr),
+                                  warmup_cosine(0, args.steps))
+        batch = {"tokens": torch.from_numpy(np.ascontiguousarray(
+            data[0]["tokens"][:, :args.seq])).cuda()}
+        t0 = time.time()
+        rec["profile"] = step_profile(torch, runtime, step_fn,
+                                      res["params"], res["opt"], batch)
+        rec["profile_s"] = time.time() - t0
+        out["runs"][mode] = [rec]
         del res, params, api
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_launches_per_step(runtime, arch: str) -> dict:
+    """K2's forward and backward calls a train step of ``arch`` makes at
+    full depth, counted on the CPU: one ``loss_and_grads`` of the config
+    at reduced width (f32) but its full layer counts, through the launch
+    counters (a plain call where the card launches a kernel)."""
+    import torch
+    from repro_torch import bridge
+    from repro_torch.config import get_config, reduced
+    from repro_torch.launch import train as T
+    from repro_torch.models.api import build_model
+    from repro_torch.training.train_step import loss_and_grads
+    full = get_config(arch)
+    cfg = reduced(full, dtype="float32", n_layers=full.n_layers,
+                  encoder_layers=full.encoder_layers)
+    api = build_model(cfg, device="cpu")
+    params = bridge.stack_params(api.init(0))
+    batch = {"tokens": torch.ones((1, 16), dtype=torch.int32),
+             **T.extra_inputs(cfg, 1, 16, "cpu")}
+    runtime.reset_counters()
+    loss_and_grads(api, params, batch)
+    counts = runtime.read_counters()
+    check(all(c["kernel"] == 0 for c in counts.values()),
+          f"{arch} CPU count: a kernel launched ({counts})")
+    return {n: c["plain"] for n, c in counts.items() if c["plain"]}
+
+
+def family_train_phase(torch, runtime) -> dict:
+    """whisper-small and qwen2-vl-2b at full width and depth in bf16
+    through the train launcher (``launch.train.load`` / ``train``),
+    ``FAMILY_TRAIN_ARGS`` for TRAIN_STEPS steps on the synthetic batches
+    and the JAX launcher's extra inputs (qwen2-vl-2b: seeded patches
+    under its mask, see ``FAMILY_TRAIN_ARGS``).  Each run: launch
+    counters reset before it and read after it -- K2's forward and
+    backward launched TRAIN_STEPS times the CPU count a step
+    (:func:`train_launches_per_step`), no other kernel, no plain
+    version; a finite loss that falls; warm step ms, tok/s (decoder
+    tokens), peak device memory, and one profiled step."""
+    import numpy as np
+    from repro_torch.config import get_config
+    from repro_torch.data.pipeline import DataConfig, batches
+    from repro_torch.launch import train as T
+    from repro_torch.training.optim import AdamWConfig
+    from repro_torch.training.schedules import warmup_cosine
+    from repro_torch.training.train_step import make_train_step
+    out = {}
+    for arch, argv in FAMILY_TRAIN_ARGS.items():
+        rec = {"argv": argv}
+        t0 = time.time()
+        per_step = train_launches_per_step(runtime, arch)
+        rec["predict_s"] = time.time() - t0
+        check(sorted(per_step) == sorted((K2, K2_BWD)) and
+              per_step[K2] == per_step[K2_BWD],
+              f"train {arch}: the CPU count is not K2's forward and "
+              f"backward alike ({per_step})")
+        args = T.build_parser().parse_args(
+            argv + ["--steps", str(TRAIN_STEPS), "--log-every", "1"])
+        t0 = time.time()
+        cfg, api, params = T.load(args)
+        rec["load_s"] = time.time() - t0
+        check(cfg.dtype == "bfloat16" and cfg == get_config(arch),
+              f"train {arch}: not the full-width bf16 config")
+        t0 = time.time()
+        data = list(batches(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=args.seq,
+                                       batch_size=args.batch,
+                                       seed=args.seed), steps=args.steps))
+        if cfg.arch_type == "vlm":
+            rs = np.random.RandomState(30)
+            data = [{**b, **seeded_extras(cfg, args.batch, args.seq, rs, 0)}
+                    for b in data]
+        rec["data_s"] = time.time() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runtime.reset_counters()
+        t0 = time.time()
+        res = T.train(cfg, api, params, args, data=data, log=lambda _: None)
+        torch.cuda.synchronize()
+        rec["train_s"] = time.time() - t0
+        counts = runtime.read_counters()
+        what = f"train {arch}"
+        want = {n: TRAIN_STEPS * c for n, c in per_step.items()}
+        got = {n: c["kernel"] for n, c in counts.items() if c["kernel"]}
+        check(got == want, f"{what}: launches {got}, predicted {want}")
+        check(all(c["plain"] == 0 for c in counts.values()),
+              f"{what}: a plain version ran ({counts})")
+        losses = res["losses"]
+        check(all(x == x and abs(x) < 1e4 for x in losses),
+              f"{what}: non-finite loss {losses}")
+        check(losses[-1] < losses[0], f"{what}: the loss did not fall "
+              f"{losses}")
+        warm = statistics.median(res["step_s"][1:])
+        rec.update({"losses": losses, "grad_norms": res["grad_norms"],
+                    "lr": args.lr, "per_step": per_step, "launches": got,
+                    "step_ms": [1e3 * x for x in res["step_s"]],
+                    "warm_step_ms": 1e3 * warm,
+                    "tok_s": args.batch * args.seq / warm,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "n_params": sum(p.numel() for p in
+                                    T.tree_leaves(res["params"]))})
+        step_fn = make_train_step(api, AdamWConfig(lr=args.lr),
+                                  warmup_cosine(0, args.steps))
+        batch = {"tokens": torch.from_numpy(np.ascontiguousarray(
+            data[0]["tokens"][:, :args.seq])).cuda()}
+        for k, v in T.extra_inputs(cfg, args.batch, args.seq,
+                                   "cuda").items():
+            batch[k] = torch.as_tensor(data[0][k], device="cuda") \
+                if k in data[0] else v
+        t0 = time.time()
+        rec["profile"] = step_profile(torch, runtime, step_fn,
+                                      res["params"], res["opt"], batch)
+        rec["profile_s"] = time.time() - t0
+        check(rec["profile"]["k2_fwd_calls"] == per_step[K2] and
+              rec["profile"]["k2_bwd_calls"] == per_step[K2_BWD],
+              f"{what}: the profiled step's K2 calls {rec['profile']}")
+        out[arch] = rec
+        del res, params, api, batch, step_fn
         torch.cuda.empty_cache()
     return out
 
@@ -3912,69 +4081,129 @@ def _rel_l2(got, want) -> float:
         g, w = g.detach().float().cpu(), w.detach().float().cpu()
         num += float((g - w).square().sum())
         den += float(w.square().sum())
+    if den == 0.0:
+        return 0.0 if num == 0.0 else float("inf")
     return (num / den) ** 0.5
 
 
-def grad_check_phase(torch, runtime) -> dict:
-    """Loss and gradients of tconst-41m at full width (tconst, tlin,
-    full), B 1 x 512, on the card against the CPU plain path on the same
-    f32 params: f32 within ``GRAD_TOL_F32``; bf16 within
-    ``GRAD_BF16_FACTOR`` times the CPU plain path's own bf16 error, both
-    against the CPU f32 reference.  Each card run launches K2's forward
-    and backward kernels and no plain version."""
+def seeded_extras(cfg, B: int, L: int, rs, vision_at: int) -> dict:
+    """Seeded model inputs beside the tokens (numpy, float32): the
+    enc-dec's frames (B, encoder_seq, frontend_dim), or the VLM's
+    patches (B, frontend_tokens, frontend_dim) over positions
+    ``[vision_at, vision_at + frontend_tokens)``."""
     import numpy as np
+    if cfg.is_encdec:
+        return {"audio_feats": rs.randn(B, cfg.encoder_seq,
+                                        cfg.frontend_dim).astype(np.float32)}
+    if cfg.arch_type != "vlm":
+        return {}
+    mask = np.zeros((B, L), bool)
+    mask[:, vision_at:vision_at + cfg.frontend_tokens] = True
+    return {"vision_embeds": rs.randn(B, cfg.frontend_tokens,
+                                      cfg.frontend_dim).astype(np.float32),
+            "vision_mask": mask}
+
+
+def family_grad_batch(torch, cfg, B: int, L: int) -> dict:
+    """A family gradient check's batch on the CPU: seeded tokens and
+    :func:`seeded_extras` (the VLM's patches from ``VLM_VISION_AT``)."""
+    import numpy as np
+    rs = np.random.RandomState(30)
+    batch = {"tokens": rs.randint(0, cfg.vocab_size,
+                                  size=(B, L)).astype(np.int32)}
+    batch.update(seeded_extras(cfg, B, L, rs, VLM_VISION_AT))
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def grad_check(torch, runtime, cfg, batch, what: str) -> dict:
+    """Loss and gradients of ``cfg`` (float32 params, the port's seeded
+    init on the card's ``build_model``: the hybrid and the VLM draw there,
+    the others on the CPU) on ``batch`` on the card against the CPU plain
+    path on a copy of the same params: f32 within ``GRAD_TOL_F32`` (the
+    relative L2 error over all leaves and over each top-level group of
+    leaves) and the loss within 1e-4; bf16 within ``GRAD_BF16_FACTOR``
+    times the CPU plain path's own bf16 error, both against the CPU f32
+    reference.  Each card run launches K2's forward and backward kernels
+    and no plain version."""
     from repro_torch import bridge
-    from repro_torch.config import get_config
     from repro_torch.models.api import build_model
     from repro_torch.training.optim import tree_map
     from repro_torch.training.train_step import loss_and_grads
-    B, L = GRAD_CHECK_SHAPE
     threads = torch.get_num_threads()
+    card_params = bridge.stack_params(build_model(cfg, device="cuda").init(0))
+    params = tree_map(lambda p: p.cpu(), card_params)
+    card_batch = {k: v.cuda() for k, v in batch.items()}
+    res, secs = {}, {}
+    for dname in ("float32", "bfloat16"):
+        c = cfg.replace(dtype=dname)
+        t0 = time.time()
+        # bf16 on the CPU slows down with many threads
+        torch.set_num_threads(threads if dname == "float32"
+                              else min(threads, 4))
+        try:
+            res[f"cpu_{dname}"] = loss_and_grads(
+                build_model(c, device="cpu"), params, batch)
+        finally:
+            torch.set_num_threads(threads)
+        secs[f"cpu_{dname}"] = time.time() - t0
+        t0 = time.time()
+        runtime.reset_counters()
+        res[f"card_{dname}"] = loss_and_grads(
+            build_model(c, device="cuda"), card_params, card_batch)
+        torch.cuda.synchronize()
+        secs[f"card_{dname}"] = time.time() - t0
+        counts = runtime.read_counters()
+        check(all(counts[n]["kernel"] > 0 for n in (K2, K2_BWD)) and
+              all(x["plain"] == 0 for x in counts.values()),
+              f"grad check {what} {dname}: launches {counts}")
+    ref = res["cpu_float32"][1]
+    rec = {"loss_cpu_f32": float(res["cpu_float32"][0]),
+           "loss_card_f32": float(res["card_float32"][0]),
+           "loss_card_bf16": float(res["card_bfloat16"][0]),
+           "err_f32": _rel_l2(res["card_float32"][1], ref),
+           "err_bf16": _rel_l2(res["card_bfloat16"][1], ref),
+           "err_cpu_bf16": _rel_l2(res["cpu_bfloat16"][1], ref),
+           "seconds": secs}
+    rec["tol_bf16"] = GRAD_BF16_FACTOR * rec["err_cpu_bf16"]
+    check(rec["err_f32"] <= GRAD_TOL_F32, f"grad check {what}: f32 "
+          f"gradients differ from the CPU's by {rec['err_f32']} > "
+          f"{GRAD_TOL_F32}")
+    check(abs(rec["loss_card_f32"] - rec["loss_cpu_f32"]) <= 1e-4,
+          f"grad check {what}: f32 loss {rec}")
+    check(rec["err_bf16"] <= rec["tol_bf16"], f"grad check {what}: bf16 "
+          f"gradients differ from the CPU f32 ones by {rec['err_bf16']} "
+          f"> {rec['tol_bf16']}")
+    rec["err_f32_groups"] = {
+        k: _rel_l2(res["card_float32"][1][k], ref[k]) for k in ref}
+    rec["err_bf16_groups"] = {
+        k: _rel_l2(res["card_bfloat16"][1][k], ref[k]) for k in ref}
+    bad = {k: e for k, e in rec["err_f32_groups"].items()
+           if not e <= GRAD_TOL_F32}
+    check(not bad, f"grad check {what}: f32 gradients of {bad} differ "
+          f"from the CPU's by more than {GRAD_TOL_F32}")
+    del res, params, card_params, card_batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def grad_check_phase(torch, runtime) -> dict:
+    """:func:`grad_check` of tconst-41m at full width (tconst, tlin,
+    full), B 1 x 512, then of whisper-small and qwen2-vl-2b at full width
+    and the cut depths and batches of ``FAMILY_GRAD_CHECKS``."""
+    import numpy as np
+    from repro_torch.config import get_config
+    B, L = GRAD_CHECK_SHAPE
     out = {}
     for mode in TRAIN_TURNS:
         cfg = get_config("tconst-41m", attention_mode=mode,
                          dtype="float32")
         toks = torch.from_numpy(np.random.RandomState(1).randint(
             0, cfg.vocab_size, size=(B, L)))
-        params = bridge.stack_params(build_model(cfg, device="cpu").init(0))
-        card_params = tree_map(lambda p: p.cuda(), params)
-        res = {}
-        for dname in ("float32", "bfloat16"):
-            c = cfg.replace(dtype=dname)
-            torch.set_num_threads(min(threads, 4))
-            try:
-                res[f"cpu_{dname}"] = loss_and_grads(
-                    build_model(c, device="cpu"), params, {"tokens": toks})
-            finally:
-                torch.set_num_threads(threads)
-            runtime.reset_counters()
-            res[f"card_{dname}"] = loss_and_grads(
-                build_model(c, device="cuda"), card_params,
-                {"tokens": toks.cuda()})
-            torch.cuda.synchronize()
-            counts = runtime.read_counters()
-            check(all(counts[n]["kernel"] > 0 for n in (K2, K2_BWD)) and
-                  all(x["plain"] == 0 for x in counts.values()),
-                  f"grad check {mode} {dname}: launches {counts}")
-        ref = res["cpu_float32"][1]
-        rec = {"loss_cpu_f32": float(res["cpu_float32"][0]),
-               "loss_card_f32": float(res["card_float32"][0]),
-               "loss_card_bf16": float(res["card_bfloat16"][0]),
-               "err_f32": _rel_l2(res["card_float32"][1], ref),
-               "err_bf16": _rel_l2(res["card_bfloat16"][1], ref),
-               "err_cpu_bf16": _rel_l2(res["cpu_bfloat16"][1], ref)}
-        rec["tol_bf16"] = GRAD_BF16_FACTOR * rec["err_cpu_bf16"]
-        check(rec["err_f32"] <= GRAD_TOL_F32, f"grad check {mode}: f32 "
-              f"gradients differ from the CPU's by {rec['err_f32']} > "
-              f"{GRAD_TOL_F32}")
-        check(abs(rec["loss_card_f32"] - rec["loss_cpu_f32"]) <= 1e-4,
-              f"grad check {mode}: f32 loss {rec}")
-        check(rec["err_bf16"] <= rec["tol_bf16"], f"grad check {mode}: bf16 "
-              f"gradients differ from the CPU f32 ones by {rec['err_bf16']} "
-              f"> {rec['tol_bf16']}")
-        out[mode] = rec
-        del res, params, card_params
-        torch.cuda.empty_cache()
+        out[mode] = grad_check(torch, runtime, cfg, {"tokens": toks}, mode)
+    for arch, (over, fb, fl) in FAMILY_GRAD_CHECKS.items():
+        cfg = get_config(arch, dtype="float32", **over)
+        out[arch] = grad_check(torch, runtime, cfg,
+                               family_grad_batch(torch, cfg, fb, fl), arch)
     return out
 
 
@@ -4337,21 +4566,45 @@ def main() -> int:
         prof = recs[0]["profile"]
         print(f"[train] {mode} bf16 batch 8 x 1024: losses "
               f"{[round(x, 3) for x in recs[0]['losses']]}; warm step "
-              f"{[round(r['warm_step_ms'], 1) for r in recs]} ms (turns), "
+              f"{[round(r['warm_step_ms'], 1) for r in recs]} ms, "
               f"{recs[0]['tok_s']:.0f} tok/s, peak "
               f"{max(r['peak_mem_gb'] for r in recs):.2f} GB; one step: "
               f"{prof['launches']} device launches, {prof['device_ms']:.1f} "
               f"device ms, K2 fwd {prof['k2_fwd_calls']} / bwd "
               f"{prof['k2_bwd_calls']} calls, {prof['k2_fwd_ms']:.2f} / "
               f"{prof['k2_bwd_ms']:.2f} device ms")
+    # 5b. training the enc-dec and the VLM at full width
+    t_phase = time.time()
+    family_training = family_train_phase(torch, runtime)
+    phase_s["train families"] = time.time() - t_phase
+    for arch, r in family_training.items():
+        prof = r["profile"]
+        print(f"[train] {arch} bf16 {' '.join(r['argv'][2:])}: "
+              f"{r['n_params'] / 1e9:.3f} B params; losses "
+              f"{[round(x, 3) for x in r['losses']]}; launches {r['launches']}"
+              f" ({r['per_step']} a step, counted on the CPU; plain 0); warm "
+              f"step {r['warm_step_ms']:.1f} ms "
+              f"({[round(x, 1) for x in r['step_ms']]}), {r['tok_s']:.0f} "
+              f"tok/s, peak {r['peak_mem_gb']:.2f} GB; one step: "
+              f"{prof['launches']} device launches, {prof['device_ms']:.1f} "
+              f"device ms, K2 fwd {prof['k2_fwd_calls']} / bwd "
+              f"{prof['k2_bwd_calls']} calls, {prof['k2_fwd_ms']:.2f} / "
+              f"{prof['k2_bwd_ms']:.2f} device ms; load {r['load_s']:.1f}s, "
+              f"data {r['data_s']:.1f}s, train {r['train_s']:.1f}s, profile "
+              f"{r['profile_s']:.1f}s; {card}")
     t_phase = time.time()
     grads = grad_check_phase(torch, runtime)
     phase_s["train grad check"] = time.time() - t_phase
-    for mode, r in grads.items():
-        print(f"[train] {mode} gradients at B 1 x 512 vs the CPU f32 plain "
+    for what, r in grads.items():
+        over, fb, fl = FAMILY_GRAD_CHECKS.get(what, ({}, *GRAD_CHECK_SHAPE))
+        shape = f"{over or 'full depth'}, B {fb} x {fl}"
+        print(f"[train] {what} gradients at {shape} vs the CPU f32 plain "
               f"path (rel L2): f32 {r['err_f32']:.2e} (tol {GRAD_TOL_F32}), "
               f"bf16 {r['err_bf16']:.2e} (tol {r['tol_bf16']:.2e} = "
-              f"{GRAD_BF16_FACTOR} x the CPU's bf16 {r['err_cpu_bf16']:.2e})")
+              f"{GRAD_BF16_FACTOR} x the CPU's bf16 {r['err_cpu_bf16']:.2e})"
+              + f"; by group f32 "
+              f"{ {k: f'{v:.1e}' for k, v in r['err_f32_groups'].items()} }"
+              f"; { {k: round(v, 1) for k, v in r['seconds'].items()} } s")
 
     # 6. uniform batch engine (bf16): the paper's three variants on one
     # set of weights -- tconst/dense, tlin/paged and the base transformer
@@ -4427,7 +4680,8 @@ def main() -> int:
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     # whisper-small's shapes (phase 3's whisper rows; launches of the
     # phase 4g bf16 runs: dense for K1 and K2, int8 for K1-int8)
-    # and the hybrid's and the VLM's (phase 4h's bf16 runs)
+    # and the hybrid's and the VLM's (phase 4h's bf16 runs); K2's backward
+    # at the shapes of phase 5b's train steps (launches: the run's total)
     hy_dense, hy_paged = hybrid["dense/bfloat16"], hybrid["paged/bfloat16"]
     vl_int8, vl_paged = vlm["int8/bfloat16"], vlm["paged_int8/bfloat16"]
     for name, case, run in (
@@ -4443,7 +4697,11 @@ def main() -> int:
             (K2, "qwen_prefill_600", vl_int8),
             (K3, "hymba_hist", hy_paged), (K3_INT8, "qwen_hist", vl_paged),
             (K4_INTRA, "hymba_l1060", hy_dense),
-            (K4_SCAN, "hymba_l1060", hy_dense)):
+            (K4_SCAN, "hymba_l1060", hy_dense),
+            (K2_BWD, "whisper_encoder", family_training[ENCDEC]),
+            (K2_BWD, "whisper_cross", family_training[ENCDEC]),
+            (K2_BWD, "whisper_decoder", family_training[ENCDEC]),
+            (K2_BWD, "qwen_causal_1024", family_training[VLM])):
         _, src, repl, _ = KERNELS[name]
         mine = [x for x in rows if (x["kernel"], x["case"]) == (name, case)]
         r = next(x for x in mine if x["dtype"] == "bfloat16")
@@ -4463,7 +4721,8 @@ def main() -> int:
         "tiering": tiering, "workload": workloads, "encdec": encdec,
         "hybrid": hybrid, "vlm": vlm,
         "engines": engines,
-        "training": training, "grad_check": grads,
+        "training": training, "family_training": family_training,
+        "grad_check": grads,
         "phase_s": phase_s, "total_s": time.time() - t_start,
     }
     (OUT / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

@@ -13,9 +13,10 @@ override of JAX's ``examples/train_lm.py``: ``tconst``, ``tlin``, or
 Without ``--reduced`` it trains ``tconst-41m`` at full width on the card.
 Prints loss, grad norm and tok/s lines as the JAX launcher does; with
 ``--ckpt-dir`` it writes the final train state in the JAX package's
-msgpack format.  The MoE, SSM and hybrid families raise (ROADMAP Queue
-1 items 10b, 10c), so do the enc-dec (item 10) and the VLM (item 10e),
-which are served but not trained.
+msgpack format.  The enc-dec's batch carries zero ``audio_feats`` and
+a VLM's zero ``vision_embeds`` over its first ``frontend_tokens``
+positions, as the JAX launcher's does; tok/s counts the decoder tokens.
+The MoE, SSM and hybrid families raise (ROADMAP Queue 1 items 10b, 10c).
 """
 from __future__ import annotations
 
@@ -70,16 +71,6 @@ def load(args) -> tuple:
         cfg = reduced(cfg, vocab_size=args.vocab)
     if args.mode:
         cfg = cfg.replace(attention_mode=args.mode)
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: training the enc-dec family (K2's backward at "
-            f"the non-causal encoder shape) is not ported yet: ROADMAP "
-            f"Queue 1 item 10")
-    if cfg.arch_type == "vlm":
-        raise NotImplementedError(
-            f"{cfg.name}: VLM training (K2's backward at G 6, D 128, and "
-            f"the vision batch under autograd) is not ported yet: ROADMAP "
-            f"Queue 1 item 10e")
     if cfg.hybrid_parallel:
         raise NotImplementedError(
             f"{cfg.name}: hybrid training (the parallel mamba2 heads: K4 "
@@ -93,13 +84,47 @@ def load(args) -> tuple:
     return cfg, api, bridge.stack_params(api.init(args.seed))
 
 
+def extra_inputs(cfg, batch: int, seq: int, device: Any
+                 ) -> Dict[str, torch.Tensor]:
+    """The batch inputs beside ``tokens`` that the JAX launcher builds:
+    a VLM's zero ``vision_embeds`` (B, frontend_tokens, frontend_dim) in
+    the activation dtype and its ``vision_mask`` true on the first
+    ``frontend_tokens`` positions; the enc-dec's zero ``audio_feats`` (B,
+    encoder_seq, frontend_dim); nothing for the other families.
+
+    Zero patches keep the first ``frontend_tokens`` rows of a VLM exactly
+    zero through every layer (they attend only to each other), and
+    RMSNorm's backward at zero scales their gradient by ``rsqrt(eps)`` a
+    layer: at qwen2-vl-2b's depth of 28 it overflows to NaN, in JAX's
+    ``value_and_grad`` as in the port's.  Deep VLMs train on patches
+    passed in ``data`` (:func:`train`)."""
+    dtype = getattr(torch, cfg.dtype)
+    out = {}
+    if cfg.arch_type == "vlm":
+        Tv = cfg.frontend_tokens
+        out["vision_embeds"] = torch.zeros((batch, Tv, cfg.frontend_dim),
+                                           dtype=dtype, device=device)
+        mask = torch.zeros((batch, seq), dtype=torch.bool, device=device)
+        mask[:, :Tv] = True
+        out["vision_mask"] = mask
+    if cfg.is_encdec:
+        out["audio_feats"] = torch.zeros(
+            (batch, cfg.encoder_seq, cfg.frontend_dim), dtype=dtype,
+            device=device)
+    return out
+
+
 def train(cfg, api, params, args,
           data: Optional[Iterable[Dict[str, np.ndarray]]] = None,
           log: Callable[[str], None] = print) -> Dict[str, Any]:
     """Run ``args.steps`` train steps from ``params`` (JAX tree layout) on
-    ``data`` (default: the synthetic / text pipeline of ``args``).  Each
-    step's wall time ends at its loss read (a device sync).  Returns
-    params, opt, losses, grad_norms, step_s and tok_s."""
+    ``data`` (default: the synthetic / text pipeline of ``args``).  A
+    model input beside ``tokens`` that a batch of ``data`` carries (a
+    VLM's ``vision_embeds`` / ``vision_mask``, the enc-dec's
+    ``audio_feats``) is used as given, the rest as
+    :func:`extra_inputs` builds them.  Each step's wall time ends at its
+    loss read (a device sync).  Returns params, opt, losses, grad_norms,
+    step_s and tok_s."""
     opt_cfg = AdamWConfig(lr=args.lr)
     opt = init_opt_state(params, opt_cfg)
     sched = (wsd(args.steps // 20, int(args.steps * 0.85),
@@ -113,6 +138,7 @@ def train(cfg, api, params, args,
                                   text_path=args.text_path),
                        steps=args.steps)
     dev = api.device
+    extra = extra_inputs(cfg, args.batch, args.seq, dev)
     losses, gnorms, step_s = [], [], []
     t0 = time.time()
     for i, b in enumerate(data):
@@ -120,6 +146,8 @@ def train(cfg, api, params, args,
             break
         batch = {"tokens": torch.from_numpy(
             np.ascontiguousarray(b["tokens"][:, :args.seq])).to(dev)}
+        for k, v in extra.items():
+            batch[k] = torch.as_tensor(b[k], device=dev) if k in b else v
         ts = time.perf_counter()
         params, opt, m = step_fn(params, opt, batch)
         losses.append(float(m["loss"]))

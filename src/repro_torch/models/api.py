@@ -1137,9 +1137,11 @@ class ModelAPI:
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced forward of ``batch["tokens"]`` (B, L) (the
         enc-dec: and ``batch["audio_feats"]``; a VLM: and its
-        ``vision_embeds`` / ``vision_mask`` / ``positions3`` where given):
-        (logits (B, L, V) f32, aux loss); differentiable for the TConst
-        family and the dense attention LMs."""
+        ``vision_embeds`` / ``vision_mask`` where given): (logits (B, L,
+        V) f32, aux loss).  It reads what JAX's ``ModelAPI.forward``
+        reads; M-RoPE positions other than the text ones go through
+        ``LM.lm_forward(..., positions3=)``.  Differentiable for every
+        family whose ``loss`` is ported."""
         cfg = self.cfg
         tokens = batch["tokens"]
         if _is_tconst(cfg):
@@ -1149,20 +1151,16 @@ class ModelAPI:
             return ED.encdec_forward(params, tokens, batch["audio_feats"],
                                      cfg)
         return LM.lm_forward(params, tokens, cfg,
-                             positions3=batch.get("positions3"),
                              **_vision(batch, batched=True))
 
     def loss(self, params, batch: Dict[str, Any]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Next-token CE plus ``router_aux_coef`` times the aux loss:
-        (total, {"ce", "aux"}).  The MoE, SSM, hybrid, VLM and enc-dec
-        families raise (their training is not ported)."""
+        (total, {"ce", "aux"}).  Trains the TConst family, the dense
+        attention LMs, the enc-dec (``batch["audio_feats"]``) and the VLM
+        (``vision_embeds`` / ``vision_mask``); the MoE (ROADMAP Queue 1
+        item 10b), SSM and hybrid (item 10c) families raise."""
         cfg = self.cfg
-        if cfg.is_encdec:
-            raise NotImplementedError(
-                f"{cfg.name}: enc-dec training (K2's backward at the "
-                f"non-causal encoder shape) is not ported yet: ROADMAP "
-                f"Queue 1 item 10")
         if cfg.is_moe:
             raise NotImplementedError(
                 f"{cfg.name}: MoE training (the router aux loss through "
@@ -1174,11 +1172,6 @@ class ModelAPI:
                 f"backward; JAX differentiates its scan; the hybrid's "
                 f"parallel mamba2 heads need it too): ROADMAP Queue 1 "
                 f"item 10c")
-        if cfg.arch_type == "vlm":
-            raise NotImplementedError(
-                f"{cfg.name}: VLM training (K2's backward at G 6, D 128, "
-                f"and the vision batch under autograd) is not ported yet: "
-                f"ROADMAP Queue 1 item 10e")
         logits, aux = self.forward(params, batch)
         tokens = batch["tokens"]
         ce = cross_entropy(logits[:, :-1], tokens[:, 1:])

@@ -30,8 +30,18 @@ the port's kernels compute.
 The cross-attention query is projected with the ``cross`` block's own
 ``wq`` and has no RoPE.  The serving entry points run under
 ``torch.no_grad``; the decode step updates the cache IN PLACE, and rows
-that are not ``live`` keep every entry bit-identical.  Training the
-enc-dec is not ported (ROADMAP Queue 1 item 10).
+that are not ``live`` keep every entry bit-identical.
+
+Training: :func:`encdec_forward` (:func:`encode`, then
+:func:`decode_train`) is differentiable and writes nothing in place.
+Its every attention goes through ``ops.flash_attention``, which under
+autograd is K2 with its backward kernel: the encoder's non-causal
+``encoder_seq`` square, the decoder's causal self-attention and its
+cross-attention of L queries over ``encoder_seq`` keys.  LayerNorm runs
+in f32 (``F.layer_norm``), the GELU MLP, the frontend projection and
+the tied head are einsums, so ``ModelAPI.loss`` differentiates every
+leaf: ``frontend_proj`` and ``enc_pos`` through the encoder, each
+decoder layer's ``cross`` ``wk`` / ``wv`` through the memory.
 """
 from __future__ import annotations
 

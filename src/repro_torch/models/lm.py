@@ -24,11 +24,12 @@ beside ``k`` / ``v`` over the ``n_layers - n_dense`` MoE layers.  Layers
 are kept unstacked, one dict per layer in a list (the JAX package stacks
 them for ``jax.lax.scan``; :func:`repro_torch.bridge.lm_params_from_jax`
 unstacks them).  The teacher-forced :func:`lm_forward` is
-differentiable for the dense attention LMs (training: K2 with its
-backward); the serving entry points run under ``torch.no_grad``.
-Training the MoE, SSM, hybrid and VLM families is not ported
-(``ModelAPI.loss`` refuses them: ROADMAP Queue 1 items 10b, 10c and
-10e).
+differentiable for the dense attention LMs and the VLM (training: K2
+with its backward; a VLM's gradient reaches ``frontend_proj`` through
+the marked positions only, as JAX's does); the serving entry points run
+under ``torch.no_grad``.  Training the MoE, SSM and hybrid families is
+not ported (``ModelAPI.loss`` refuses them: ROADMAP Queue 1 items 10b
+and 10c).
 
 Attention runs on the port's kernels: every multi-query attention
 (forward, prefill) is K2, causal with the layer's window; the decode step

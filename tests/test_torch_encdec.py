@@ -26,8 +26,15 @@ config shares its weights).
   hit (a session with extras has no admission key).
 * A session without ``audio_feats`` raises JAX's message; the bridge
   round-trips through ``params_to_jax``; ``input_specs`` equal JAX's;
-  training is refused (ROADMAP Queue 1 item 10); the ``serve`` Engine
-  path on the CPU, and ``--sessions`` failing as JAX's launcher does.
+  the ``serve`` Engine path on the CPU, and ``--sessions`` failing as
+  JAX's launcher does.
+* Training: the loss and every gradient leaf against
+  ``jax.value_and_grad(api.loss)`` with seeded audio, ``full`` and
+  ``sliding`` (1e-5 / 1e-4 of the leaf's max); one ``make_train_step``
+  step at ``n_micro`` 2 against JAX's (eps 1e-5); the train launcher on
+  the CPU, its checkpoint byte-equal to JAX's ``save_train_state`` of
+  the same state, both ways; ``loss`` and ``launch.train.load`` take the
+  family (K2's backward on the card: ``test_torch_flash_bwd.py``).
 * ``cuda``-marked: each layout on the card against the CPU plain path,
   one-shot and chunked admission, launch counts (skipped without one).
 """
@@ -49,7 +56,10 @@ try:    # the GPU machine has no JAX: only the cuda test runs there
     from repro.models import layouts as JLT
     from repro.serving.scheduler import SlotScheduler as JScheduler
     from repro.serving.session import Session as JSession
-    from torch_parity import jax_to_numpy, port_cfg
+    from torch_parity import (assert_loss_grads_match_jax,
+                              assert_train_cli_checkpoint_equals_jax,
+                              assert_train_step_matches_jax, jax_to_numpy,
+                              port_cfg)
 except ImportError:
     jax = None
 from repro_torch import bridge, runtime
@@ -444,18 +454,60 @@ def test_input_specs_and_seeded_init_shapes():
         assert a.shape == b.shape and a.dtype == b.dtype
 
 
-def test_training_is_refused_with_its_item():
-    cfg = reduced(get_config("whisper_small"), dtype="float32")
-    api = build_model(cfg, device="cpu")
-    batch = {"tokens": torch.ones((1, 4), dtype=torch.int32),
-             "audio_feats": torch.zeros((1, cfg.encoder_seq,
-                                         cfg.frontend_dim))}
-    with pytest.raises(NotImplementedError, match="item 10"):
-        api.loss(api.init(0), batch)
+def test_trains_through_loss_and_the_launcher():
+    """``ModelAPI.loss`` takes the enc-dec's batch and ``launch.train.load``
+    the arch: its params in JAX's tree layout (the encoder's and the
+    decoder's layers stacked on a leading axis), a finite loss whose
+    gradient reaches the encoder."""
     args = train.build_parser().parse_args(
         ["--arch", "whisper_small", "--reduced", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        train.load(args)
+    cfg, api, params = train.load(args)
+    assert params["enc_layers"]["attn"]["wq"].shape == (
+        cfg.encoder_layers, cfg.d_model, cfg.n_heads, cfg.resolved_head_dim)
+    assert params["dec_layers"]["cross"]["wk"].shape[0] == cfg.n_layers
+    batch = {"tokens": torch.ones((1, 4), dtype=torch.int32),
+             **train.extra_inputs(cfg, 1, 4, "cpu")}
+    assert sorted(batch) == ["audio_feats", "tokens"]
+    assert batch["audio_feats"].shape == (1, cfg.encoder_seq,
+                                          cfg.frontend_dim)
+    live = bridge.unstack_params(params)
+    w = live["enc_layers"][0]["attn"]["wq"].requires_grad_(True)
+    loss, parts = api.loss(live, batch)
+    assert torch.isfinite(loss) and float(parts["aux"]) == 0.0
+    (g,) = torch.autograd.grad(loss, [w])
+    assert bool(g.abs().sum() > 0)
+
+
+def _train_batch(cfg, B, L, seed):
+    rs = np.random.RandomState(seed)
+    return {"tokens": rs.randint(0, cfg.vocab_size,
+                                 size=(B, L)).astype(np.int32),
+            "audio_feats": _audio(cfg, seed, n=B)}
+
+
+@pytest.mark.parametrize("mode", ["full", "sliding"])
+def test_loss_and_gradients_match_jax(mode):
+    """Reduced whisper (``sliding``: window 8 on the decoder's
+    self-attention, 20 tokens) with seeded audio."""
+    _need_jax()
+    jcfg, jp, cfg, p = pair(mode)
+    assert_loss_grads_match_jax(JAPI.build_model(jcfg), jp,
+                                build_model(cfg, device="cpu"), p,
+                                _train_batch(cfg, 2, 20, 5), mode)
+
+
+def test_train_step_n_micro_2_matches_jax():
+    _need_jax()
+    jcfg, jp, cfg, p = pair()
+    assert_train_step_matches_jax(JAPI.build_model(jcfg), jp,
+                                  build_model(cfg, device="cpu"), p,
+                                  _train_batch(cfg, 4, 12, 6), "whisper")
+
+
+def test_train_cli_checkpoint_equals_jax(tmp_path, capsys):
+    _need_jax()
+    assert_train_cli_checkpoint_equals_jax("whisper_small", pair()[1],
+                                           tmp_path, capsys)
 
 
 def test_serve_engine_cli_on_cpu(capsys):

@@ -10,7 +10,9 @@ bf16 kernels' rounding points (P and dS rounded to bf16 once each, f32
 sums) is held against ``jax.vjp`` in f32 and against the plain backward
 within the card's bf16 tolerance.  The CUDA kernels (the forward's
 ``lse`` and the three-launch backward) are held against the plain
-versions by the ``cuda``-marked test, which skips without a GPU.
+versions by the ``cuda``-marked tests, which skip without a GPU: the
+kernels' own edges, and the shapes training whisper-small and
+qwen2-vl-2b gives them.
 """
 import functools
 
@@ -57,6 +59,9 @@ def _positions(kind, B, Lq, Lk):
         p = np.tile(np.arange(Lq, dtype=np.int32), (B, 1))
         return p, p.copy()
     kp = np.tile(np.arange(Lk, dtype=np.int32), (B, 1))
+    if kind == "arange":
+        # every key live, Lq != Lk: a cross-attention's positions
+        return (np.tile(np.arange(Lq, dtype=np.int32), (B, 1)), kp)
     if kind == "negative":
         # row 0: queries at -4 .. Lq-5 (the first four see no key: fully
         # masked rows); row 1: every key dead (a fully masked batch row)
@@ -313,3 +318,54 @@ def test_cuda_bwd_vs_plain(dtype, tol):
             scale = max(1.0, w.float().abs().max().item())
             err = (g.float() - w.float()).abs().max().item()
             assert err <= tol * scale, (case, name, err, scale)
+
+
+# the shapes a full-width train step gives K2's backward, at B 2:
+# whisper-small's encoder (1500 frames, non-causal, every key live, a
+# ragged last tile of every key-tile size), its decoder's cross-attention
+# (448 queries over the 1500 frames) and causal self-attention (12 heads
+# of 64, G 1), and qwen2-vl-2b's causal 1024 at G 6, D 128
+TRAINING_CASES = {
+    # B, Lq, Lk, H, KV, D, causal, window, softcap, positions
+    "whisper_encoder": (2, 1500, 1500, 12, 12, 64, False, 0, 0.0, "square"),
+    "whisper_cross": (2, 448, 1500, 12, 12, 64, False, 0, 0.0, "arange"),
+    "whisper_decoder": (2, 448, 448, 12, 12, 64, True, 0, 0.0, "square"),
+    "qwen2_vl_g6_d128": (2, 1024, 1024, 12, 2, 128, True, 0, 0.0, "square"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("name", sorted(TRAINING_CASES))
+def test_cuda_bwd_at_training_shapes(name, dtype, tol):
+    """dq, dk, dv within ``tol`` x max(1, max |plain|) of the plain
+    backward fed the kernel's own o and lse; o and lse against the plain
+    forward's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no "
+                    "CPU mode")
+    dev = torch.device("cuda")
+    B, Lq, Lk, H, KV, D, causal, window, cap, kind = TRAINING_CASES[name]
+    rs = np.random.RandomState(len(name))
+    q, k, v, do = (torch.from_numpy(rs.randn(*s).astype(np.float32))
+                   .to(dev, dtype) for s in
+                   ((B, Lq, H, D), (B, Lk, KV, D), (B, Lk, KV, D),
+                    (B, Lq, H, D)))
+    qp, kp = (_t(a).to(dev) for a in _positions(kind, B, Lq, Lk))
+    flags = (causal, window, cap)
+    o, lse = FA.flash_attention_cuda(q, k, v, qp, kp, *flags,
+                                     return_lse=True)
+    o_p, lse_p = FA.flash_attention_plain(q, k, v, qp, kp, *flags,
+                                          return_lse=True)
+    torch.cuda.synchronize()
+    assert (o.float() - o_p.float()).abs().max().item() <= tol, name
+    assert torch.allclose(lse, lse_p, rtol=1e-5, atol=tol), name
+    got = FA.flash_attention_bwd_cuda(q, k, v, qp, kp, o, lse, do, *flags)
+    want = FA.flash_attention_bwd_plain(q, k, v, qp, kp, o, lse, do, *flags)
+    torch.cuda.synchronize()
+    for part, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        scale = max(1.0, w.float().abs().max().item())
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= tol * scale, (name, part, err, scale)

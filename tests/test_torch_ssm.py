@@ -306,12 +306,12 @@ def test_decode_protocol_prefill_into_slot_equals_batch_prefill():
 
 # every decoder-only family is served; what is not ported is the
 # training of the SSM family and of those that hold its mixer (the hybrid,
-# item 10c) and of the VLM (item 10e)
+# item 10c) and of the MoE family (item 10b)
 @pytest.mark.parametrize("arch,over,item", [
     ("mamba2_130m", {}, "item 10c"),
     ("mamba2_130m", {"arch_type": "hybrid", "hybrid_parallel": True,
                      "n_kv_heads": 2}, "item 10c"),
-    ("qwen2_vl_2b", {}, "item 10e")])
+    ("deepseek_moe_16b", {}, "item 10b")])
 def test_unported_lm_families_raise_with_their_item(arch, over, item):
     cfg = reduced(get_config(arch), dtype="float32", **over)
     api = build_model(cfg, device="cpu")

@@ -19,8 +19,14 @@ carried across by ``bridge.lm_params_from_jax``.
   page; with the same image they do.
 * Greedy ``SlotScheduler`` streams with per-session vision inputs equal
   the JAX scheduler's.
-* ``input_specs`` equal JAX's; training is refused (ROADMAP Queue 1 item
-  10e); the ``serve`` Engine and sessions paths on the CPU.
+* ``input_specs`` equal JAX's; the ``serve`` Engine and sessions paths
+  on the CPU.
+* Training: the loss and every gradient leaf against
+  ``jax.value_and_grad(api.loss)`` with seeded patches over a marked
+  span (1e-5 / 1e-4 of the leaf's max); one ``make_train_step`` step at
+  ``n_micro`` 2 against JAX's (eps 1e-5); the train launcher on the CPU,
+  its checkpoint byte-equal to JAX's ``save_train_state`` of the same
+  state, both ways; ``loss`` and ``launch.train.load`` take the VLM.
 """
 import functools
 
@@ -48,7 +54,10 @@ from repro_torch.models.api import build_decode, build_model
 from repro_torch.serving.scheduler import SlotScheduler
 from repro_torch.serving.session import Session
 from test_torch_lm import _adopt_jax_codes, _code_flips
-from torch_parity import jax_to_numpy, port_cfg, t
+from torch_parity import (assert_loss_grads_match_jax,
+                          assert_train_cli_checkpoint_equals_jax,
+                          assert_train_step_matches_jax, jax_to_numpy,
+                          port_cfg, t)
 
 torch.set_num_threads(1)
 LAYOUTS = ("dense", "int8", "paged", "paged_int8")
@@ -144,10 +153,13 @@ def test_forward_and_prefill_with_vision_vs_jax():
     pl, _ = LM.lm_forward(params, t(toks), cfg, positions3=t(p3),
                           vision_embeds=t(emb), vision_mask=t(mask))
     _close(pl, jl, 1e-4, "lm_forward")
+    # ModelAPI.forward reads what JAX's reads: no positions3
     api = build_model(cfg, device="cpu")
     fl, _ = api.forward(params, {"tokens": t(toks), "positions3": t(p3),
                                  "vision_embeds": emb, "vision_mask": mask})
-    _close(fl, pl, 0.0, "ModelAPI.forward")
+    tl, _ = LM.lm_forward(params, t(toks), cfg, vision_embeds=t(emb),
+                          vision_mask=t(mask))
+    _close(fl, tl, 0.0, "ModelAPI.forward")
     jlg, jc = JLM.lm_prefill(jparams, jnp.asarray(toks), jcfg, 32,
                              vision_embeds=jnp.asarray(emb),
                              vision_mask=jnp.asarray(mask))
@@ -260,7 +272,11 @@ def test_scheduler_streams_with_vision_equal_jax_scheduler():
     assert got == ref
 
 
-def test_input_specs_equal_jax_and_training_is_refused():
+def test_input_specs_equal_jax_and_the_vlm_trains():
+    """``input_specs`` equal JAX's; ``launch.train.load`` takes the arch
+    and its batch (JAX launcher's: zero patches over the first Tv
+    positions) gives ``ModelAPI.loss`` a finite loss; ``train`` uses the
+    patches a batch of its data carries."""
     jcfg, _, cfg, params = pair()
     api = build_model(cfg, device="cpu")
     shape = get_shape("train_4k")
@@ -270,12 +286,62 @@ def test_input_specs_equal_jax_and_training_is_refused():
     for k, v in got.items():
         assert tuple(v.shape) == want[k].shape, k
         assert str(v.dtype).split(".")[-1] == str(want[k].dtype), k
-    with pytest.raises(NotImplementedError, match="item 10e"):
-        api.loss(params, {"tokens": torch.zeros((1, 8), dtype=torch.int32)})
     args = train.build_parser().parse_args(
         ["--arch", "qwen2_vl_2b", "--reduced", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 10e"):
-        train.load(args)
+    tcfg, tapi, tparams = train.load(args)
+    extra = train.extra_inputs(tcfg, 2, 12, "cpu")
+    assert extra["vision_embeds"].shape == (2, tcfg.frontend_tokens,
+                                            tcfg.frontend_dim)
+    assert extra["vision_embeds"].dtype == getattr(torch, tcfg.dtype)
+    assert extra["vision_mask"].sum(1).tolist() == [tcfg.frontend_tokens] * 2
+    assert bool(extra["vision_mask"][:, :tcfg.frontend_tokens].all())
+    toks = torch.ones((2, 12), dtype=torch.int32)
+    zero_loss, _ = tapi.loss(bridge.unstack_params(tparams),
+                             {"tokens": toks, **extra})
+    assert torch.isfinite(zero_loss)
+    # patches a batch of ``data`` carries are used as given
+    v = _train_batch(tcfg, 2, 12, 7)
+    want, _ = tapi.loss(bridge.unstack_params(tparams),
+                        {"tokens": toks, **{k: t(v[k]) for k in (
+                            "vision_embeds", "vision_mask")}})
+    args.steps, args.batch, args.seq = 1, 2, 12
+    got = train.train(tcfg, tapi, tparams, args,
+                      data=[{"tokens": toks.numpy(),
+                             "vision_embeds": v["vision_embeds"],
+                             "vision_mask": v["vision_mask"]}],
+                      log=lambda _: None)["losses"]
+    assert got == [float(want)] and float(want) != float(zero_loss)
+
+
+def _train_batch(cfg, B, L, seed):
+    """Seeded tokens and, for each row, seeded patches over a marked span
+    of ``frontend_tokens`` positions from ``1 + 2 * row``."""
+    rs = np.random.RandomState(seed)
+    v = [_vision(cfg, seed + i, L, offset=1 + 2 * i) for i in range(B)]
+    return {"tokens": rs.randint(0, cfg.vocab_size,
+                                 size=(B, L)).astype(np.int32),
+            "vision_embeds": np.stack([x["vision_embeds"] for x in v]),
+            "vision_mask": np.stack([x["vision_mask"] for x in v])}
+
+
+def test_loss_and_gradients_match_jax():
+    jcfg, jparams, cfg, params = pair()
+    batch = _train_batch(cfg, 2, 20, 5)
+    assert_loss_grads_match_jax(JAPI.build_model(jcfg), jparams,
+                                build_model(cfg, device="cpu"), params,
+                                batch, "qwen2-vl")
+
+
+def test_train_step_n_micro_2_matches_jax():
+    jcfg, jparams, cfg, params = pair()
+    assert_train_step_matches_jax(JAPI.build_model(jcfg), jparams,
+                                  build_model(cfg, device="cpu"), params,
+                                  _train_batch(cfg, 4, 16, 6), "qwen2-vl")
+
+
+def test_train_cli_checkpoint_equals_jax(tmp_path, capsys):
+    assert_train_cli_checkpoint_equals_jax("qwen2_vl_2b", pair()[1],
+                                           tmp_path, capsys)
 
 
 def test_serve_engine_and_sessions_on_the_cpu():

@@ -178,3 +178,99 @@ def assert_tree_close(port_np, jax_np, rel, atol=0.0, what=""):
         err = float(np.abs(a.astype(np.float32) - b).max())
         bound = atol + rel * float(np.abs(b).max())
         assert err <= bound, (what, name, err, bound)
+
+
+# ---------------------------------------------------------------------------
+# training a family against JAX (the enc-dec and the VLM files)
+# ---------------------------------------------------------------------------
+
+STEP_LR = 1e-2
+
+
+def assert_loss_grads_match_jax(japi, jparams, api, params, batch, what):
+    """The port's ``api.loss`` and every gradient leaf at ``params`` (the
+    port's unstacked params) against ``jax.value_and_grad(japi.loss)`` on
+    the numpy ``batch``: the loss within 1e-5, each leaf within 1e-4 of
+    its largest |entry| (``test_torch_train.py``'s tolerances)."""
+    from repro_torch.training.train_step import loss_and_grads
+    (want, _), jgrads = jax.value_and_grad(japi.loss, has_aux=True)(
+        jparams, {k: jax.numpy.asarray(v) for k, v in batch.items()})
+    loss, grads = loss_and_grads(api, bridge.stack_params(params),
+                                 {k: torch.from_numpy(v)
+                                  for k, v in batch.items()})
+    assert abs(float(loss) - float(want)) <= 1e-5, (what, float(loss),
+                                                    float(want))
+    assert_tree_close(bridge.params_to_jax(bridge.unstack_params(grads)),
+                      jax_to_numpy(jgrads), rel=1e-4, what=what)
+
+
+def assert_train_step_matches_jax(japi, jparams, api, params, batch, what,
+                                  n_micro=2):
+    """One ``make_train_step`` step at ``n_micro`` against JAX's on the
+    same numpy ``batch`` (every key cut into microbatches on axis 0), at
+    ``test_torch_train_step.py``'s eps 1e-5 and tolerances: the loss
+    within 1e-5, params within 1e-5, m and v within 1e-4 of the leaf's
+    largest |entry|."""
+    from repro.training import optim as JO
+    from repro.training import schedules as JS
+    from repro.training.train_step import make_train_step as j_step
+    from repro_torch.training import optim as PO
+    from repro_torch.training import schedules as PS
+    from repro_torch.training.train_step import make_train_step
+    jcfg = JO.AdamWConfig(lr=STEP_LR, eps=1e-5)
+    pcfg = PO.AdamWConfig(lr=STEP_LR, eps=1e-5)
+    stacked = bridge.stack_params(params)
+    jp, jstate, jm = jax.jit(j_step(japi, jcfg, JS.warmup_cosine(0, 4),
+                                    n_micro=n_micro))(
+        jparams, JO.init_opt_state(jparams, jcfg),
+        {k: jax.numpy.asarray(v) for k, v in batch.items()})
+    pp, pstate, pm = make_train_step(api, pcfg, PS.warmup_cosine(0, 4),
+                                     n_micro=n_micro)(
+        stacked, PO.init_opt_state(stacked, pcfg),
+        {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert abs(float(jm["loss"]) - float(pm["loss"])) <= 1e-5, what
+    assert float(pm["lr_scale"]) == float(jm["lr_scale"]) == 1.0
+    assert_tree_close(bridge.params_to_jax(bridge.unstack_params(pp)),
+                      jax_to_numpy(jp), rel=0.0, atol=1e-5,
+                      what=f"{what} params")
+    so = bridge.opt_state_to_jax(pstate)
+    assert int(so["step"]) == int(jstate.step) == 1
+    for name in ("m", "v"):
+        assert_tree_close(so[name], jax_to_numpy(getattr(jstate, name)),
+                          rel=1e-4, what=f"{what} {name}")
+
+
+def assert_train_cli_checkpoint_equals_jax(arch, jparams, tmp_path,
+                                           capsys):
+    """``launch.train.main`` on the CPU, reduced, 2 steps, with
+    ``--ckpt-dir``: two loss lines; JAX's ``restore_pytree`` reads the
+    file into ``jparams``' structure and JAX's ``save_train_state`` of
+    what it read writes the same bytes; the port reads that file back
+    and writes the same bytes again."""
+    from repro.training import checkpoint as JCK
+    from repro.training import optim as JO
+    from repro_torch.launch import train
+    from repro_torch.training import checkpoint as PCK
+    from repro_torch.training import optim as PO
+    argv = ["--arch", arch, "--reduced", "--steps", "2", "--batch", "2",
+            "--seq", "16", "--log-every", "1", "--device", "cpu",
+            "--ckpt-dir", str(tmp_path / "port")]
+    assert train.main(argv) == 0
+    out = capsys.readouterr().out
+    assert sum("loss=" in line for line in out.splitlines()) == 2, out
+    path = tmp_path / "port" / "ckpt_00000002.msgpack"
+    template = {"params": jparams,
+                "opt": JO.init_opt_state(jparams, JO.AdamWConfig())._asdict()}
+    back = JCK.restore_pytree(template, str(path))
+    assert int(back["opt"]["step"]) == 2
+    jpath = JCK.save_train_state(back["params"], back["opt"], 2,
+                                 str(tmp_path / "jax"))
+    assert open(jpath, "rb").read() == path.read_bytes()
+    args = train.build_parser().parse_args(argv)
+    params = train.load(args)[2]
+    opt = PO.init_opt_state(params, PO.AdamWConfig(lr=args.lr))
+    state = PCK.restore_pytree({"params": params, "opt": opt._asdict()},
+                               jpath)
+    again = PCK.save_train_state(state["params"], PO.OptState(**state["opt"]),
+                                 2, str(tmp_path / "again"))
+    assert open(again, "rb").read() == path.read_bytes()
