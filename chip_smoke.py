@@ -2,6 +2,7 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py --grad-floors   # GRAD_BF16_FLOOR, measured
 
 Phases (any failure raises, so the exit code is non-zero):
 
@@ -56,11 +57,14 @@ Phases (any failure raises, so the exit code is non-zero):
    admission, a 128-row chunk from a carried state).  qwen2-vl-2b's (12
    heads over 2 KV heads of 128: G 6): K1, K1-int8, K3 and K3-int8 at hi
    500 and 600, K2's causal prefill of 600 and a chunk of 128 at 512.
-   Prints the kernel's,
-   the plain version's and ``F.scaled_dot_product_attention``'s times (a
-   yardstick only, with the gather or dequantisation it needs; the port
-   never calls it; no one PyTorch call computes K4) and the least time
-   the card could take.  K2's backward (``flash_attention_bwd``) and its
+   Prints, for the bf16 rows, the kernel's and
+   ``F.scaled_dot_product_attention``'s times (a yardstick only, with the
+   gather or dequantisation it needs; the port never calls it; no one
+   PyTorch call computes K4), and for every row the least time the card
+   could take; an f32 row is compared, not timed (since PR 31; K4's
+   backward rows are timed in both), and the plain version runs once for
+   the comparison and is timed only for the bf16 rows of the kernels line
+   (``LINE_CASES``: its time is no yardstick).  K2's backward (``flash_attention_bwd``) and its
    forward's row log-sum-exp, in bf16 and f32, at the shapes a
    tconst-41m train step at batch 8 x 1024 gives them: the compress
    (dead keys), the context self-attention, the restore, the generation
@@ -71,12 +75,21 @@ Phases (any failure raises, so the exit code is non-zero):
    shapes phase 5b's train steps give them: whisper-small's encoder
    (B 8, 1500 x 1500, non-causal, every key live), cross-attention (448
    x 1500) and causal decoder (448; 12 heads of 64, G 1), qwen2-vl-2b's
-   causal 1024 at B 2 (12 heads over 2 of 128: G 6, D 128);
-   dq, dk and dv against the plain backward (TOL times max(1, max
-   |plain|)), with SDPA's autograd backward as the yardstick.  Then the
-   device launches one call of K1, K1-int8, K2, K3, K3-int8 and each K4
-   launch makes (torch.profiler): one each, and K2, K1 and K3 at
-   deepseek's shapes too; K2's backward three (delta, dk/dv, dq).
+   causal 1024 at B 2 (12 heads over 2 of 128: G 6, D 128), and phase
+   5c's hymba-1.5b causal 1024 under its window of 1024 (25 over 5 of 64:
+   G 5); dq, dk and dv against the plain backward (TOL times max(1, max
+   |plain|)), with SDPA's autograd backward as the yardstick.  K4's
+   backward (``ssd_scan_bwd``, three launches: the reverse scan over
+   chunks, the per-chunk terms, the sums over heads) at phase 5c's shapes
+   -- mamba2-130m B 8 x 1024 (H 24, P 64, N 128), the same heads at a
+   ragged L 1000 from an initial state with a nonzero final-state
+   cotangent, hymba-1.5b B 2 x 1024 (H 25, N 16) -- in f32 and bf16:
+   every gradient (dx, ddt, da, db, dc, dinit) within TOL times max(1,
+   max |plain|) of autograd through the plain mirror of the tiling, and
+   the forward's saved chunk-entry states against the plain scan's.
+   Then the device launches one call of K1, K1-int8, K2, K3, K3-int8 and
+   each K4 launch makes (torch.profiler): one each, and K2, K1 and K3 at
+   deepseek's shapes too; K2's and K4's backwards three each.
 4. Serve ``tconst-41m`` at full width with the port's seeded init
    (``--sessions 4 --prompt-len 600 --gen 192 --chunk 32``), each run's
    launch counters reset before the scheduler and read right after it:
@@ -107,15 +120,17 @@ Phases (any failure raises, so the exit code is non-zero):
    its f32 streams are held to the twin run's (held to their solo runs)
    and its logits to the twin's CPU reference (``TWIN_LAYOUT``).  Then the MoE
    family: deepseek-moe-16b (16.4 B parameters, drawn on the card in bf16
-   from a seed) at full width and depth on dense (K1, K2) and paged (K2,
-   K3, the under-sized pool) in bf16 (``--gen 64``; finite logits), and
+   from a seed) at full width and 8 of 28 layers (since PR 31) on dense
+   (K1, K2) and paged (K2, K3, the under-sized pool) in bf16
+   (``--gen 64``; finite logits), and
    at full width and depth 3 (the dense layer and two MoE layers) in f32
    (streams equal their solo runs); at that depth its f32 and bf16 logits
    are held against one CPU f32 reference, with the count of routed
    tokens whose expert set differs.  Then deepseek-moe-16b in tconst mode
    (MoE FFNs inside the TConst core: 7 blocks of depth 4, 16.9 B
-   parameters) on dense (K1, K2): bf16 at full width and depth, f32 at 8
-   layers (2 blocks), both at ``--prompt-len 700 --gen 96`` so every
+   parameters) on dense (K1, K2): bf16 at full width and 8 layers (2
+   blocks; 28 before PR 31), f32 at 8 layers, both at
+   ``--prompt-len 700 --gen 96`` so every
    session crosses a resync; f32 streams equal their solo runs, both
    dtypes' logits at 8 layers against one CPU f32 reference.  Prints one
    bf16 slot's KV bytes at max_len for tconst, the base, smollm and
@@ -270,18 +285,28 @@ Phases (any failure raises, so the exit code is non-zero):
    backward launched exactly as often as a CPU run of the counters at
    reduced width and full depth predicts a step, nothing else, no plain
    version; a finite loss that falls; warm step ms, tok/s, peak memory
-   and one profiled step.  Then loss and gradients at full width on the card against the
-   CPU plain path on the same f32 params (tconst-41m B 1 x 512 in its
-   three modes; whisper-small at 2 + 2 layers, B 1, 128 tokens over 1500
-   seeded frames; qwen2-vl-2b at 2 layers, B 1, 320 tokens with 256
-   seeded patches): f32 within a relative L2 error of 1e-4 (over all
-   leaves and each top-level group of them), bf16 within 3x the CPU
-   plain path's own bf16 error.
+   and one profiled step.  5c, the same way: mamba2-130m (batch 8 x
+   1024) and hymba-1.5b (batch 2 x 1024) at full width and depth, and
+   deepseek-moe-16b at full width and 3 of its 28 layers (batch 2 x 512;
+   float32 master weights): K4's two forward launches and its backward,
+   and K2's forward and backward, each exactly TRAIN_STEPS times the CPU
+   count a step, nothing else, no plain version.  Then loss and
+   gradients at full width on the card against the CPU plain path on the
+   same f32 params (tconst-41m B 1 x 512 in its three modes; whisper-small
+   at 2 + 2 layers, B 1, 128 tokens over 1500 seeded frames; qwen2-vl-2b
+   at 2 layers, B 1, 320 tokens with 256 seeded patches; f32 only:
+   mamba2-130m at 2 layers, B 1 x 500, hymba-1.5b at 2 layers, B 1 x 1100
+   past its window, deepseek-moe-16b at 2 layers, B 1 x 128, with the
+   count of routed tokens whose expert set differs between the card and
+   the CPU printed first): f32 within a relative L2 error of 1e-4 (over
+   all leaves and each top-level group of them), bf16 within 3x the CPU
+   plain path's own bf16 error (``GRAD_BF16_FLOOR``, since PR 31 read
+   rather than measured in each run; ``--grad-floors`` measures it).
 6. Uniform-batch Engine (``--batch 4 --prompt-len 1024 --gen 264``): the
    paper's three variants on one set of weights -- tconst/dense,
-   tlin/paged and the base transformer (full/dense) -- in one call, in
-   turns (A, B, C, C, B, A): the mean cache-hit step (O(1) against O(N))
-   and resync times of each run.
+   tlin/paged and the base transformer (full/dense) -- in one call, one
+   run each: the mean cache-hit step (O(1) against O(N)) and resync
+   times of each run.
 7. Prints the per-kernel JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.  Details go to
    ``build/chip_smoke.json``.
@@ -354,7 +379,8 @@ DEEPSEEK_CHECK_DEPTH = 3
 # the bf16 runs of the families without a resync (the attention LMs and
 # mamba2) at full depth: gen 96 (three chunks), so each
 # session but the last decodes while the next is admitted, and a paged
-# run's third session waits for pages (12 + 12 of 31 held).  Their
+# run's third session waits for pages (12 + 12 of 31 held; at gen 64 it
+# does not wait).  Their
 # eager steps are host-bound (30-70 ms a step at full depth): gen 320
 # made smollm's two runs alone ~110 s of the smoke on a slow host
 LM_BF16_ARGS = ["--gen", "96"]
@@ -365,7 +391,7 @@ DEEPSEEK_BF16_ARGS = ["--gen", "64"]
 DEEPSEEK_BF16_POOL = ["--pool-pages", "23"]
 LM_MODES = ("smollm", "full", "mamba2", "deepseek")
 # deepseek in tconst mode (MoE FFNs inside the TConst core: 7 blocks of
-# depth 4, every layer MoE): bf16 at full depth; f32, its streams and both
+# depth 4, every layer MoE): bf16 at 2 blocks; f32, its streams and both
 # dtypes' logits at 2 blocks (8 layers: a restore feeds the next block;
 # 20.5 GB of f32 weights), with F32_ARGS in both dtypes, so every session
 # crosses a resync
@@ -411,6 +437,7 @@ K1, K1_INT8, K2 = "decode_attention", "decode_attention_int8", \
 K3, K3_INT8 = "paged_decode_attention", "paged_decode_attention_int8"
 K2_BWD = "flash_attention_bwd"
 K4_INTRA, K4_SCAN = "ssd_intra_chunk", "ssd_chunk_scan"
+K4_BWD = "ssd_scan_bwd"
 # (mode, layout, the kernels the run launches -- and no other); mode
 # "mamba2" is the SSM family (arch mamba2_130m, no attention mode)
 SESSION_RUNS = [
@@ -425,8 +452,9 @@ SESSION_RUNS = [
     ("smollm", "paged", (K2, K3)),
     ("full", "int8", (K1_INT8, K2)),
     ("full", "paged_int8", (K2, K3_INT8)),
-    # the MoE family: deepseek-moe-16b at full width, bf16 at full depth
-    # and f32 at DEEPSEEK_CHECK_DEPTH (routing and expert GEMMs PyTorch)
+    # the MoE family: deepseek-moe-16b at full width, bf16 at
+    # DEEPSEEK_BF16_DEPTH and f32 at DEEPSEEK_CHECK_DEPTH (routing and
+    # expert GEMMs PyTorch)
     ("deepseek", "dense", (K1, K2)),
     ("deepseek", "paged", (K2, K3)),
     # deepseek-moe-16b in tconst mode: the O(1) cache, K1 over the window
@@ -464,9 +492,17 @@ TWIN_LAYOUT = {("smollm", "paged"): "dense", ("full", "paged_int8"): "int8",
 # for mamba2 (600 tokens: 10 chunks of 64, the last 24 rows), smollm (600)
 # and deepseek in tconst mode (700); tconst/dense checks every prompt
 LOGIT_PROMPTS = {"mamba2": 1, "smollm": 1, "deepseek-tconst": 1}
+# deepseek's bf16 runs (launches, finite logits; their logits are checked
+# at the f32 runs' depths) at 8 of 28 layers since PR 31, for the smoke's
+# time: the dense one and 7 MoE layers; in tconst mode 2 blocks of 4
+DEEPSEEK_BF16_DEPTH = 8
+DEEPSEEK_TCONST_BF16_DEPTH = 8
 RUN_OVERRIDES = {("deepseek", "float32"): {"n_layers": DEEPSEEK_CHECK_DEPTH},
+                 ("deepseek", "bfloat16"): {"n_layers": DEEPSEEK_BF16_DEPTH},
                  ("deepseek-tconst", "float32"): {
                      "n_layers": DEEPSEEK_TCONST_CHECK_DEPTH},
+                 ("deepseek-tconst", "bfloat16"): {
+                     "n_layers": DEEPSEEK_TCONST_BF16_DEPTH},
                  ("mamba2", "float32"): {"n_layers": SSM_F32_DEPTH},
                  ("smollm", "float32"): {"n_layers": SMOLLM_F32_DEPTH}}
 # the window phase (f32, reduced widths): gemma3's 5 local : 1 global
@@ -831,7 +867,44 @@ KERNELS = {
     # launches: the first tconst training run (TRAIN_TURNS)
     K2_BWD: ("compress", "src/repro_torch/csrc/flash_attention_bwd.cu",
              "src/repro/kernels/xla_flash.py:125", ("train", "tconst")),
+    # no TPU kernel: JAX differentiates ssd_chunked (XLA); launches: the
+    # phase 5c mamba2-130m run
+    K4_BWD: ("mamba2_b8", "src/repro_torch/csrc/ssd_scan_bwd.cu",
+             "src/repro/layers/ssm.py:84", ("train 5c", "mamba2_130m")),
 }
+# the kernels line's entries beyond KERNELS' cases: (kernel, case of its
+# bf16 row, (phase, run) whose counts are its launches) -- whisper-small's
+# shapes (phase 4g's bf16 runs), the hybrid's and the VLM's (4h's), K2's
+# backward at 5b's and 5c's train shapes and K4's backward at 5c's (the
+# runs' totals).  Only these rows and KERNELS' cases time the plain
+# version (a plain version's time is no yardstick: the contract's line
+# carries it, nothing else reads it)
+LINE_EXTRA = (
+    (K2, "smollm_chunk_960", ("chunked", "smollm/paged/bfloat16")),
+    (K1, "whisper_cross", ("encdec", "dense/bfloat16")),
+    (K1_INT8, "whisper_int8_cross", ("encdec", "int8/bfloat16")),
+    (K2, "whisper_encoder", ("encdec", "dense/bfloat16")),
+    (K2, "whisper_cross_prefill", ("encdec", "dense/bfloat16")),
+    (K3, "whisper_hist", ("encdec", "paged/bfloat16")),
+    (K3_INT8, "whisper_hist", ("encdec", "paged_int8/bfloat16")),
+    (K1, "hymba_step", ("hybrid", "dense/bfloat16")),
+    (K1_INT8, "qwen_int8_step", ("vlm", "int8/bfloat16")),
+    (K2, "hymba_prefill_1060_w1024", ("hybrid", "dense/bfloat16")),
+    (K2, "hymba_chunk_1024", ("hybrid", "paged/bfloat16")),
+    (K2, "qwen_prefill_600", ("vlm", "int8/bfloat16")),
+    (K3, "hymba_hist", ("hybrid", "paged/bfloat16")),
+    (K3_INT8, "qwen_hist", ("vlm", "paged_int8/bfloat16")),
+    (K4_INTRA, "hymba_l1060", ("hybrid", "dense/bfloat16")),
+    (K4_SCAN, "hymba_l1060", ("hybrid", "dense/bfloat16")),
+    (K2_BWD, "whisper_encoder", ("train", ENCDEC)),
+    (K2_BWD, "whisper_cross", ("train", ENCDEC)),
+    (K2_BWD, "whisper_decoder", ("train", ENCDEC)),
+    (K2_BWD, "qwen_causal_1024", ("train", VLM)),
+    (K2_BWD, "hymba_causal_1024_w1024", ("train", HYBRID)),
+    (K4_BWD, "hymba_b2", ("train", HYBRID)),
+    (K4_BWD, "mamba2_l1000", ("train", SSM)))
+LINE_CASES = frozenset(e[:2] for e in LINE_EXTRA) | frozenset(
+    (name, case) for name, (case, *_) in KERNELS.items())
 
 # training (phase 5): tconst-41m at full width in bf16, batch 8 x 1024,
 # in modes tconst, tlin and full (the base transformer) on one seeded
@@ -852,18 +925,50 @@ TRAIN_TURNS = ("tconst", "tlin", "full")
 # RMSNorm's backward at zero overflows their gradient to NaN, in JAX's
 # value_and_grad too (launch.train.extra_inputs)
 FAMILY_TRAIN_ARGS = {
-    ENCDEC: ["--arch", ENCDEC, "--batch", "8", "--seq", "448", "--lr",
-             "1e-3"],
-    VLM: ["--arch", VLM, "--batch", "2", "--seq", "1024", "--lr", "5e-4"],
+    ENCDEC: (["--arch", ENCDEC, "--batch", "8", "--seq", "448", "--lr",
+              "1e-3"], {}),
+    VLM: (["--arch", VLM, "--batch", "2", "--seq", "1024", "--lr", "5e-4"],
+          {}),
+}
+# training the SSM, hybrid and MoE families (phase 5c), bf16 at full
+# width through the same launcher, TRAIN_STEPS steps each of its cosine
+# schedule at its default lr: mamba2-130m at full depth, batch 8 x 1024;
+# hymba-1.5b at full depth, batch 2 x 1024 (its window of 1024 on K2's
+# backward at G 5); deepseek-moe-16b at 3 of its 28 layers (the dense one
+# and two MoE layers: ~1.68 B parameters, a float32 train state of ~34
+# GB; all 28 layers are 16.4 B, ~20 bytes a parameter to train: no card
+# holds that), batch 2 x 512, one routing group of 1024 tokens (capacity
+# 120 an expert).  The launcher has no depth flag (JAX's has none): the
+# cut is a config override, as the gradient checks build theirs.  lr:
+# 1e-3 for mamba2 (whisper-small's), 5e-4 for the two 1.5 B-parameter
+# models (qwen2-vl-2b's: it diverged at 3e-3)
+DEEPSEEK_TRAIN_DEPTH = 3
+TRAIN_5C = {
+    SSM: (["--arch", SSM, "--batch", "8", "--seq", "1024", "--lr", "1e-3"],
+          {}),
+    HYBRID: (["--arch", HYBRID, "--batch", "2", "--seq", "1024", "--lr",
+              "5e-4"], {}),
+    DEEPSEEK: (["--arch", DEEPSEEK, "--batch", "2", "--seq", "512", "--lr",
+                "5e-4"], {"n_layers": DEEPSEEK_TRAIN_DEPTH}),
 }
 # the family gradient checks: (arch, config overrides, batch, tokens):
 # whisper-small at 2 + 2 layers over its 1500 seeded frames, 128 decoder
 # tokens; qwen2-vl-2b at 2 layers, 256 seeded patches from position
-# VLM_VISION_AT among 320 tokens (64 text)
+# VLM_VISION_AT among 320 tokens (64 text); f32 only (GRAD_F32_ONLY):
+# mamba2-130m at 2 layers, 500 tokens (on the card a ragged last chunk of
+# 52 rows; the CPU's chunk by JAX's halving rule, 4); hymba-1.5b at 2
+# layers, 1100 tokens (past its window, a ragged last chunk of 12);
+# deepseek-moe-16b at 2 layers (the dense one and one MoE layer), 128
+# tokens, the count of routed tokens whose expert set differs between the
+# card and the CPU printed before the gate (which assumes none)
 FAMILY_GRAD_CHECKS = {
     ENCDEC: ({"n_layers": 2, "encoder_layers": 2}, 1, 128),
     VLM: ({"n_layers": 2}, 1, 320),
+    SSM: ({"n_layers": 2}, 1, 500),
+    HYBRID: ({"n_layers": 2}, 1, 1100),
+    DEEPSEEK: ({"n_layers": 2}, 1, 128),
 }
+GRAD_F32_ONLY = (SSM, HYBRID, DEEPSEEK)
 # the gradient checks: loss and gradients at full width, B 1 x 512 (two
 # windows), on the card against the CPU plain path on the same f32
 # params.  Error: the relative L2 norm of the gradient difference over
@@ -873,6 +978,17 @@ FAMILY_GRAD_CHECKS = {
 GRAD_CHECK_SHAPE = (1, 512)
 GRAD_TOL_F32 = 1e-4
 GRAD_BF16_FACTOR = 3.0
+# that CPU bf16 error (rel L2 against the CPU f32 gradients) of each bf16
+# check's config and batch: a function of the seeded weights and inputs
+# (two calls of PR 31 on the H100 machine gave the same values to the
+# last digit).  Since PR 31 the smoke reads it here instead of running the
+# CPU's bf16 backward (~25 s); ``python3 chip_smoke.py --grad-floors``
+# measures it again (on the GPU machine: the VLM draws its weights there)
+GRAD_BF16_FLOOR = {"tconst": 0.0172337892321614,
+                   "tlin": 0.01709513162676138,
+                   "full": 0.01813900508631099,
+                   ENCDEC: 0.008263715506231716,
+                   VLM: 0.013156203525457105}
 
 
 class SmokeError(RuntimeError):
@@ -897,6 +1013,12 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 
+TIMED_S = [0.0]     # host seconds spent in time_ms (the kernel phase's split)
+# rounds of a kernel row's time (the median of 3 rounds of 20 calls; 5
+# until PR 31, for the smoke's time)
+KERNEL_ROUNDS = 3
+
+
 def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
     """Median device time of one call, from CUDA events.  Each round
     queues ``reps`` calls behind a sleep kernel, so the device runs them
@@ -904,6 +1026,7 @@ def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
     twice the host time of queueing the round (the fastest warm-up call's
     host time, at 2 GHz), from 1M cycles up to 20M."""
     import torch
+    t_start = time.perf_counter()
     host = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -922,6 +1045,7 @@ def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
         end.record()
         torch.cuda.synchronize()
         per.append(start.elapsed_time(end) / reps)
+    TIMED_S[0] += time.perf_counter() - t_start
     return statistics.median(per)
 
 
@@ -1128,9 +1252,10 @@ def kernel_row(rows, kernel, case, dname, shape, out, ref, run, plain,
                library, n_bytes, flops, scale=1.0, plain_reps=20,
                tol_dtype=None, ops_dtype=None):
     """Check one kernel output against its plain version (tolerance TOL
-    of ``tol_dtype``, default ``dname``, times ``scale``) and time the
-    kernel, the plain version (``plain_reps`` calls a round: fewer for a
-    slow host loop) and the library call (None: there is none).  The
+    of ``tol_dtype``, default ``dname``, times ``scale``); in a bf16 row
+    time the kernel, the library call (None: there is none) and, for a
+    row of the kernels line (``LINE_CASES``), the plain version
+    (``plain_reps`` calls a round: fewer for a slow host loop).  The
     operations bound takes the peak rate of ``ops_dtype`` (default
     ``dname``): the type the kernel computes in."""
     import torch
@@ -1145,12 +1270,28 @@ def kernel_row(rows, kernel, case, dname, shape, out, ref, run, plain,
     b, by = bound_ms(n_bytes, flops, ops_dtype)
     rows.append({"kernel": kernel, "case": case, "dtype": dname,
                  "shape": shape, "max_abs_err": err, "tol": tol,
-                 "ms": time_ms(run),
-                 "plain_ms": time_ms(plain, reps=plain_reps),
+                 "ms": bf16_time(dname, run, rounds=KERNEL_ROUNDS),
+                 "plain_ms": plain_time(kernel, case, dname, plain,
+                                        reps=plain_reps),
                  "library_ms": None if library is None else
-                 time_ms(library), "bound_ms": b, "bound_by": by,
+                 bf16_time(dname, library, rounds=KERNEL_ROUNDS),
+                 "bound_ms": b, "bound_by": by,
                  "bytes_ms": 1e3 * n_bytes / HBM_BYTES_PER_S,
                  "ops_ms": 1e3 * flops / PEAK_FLOPS[ops_dtype]})
+
+
+def bf16_time(dname, fn, **kw):
+    """``time_ms`` of a bf16 row's call; None in an f32 row (compared,
+    not timed, since PR 31: two thirds of the kernel phase was timing)."""
+    return time_ms(fn, **kw) if dname == "bfloat16" else None
+
+
+def plain_time(kernel, case, dname, plain, **kw):
+    """The plain version's time for a bf16 row of the kernels line, else
+    None (it was run once, for the comparison)."""
+    if dname != "bfloat16" or (kernel, case) not in LINE_CASES:
+        return None
+    return time_ms(plain, **kw)
 
 
 def ssd_cases():
@@ -1248,6 +1389,112 @@ def ssd_phase(torch, rows, dev, gen, arch=SSM, cases=ssd_cases):
                    ops_dtype="float32", plain_reps=5)
         del xbc, x, b, c, dt, y, st, yr, sr, y2, f, y2r, fr, out, ref
         torch.cuda.empty_cache()
+
+
+def ssd_bwd_cases():
+    """(label, arch, B, L, init, dfinal): K4's backward at the shapes the
+    phase 5c train steps give it, in f32 and bf16 -- mamba2-130m (H 24,
+    P 64, N 128) at batch 8 x 1024, the same heads at a ragged L of 1000
+    (the last chunk 40 rows) from an initial state with a nonzero final
+    cotangent, and hymba-1.5b (H 25, P 64, N 16) at batch 2 x 1024."""
+    return [("mamba2_b8", SSM, 8, 1024, False, False),
+            ("mamba2_l1000", SSM, 2, 1000, True, True),
+            ("hymba_b2", HYBRID, 2, 1024, False, False)]
+
+
+def ssd_bwd_flops(B: int, L: int, H: int, P: int, N: int, Q: int) -> int:
+    """f32 operations (an FMA is two) of the backward's algorithm, chunk
+    by chunk: the scores C . B^T once per (row, chunk) on the s <= l
+    pairs; per head DX, the masked products for dxdt, db and dc, the
+    products with G_n and S_n (g, the state parts of db and dc, u), the
+    reverse scan's update and the decay terms."""
+    ops = 0
+    for r0 in range(0, L, Q):
+        q = min(Q, L - r0)
+        pairs = q * (q + 1) // 2
+        ops += 2 * B * pairs * N + B * H * (
+            2 * pairs * P * 2 + 2 * pairs * N * 2 + 6 * pairs +
+            5 * 2 * q * P * N + 4 * P * N)
+    return ops
+
+
+def ssd_bwd_rows(torch, rows, dev, gen):
+    """K4's backward kernel against its plain version (autograd through
+    the plain mirror of the ragged tiling) at :func:`ssd_bwd_cases`, on
+    the mixer's inputs (x, b, c sliced from one conv output, dt =
+    softplus, a = -(1..H)); the forward's saved chunk-entry states against
+    the plain scan's.  Each gradient within TOL of ``dname`` times max(1,
+    max |plain|) (bf16 rows: x, b, c and dy in bf16, dx, db and dc written
+    in bf16, f32 arithmetic both sides).  Times the backward call (three
+    launches); no one PyTorch call computes it."""
+    from repro_torch.config import get_config
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.layers.ssm import ssm_dims
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    for label, arch, B, L, init, dfinal in ssd_bwd_cases():
+        cfg = get_config(arch)
+        dims = ssm_dims(cfg)
+        H, P, N, Q = dims.n_heads, dims.head_dim, dims.n_state, \
+            cfg.ssm_chunk
+        for dname in ("bfloat16", "float32"):
+            dtype = getattr(torch, dname)
+            xbc = randn(B, L, H * P + 2 * N).to(dtype)
+            x = xbc[..., :H * P].reshape(B, L, H, P)
+            b, c = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+            dt = torch.nn.functional.softplus(randn(B, L, H) - 4.0)
+            a = -torch.arange(1, H + 1, device=dev, dtype=torch.float32)
+            s0 = randn(B, H, P, N) if init else None
+            dy = randn(B, L, H, P).to(dtype)
+            df = randn(B, H, P, N) if dfinal else None
+            _, _, entry = SS.ssd_scan_train_cuda(x, dt, a, b, c, Q, s0)
+            got = SS.ssd_scan_bwd_cuda(x, dt, a, b, c, Q, entry, dy, df)
+            _, st = SS.ssd_intra_chunk_tiled_plain(x, dt, a, b, c, Q)
+            want_entry = SS.ssd_entry_states_tiled_plain(st, dt, a, Q, s0)
+            want = SS.ssd_scan_bwd_tiled_plain(x, dt, a, b, c, Q, s0, dy,
+                                               df)
+            torch.cuda.synchronize()
+            what = f"{K4_BWD} {label}/{dname}"
+            tol = TOL[dname]
+            errs = {"entry": (entry - want_entry).abs().max().item()}
+            check(errs["entry"] <= TOL["float32"] * max(
+                1.0, want_entry.abs().max().item()), f"{what}: the saved "
+                f"chunk-entry states differ from the plain scan's by "
+                f"{errs['entry']}")
+            for name, g, w in zip(("dx", "ddt", "da", "db", "dc", "dinit"),
+                                  got, want):
+                check(g.dtype == w.dtype and bool(torch.isfinite(
+                    g.float()).all()), f"{what}: {name} is {g.dtype} or "
+                      f"not finite")
+                scale = max(1.0, w.float().abs().max().item())
+                errs[name] = (g.float() - w.float()).abs().max().item()
+                check(errs[name] <= tol * scale, f"{what}: max |kernel - "
+                      f"plain| of {name} = {errs[name]} > {tol} x {scale}")
+            n_bytes = nbytes(x, dt, a, b, c, dy, *got) + (
+                nbytes(s0) if init else 0) + (nbytes(df) if dfinal else 0)
+            flops = ssd_bwd_flops(B, L, H, P, N, Q)
+            bnd, by = bound_ms(n_bytes, flops, "float32")
+            args = (x, dt, a, b, c, Q, entry, dy, df)
+            rows.append({
+                "kernel": K4_BWD, "case": label, "dtype": dname,
+                "shape": f"B={B} L={L} H={H} nc={-(-L // Q)} Q={Q} P={P} "
+                         f"N={N}{' init dfinal' if init else ''}",
+                "max_abs_err": max(v for k, v in errs.items()
+                                   if k != "entry"), "errs": errs,
+                "tol": tol,
+                "ms": time_ms(lambda: SS.ssd_scan_bwd_cuda(*args), reps=5,
+                              rounds=3),
+                "plain_ms": plain_time(
+                    K4_BWD, label, dname,
+                    lambda: SS.ssd_scan_bwd_tiled_plain(
+                        x, dt, a, b, c, Q, s0, dy, df), reps=2, rounds=3),
+                "library_ms": None, "bound_ms": bnd, "bound_by": by,
+                "bytes_ms": 1e3 * n_bytes / HBM_BYTES_PER_S,
+                "ops_ms": 1e3 * flops / PEAK_FLOPS["float32"]})
+            del xbc, x, b, c, dt, s0, dy, df, entry, got, want, st, args
+            torch.cuda.empty_cache()
 
 
 def k1_rows(torch, rows, cfg, dev, randn, gen, dname: str, max_len: int,
@@ -1390,7 +1637,9 @@ def k2_bwd_cases(torch, cfg, dev):
     whisper-small's encoder (B 8, 1500 frames, non-causal, every key
     live, a ragged last tile), its cross-attention (448 decoder rows over
     the 1500 frames) and its causal decoder (448), 12 heads of 64 (G 1);
-    qwen2-vl-2b's causal 1024 at B 2, 12 heads over 2 of 128 (G 6)."""
+    qwen2-vl-2b's causal 1024 at B 2, 12 heads over 2 of 128 (G 6).
+    And phase 5c's: hymba-1.5b's causal 1024 under its window of 1024 at
+    B 2, 25 heads over 5 of 64 (G 5)."""
     from repro_torch.kernels.flash_attention import INVALID_POS
     B, N = 8, 1024
     Wh, Wg = cfg.tconst.w_oh, cfg.tconst.w_og
@@ -1425,6 +1674,8 @@ def k2_bwd_cases(torch, cfg, dev):
         ("whisper_cross", dec, frames, False, 0, 0.0, (12, 12, 64)),
         ("whisper_decoder", dec, dec, True, 0, 0.0, (12, 12, 64)),
         ("qwen_causal_1024", p1024, p1024, True, 0, 0.0, (12, 2, 128)),
+        ("hymba_causal_1024_w1024", p1024, p1024, True, 1024, 0.0,
+         (25, 5, 64)),
     ]
 
 
@@ -1506,8 +1757,9 @@ def k2_bwd_rows(torch, rows, cfg, dev, randn, dname: str):
         flops = 10 * H * D * pairs
         b, by = bound_ms(n_bytes, flops, dname)
         args = (q, k, v, qp, kp, o, lse, do, *flags)
-        lib = sdpa_bwd(torch, q, k, v, do, mask,
-                       causal and not window and qp is kp, cap)
+        lib = None if dname != "bfloat16" else sdpa_bwd(
+            torch, q, k, v, do, mask, causal and not window and qp is kp,
+            cap)
         rows.append({
             "kernel": K2_BWD, "case": label, "dtype": dname,
             "shape": f"B={B} Lq={Lq} Lk={Lk} H={H} KV={KV} D={D}"
@@ -1515,10 +1767,13 @@ def k2_bwd_rows(torch, rows, cfg, dev, randn, dname: str):
                      f"{f' softcap={cap}' if cap else ''}",
             "max_abs_err": max(errs.values()), "errs": errs,
             "lse_err": lse_err, "tol": tol, "pairs": pairs,
-            "ms": time_ms(lambda: FA.flash_attention_bwd_cuda(*args),
-                          reps=5, rounds=3),
-            "plain_ms": time_ms(lambda: FA.flash_attention_bwd_plain(*args),
-                                reps=2, rounds=3),
+            "ms": bf16_time(dname,
+                            lambda: FA.flash_attention_bwd_cuda(*args),
+                            reps=5, rounds=3),
+            "plain_ms": plain_time(
+                K2_BWD, label, dname,
+                lambda: FA.flash_attention_bwd_plain(*args), reps=2,
+                rounds=3),
             "library_ms": None if lib is None else time_ms(lib, reps=5,
                                                            rounds=3),
             "bound_ms": b, "bound_by": by,
@@ -1687,6 +1942,10 @@ def launch_counts(torch, cfg, dev, max_len: int) -> dict:
         torch, lambda: SS.ssd_intra_chunk_cuda(x, dt, a, b, c, Q))
     out[K4_SCAN] = launches_per_call(
         torch, lambda: SS.ssd_chunk_scan_cuda(yi, st, dt, a, c, Q))
+    _, _, entry = SS.ssd_scan_train_cuda(x, dt, a, b, c, Q)
+    dy = randn((1, 605, H, P), bf)
+    out[K4_BWD] = launches_per_call(
+        torch, lambda: SS.ssd_scan_bwd_cuda(x, dt, a, b, c, Q, entry, dy))
     return out
 
 
@@ -1907,14 +2166,16 @@ def kernel_phase(torch, cfg, dev, max_len: int):
         timed(k2_bwd_rows, torch, rows, cfg, dev, randn, dname)
     timed(ssd_phase, torch, rows, dev, gen)
     timed(ssd_phase, torch, rows, dev, gen, HYBRID, hybrid_ssd_cases)
+    timed(ssd_bwd_rows, torch, rows, dev, gen)
     print("[kernel] seconds by row group: " + ", ".join(
-        f"{k} {v:.1f}" for k, v in parts_s.items()))
+        f"{k} {v:.1f}" for k, v in parts_s.items()) +
+        f"; of them timing (time_ms) {TIMED_S[0]:.1f}")
     for r in rows:
-        lib = "none" if r["library_ms"] is None else \
-            f"{r['library_ms']:.4f}"
+        ms, lib, plain = ("-" if r[k] is None else f"{r[k]:.4f}"
+                          for k in ("ms", "library_ms", "plain_ms"))
         print(f"[kernel] {r['kernel']:27s} {r['case']:15s} {r['dtype']:8s} "
               f"{r['shape']:50s} err={r['max_abs_err']:.2e} "
-              f"ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
+              f"ms={ms} plain={plain} "
               f"library={lib} bound={r['bound_ms']:.5f} ({r['bound_by']})")
     return rows
 
@@ -3854,9 +4115,10 @@ def vlm_phase(torch, runtime, serve) -> dict:
 
 def step_profile(torch, runtime, step_fn, params, opt, batch) -> dict:
     """One warm train step under torch.profiler (the card's activity
-    only): its device launches and device ms (summed kernel time), K2's
-    forward and backward device ms (their kernels' names), and the K2
-    forward / backward wrapper calls of the step (launch counters)."""
+    only): its device launches and device ms (summed kernel time), the
+    device ms of K2's forward and backward and of K4's forward and
+    backward (their kernels' names), and every kernel's wrapper calls in
+    the step (launch counters; ``k2_*_calls`` kept apart)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     runtime.reset_counters()
@@ -3873,16 +4135,21 @@ def step_profile(torch, runtime, step_fn, params, opt, batch) -> dict:
     def us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
-    def ms(marker):
-        return sum(us(e) for e in dev if marker in e.key) / 1e3
+    def ms(*markers):
+        return sum(us(e) for e in dev if any(m in e.key for m in markers)) \
+            / 1e3
     top = sorted(dev, key=us, reverse=True)[:6]
     return {"launches": sum(e.count for e in dev),
             "device_ms": sum(us(e) for e in dev) / 1e3,
             "k2_fwd_ms": ms("::flash_bf16_kernel"),
             "k2_bwd_ms": ms("::bwd_"),
+            "k4_fwd_ms": ms("ssd_intra_kernel", "ssd_scan_kernel"),
+            "k4_bwd_ms": ms("ssd_bwd_"),
             "wall_ms_profiled": 1e3 * wall,
             "k2_fwd_calls": counts[K2]["kernel"],
             "k2_bwd_calls": counts[K2_BWD]["kernel"],
+            "calls": {n: c["kernel"] for n, c in counts.items()
+                      if c["kernel"]},
             "top": [(e.key[:60], e.count, us(e) / 1e3) for e in top]}
 
 
@@ -3953,18 +4220,31 @@ def train_phase(torch, runtime) -> dict:
     return out
 
 
-def train_launches_per_step(runtime, arch: str) -> dict:
-    """K2's forward and backward calls a train step of ``arch`` makes at
-    full depth, counted on the CPU: one ``loss_and_grads`` of the config
-    at reduced width (f32) but its full layer counts, through the launch
-    counters (a plain call where the card launches a kernel)."""
+def train_kernels(cfg) -> tuple:
+    """The kernels a train step of ``cfg`` launches: K2's forward and
+    backward for its attention, K4's two forward launches and its
+    backward for a mamba2 mixer (the SSM family, the hybrid's heads)."""
+    attn = (K2, K2_BWD) if cfg.arch_type != "ssm" else ()
+    ssm = (K4_INTRA, K4_SCAN, K4_BWD) \
+        if cfg.arch_type == "ssm" or cfg.hybrid_parallel else ()
+    return attn + ssm
+
+
+def train_launches_per_step(runtime, arch: str, **over) -> dict:
+    """The kernel calls a train step of ``arch`` (with config overrides
+    ``over``, e.g. a cut depth) makes at full depth, counted on the CPU:
+    one ``loss_and_grads`` of the config at reduced width (f32) but its
+    full layer counts, through the launch counters (a plain call where
+    the card launches a kernel).  Checks that the count is
+    :func:`train_kernels`' and that each backward runs as often as its
+    forward."""
     import torch
     from repro_torch import bridge
     from repro_torch.config import get_config, reduced
     from repro_torch.launch import train as T
     from repro_torch.models.api import build_model
     from repro_torch.training.train_step import loss_and_grads
-    full = get_config(arch)
+    full = get_config(arch, **over)
     cfg = reduced(full, dtype="float32", n_layers=full.n_layers,
                   encoder_layers=full.encoder_layers)
     api = build_model(cfg, device="cpu")
@@ -3976,17 +4256,24 @@ def train_launches_per_step(runtime, arch: str) -> dict:
     counts = runtime.read_counters()
     check(all(c["kernel"] == 0 for c in counts.values()),
           f"{arch} CPU count: a kernel launched ({counts})")
-    return {n: c["plain"] for n, c in counts.items() if c["plain"]}
+    per_step = {n: c["plain"] for n, c in counts.items() if c["plain"]}
+    check(sorted(per_step) == sorted(train_kernels(full)) and
+          len({per_step[n] for n in (K2, K2_BWD) if n in per_step}) <= 1
+          and len({per_step[n] for n in (K4_INTRA, K4_SCAN, K4_BWD)
+                   if n in per_step}) <= 1,
+          f"train {arch}: the CPU count is not {train_kernels(full)}, each "
+          f"backward as often as its forward ({per_step})")
+    return per_step
 
 
-def family_train_phase(torch, runtime) -> dict:
-    """whisper-small and qwen2-vl-2b at full width and depth in bf16
-    through the train launcher (``launch.train.load`` / ``train``),
-    ``FAMILY_TRAIN_ARGS`` for TRAIN_STEPS steps on the synthetic batches
-    and the JAX launcher's extra inputs (qwen2-vl-2b: seeded patches
-    under its mask, see ``FAMILY_TRAIN_ARGS``).  Each run: launch
-    counters reset before it and read after it -- K2's forward and
-    backward launched TRAIN_STEPS times the CPU count a step
+def family_train_phase(torch, runtime, runs) -> dict:
+    """Each arch of ``runs`` (arch -> (argv, config overrides)) at full
+    width in bf16 through the train launcher (``launch.train.load`` /
+    ``train``), for TRAIN_STEPS steps on the synthetic batches and the
+    JAX launcher's extra inputs (qwen2-vl-2b: seeded patches under its
+    mask, see ``FAMILY_TRAIN_ARGS``).  Each run: launch counters reset
+    before it and read after it -- every kernel of
+    :func:`train_kernels` launched TRAIN_STEPS times the CPU count a step
     (:func:`train_launches_per_step`), no other kernel, no plain
     version; a finite loss that falls; warm step ms, tok/s (decoder
     tokens), peak device memory, and one profiled step."""
@@ -3998,21 +4285,17 @@ def family_train_phase(torch, runtime) -> dict:
     from repro_torch.training.schedules import warmup_cosine
     from repro_torch.training.train_step import make_train_step
     out = {}
-    for arch, argv in FAMILY_TRAIN_ARGS.items():
-        rec = {"argv": argv}
+    for arch, (argv, over) in runs.items():
+        rec = {"argv": argv, "overrides": over}
         t0 = time.time()
-        per_step = train_launches_per_step(runtime, arch)
+        per_step = train_launches_per_step(runtime, arch, **over)
         rec["predict_s"] = time.time() - t0
-        check(sorted(per_step) == sorted((K2, K2_BWD)) and
-              per_step[K2] == per_step[K2_BWD],
-              f"train {arch}: the CPU count is not K2's forward and "
-              f"backward alike ({per_step})")
         args = T.build_parser().parse_args(
             argv + ["--steps", str(TRAIN_STEPS), "--log-every", "1"])
         t0 = time.time()
-        cfg, api, params = T.load(args)
+        cfg, api, params = T.load(args, **over)
         rec["load_s"] = time.time() - t0
-        check(cfg.dtype == "bfloat16" and cfg == get_config(arch),
+        check(cfg.dtype == "bfloat16" and cfg == get_config(arch, **over),
               f"train {arch}: not the full-width bf16 config")
         t0 = time.time()
         data = list(batches(DataConfig(vocab_size=cfg.vocab_size,
@@ -4064,26 +4347,37 @@ def family_train_phase(torch, runtime) -> dict:
         rec["profile"] = step_profile(torch, runtime, step_fn,
                                       res["params"], res["opt"], batch)
         rec["profile_s"] = time.time() - t0
-        check(rec["profile"]["k2_fwd_calls"] == per_step[K2] and
-              rec["profile"]["k2_bwd_calls"] == per_step[K2_BWD],
-              f"{what}: the profiled step's K2 calls {rec['profile']}")
+        check(rec["profile"]["calls"] == per_step,
+              f"{what}: the profiled step's kernel calls {rec['profile']}")
         out[arch] = rec
         del res, params, api, batch, step_fn
         torch.cuda.empty_cache()
     return out
 
 
-def _rel_l2(got, want) -> float:
-    """||got - want|| / ||want|| over all leaves (f32, on the CPU)."""
+def _rel_l2_groups(got, want):
+    """(||got - want|| / ||want|| over all leaves, the same over each
+    top-level group of leaves), each leaf moved to the CPU once."""
     from repro_torch.training.optim import tree_leaves
-    num = den = 0.0
-    for g, w in zip(tree_leaves(got), tree_leaves(want)):
-        g, w = g.detach().float().cpu(), w.detach().float().cpu()
-        num += float((g - w).square().sum())
-        den += float(w.square().sum())
-    if den == 0.0:
-        return 0.0 if num == 0.0 else float("inf")
-    return (num / den) ** 0.5
+
+    def rel(num, den):
+        if den == 0.0:
+            return 0.0 if num == 0.0 else float("inf")
+        return (num / den) ** 0.5
+
+    sums = {}
+    groups = want.items() if isinstance(want, dict) else [(None, want)]
+    for k, w_tree in groups:
+        g_tree = got[k] if k is not None else got
+        num = den = 0.0
+        for g, w in zip(tree_leaves(g_tree), tree_leaves(w_tree)):
+            g, w = g.detach().float().cpu(), w.detach().float().cpu()
+            num += float((g - w).square().sum())
+            den += float(w.square().sum())
+        sums[k] = (num, den)
+    total = rel(sum(n for n, _ in sums.values()),
+                sum(d for _, d in sums.values()))
+    return total, {k: rel(*v) for k, v in sums.items() if k is not None}
 
 
 def seeded_extras(cfg, B: int, L: int, rs, vision_at: int) -> dict:
@@ -4115,16 +4409,22 @@ def family_grad_batch(torch, cfg, B: int, L: int) -> dict:
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
-def grad_check(torch, runtime, cfg, batch, what: str) -> dict:
+def grad_check(torch, runtime, cfg, batch, what: str,
+               dtypes=("float32", "bfloat16"),
+               measure_floor: bool = False) -> dict:
     """Loss and gradients of ``cfg`` (float32 params, the port's seeded
-    init on the card's ``build_model``: the hybrid and the VLM draw there,
-    the others on the CPU) on ``batch`` on the card against the CPU plain
-    path on a copy of the same params: f32 within ``GRAD_TOL_F32`` (the
-    relative L2 error over all leaves and over each top-level group of
-    leaves) and the loss within 1e-4; bf16 within ``GRAD_BF16_FACTOR``
-    times the CPU plain path's own bf16 error, both against the CPU f32
-    reference.  Each card run launches K2's forward and backward kernels
-    and no plain version."""
+    init on the card's ``build_model``: the MoE family, the hybrid and
+    the VLM draw there, the others on the CPU) on ``batch`` on the card
+    against the CPU plain path on a copy of the same params: f32 within
+    ``GRAD_TOL_F32`` (the relative L2 error over all leaves and over each
+    top-level group of leaves) and the loss within 1e-4; where ``dtypes``
+    holds bf16, bf16 within ``GRAD_BF16_FACTOR`` times the CPU plain
+    path's own bf16 error (``GRAD_BF16_FLOOR``; measured here instead with
+    ``measure_floor``), both against the CPU f32 reference.  Each card
+    run launches every kernel of :func:`train_kernels` and no plain
+    version.  An MoE config's routing is logged on both sides: the count
+    of routed tokens whose expert set differs between the card and the
+    CPU (f32) is printed before the comparison."""
     from repro_torch import bridge
     from repro_torch.models.api import build_model
     from repro_torch.training.optim import tree_map
@@ -4133,63 +4433,79 @@ def grad_check(torch, runtime, cfg, batch, what: str) -> dict:
     card_params = bridge.stack_params(build_model(cfg, device="cuda").init(0))
     params = tree_map(lambda p: p.cpu(), card_params)
     card_batch = {k: v.cuda() for k, v in batch.items()}
-    res, secs = {}, {}
-    for dname in ("float32", "bfloat16"):
+    res, secs, routes = {}, {}, {}
+    for dname in dtypes:
         c = cfg.replace(dtype=dname)
         t0 = time.time()
         # bf16 on the CPU slows down with many threads
         torch.set_num_threads(threads if dname == "float32"
                               else min(threads, 4))
         try:
-            res[f"cpu_{dname}"] = loss_and_grads(
-                build_model(c, device="cpu"), params, batch)
+            if dname == "float32" or measure_floor:
+                with route_log() as routes[f"cpu_{dname}"]:
+                    res[f"cpu_{dname}"] = loss_and_grads(
+                        build_model(c, device="cpu"), params, batch)
         finally:
             torch.set_num_threads(threads)
         secs[f"cpu_{dname}"] = time.time() - t0
         t0 = time.time()
         runtime.reset_counters()
-        res[f"card_{dname}"] = loss_and_grads(
-            build_model(c, device="cuda"), card_params, card_batch)
+        with route_log() as routes[f"card_{dname}"]:
+            res[f"card_{dname}"] = loss_and_grads(
+                build_model(c, device="cuda"), card_params, card_batch)
         torch.cuda.synchronize()
         secs[f"card_{dname}"] = time.time() - t0
         counts = runtime.read_counters()
-        check(all(counts[n]["kernel"] > 0 for n in (K2, K2_BWD)) and
+        check(all(counts[n]["kernel"] > 0 for n in train_kernels(cfg)) and
               all(x["plain"] == 0 for x in counts.values()),
               f"grad check {what} {dname}: launches {counts}")
     ref = res["cpu_float32"][1]
+    err_f32, groups_f32 = _rel_l2_groups(res["card_float32"][1], ref)
     rec = {"loss_cpu_f32": float(res["cpu_float32"][0]),
            "loss_card_f32": float(res["card_float32"][0]),
-           "loss_card_bf16": float(res["card_bfloat16"][0]),
-           "err_f32": _rel_l2(res["card_float32"][1], ref),
-           "err_bf16": _rel_l2(res["card_bfloat16"][1], ref),
-           "err_cpu_bf16": _rel_l2(res["cpu_bfloat16"][1], ref),
-           "seconds": secs}
-    rec["tol_bf16"] = GRAD_BF16_FACTOR * rec["err_cpu_bf16"]
+           "err_f32": err_f32, "seconds": secs}
+    if cfg.is_moe:
+        pairs = list(zip(routes["card_float32"], routes["cpu_float32"]))
+        rec["routed"] = sum(r.shape[0] for _, r in pairs)
+        rec["route_flips"] = sum(int((a != b).any(dim=-1).sum())
+                                 for a, b in pairs)
+        print(f"[train] grad check {what}: {rec['route_flips']} of "
+              f"{rec['routed']} routed tokens choose another expert set on "
+              f"the card than on the CPU (f32)")
     check(rec["err_f32"] <= GRAD_TOL_F32, f"grad check {what}: f32 "
           f"gradients differ from the CPU's by {rec['err_f32']} > "
           f"{GRAD_TOL_F32}")
     check(abs(rec["loss_card_f32"] - rec["loss_cpu_f32"]) <= 1e-4,
           f"grad check {what}: f32 loss {rec}")
-    check(rec["err_bf16"] <= rec["tol_bf16"], f"grad check {what}: bf16 "
-          f"gradients differ from the CPU f32 ones by {rec['err_bf16']} "
-          f"> {rec['tol_bf16']}")
-    rec["err_f32_groups"] = {
-        k: _rel_l2(res["card_float32"][1][k], ref[k]) for k in ref}
-    rec["err_bf16_groups"] = {
-        k: _rel_l2(res["card_bfloat16"][1][k], ref[k]) for k in ref}
+    rec["err_f32_groups"] = groups_f32
     bad = {k: e for k, e in rec["err_f32_groups"].items()
            if not e <= GRAD_TOL_F32}
     check(not bad, f"grad check {what}: f32 gradients of {bad} differ "
           f"from the CPU's by more than {GRAD_TOL_F32}")
+    if "bfloat16" in dtypes:
+        err_bf16, groups_bf16 = _rel_l2_groups(res["card_bfloat16"][1], ref)
+        rec.update({
+            "loss_card_bf16": float(res["card_bfloat16"][0]),
+            "err_bf16": err_bf16, "err_bf16_groups": groups_bf16,
+            "err_cpu_bf16": _rel_l2_groups(res["cpu_bfloat16"][1],
+                                           ref)[0] if measure_floor
+            else GRAD_BF16_FLOOR[what]})
+        rec["tol_bf16"] = GRAD_BF16_FACTOR * rec["err_cpu_bf16"]
+        check(rec["err_bf16"] <= rec["tol_bf16"], f"grad check {what}: "
+              f"bf16 gradients differ from the CPU f32 ones by "
+              f"{rec['err_bf16']} > {rec['tol_bf16']}")
     del res, params, card_params, card_batch
     torch.cuda.empty_cache()
     return rec
 
 
-def grad_check_phase(torch, runtime) -> dict:
+def grad_check_phase(torch, runtime, measure_floors: bool = False) -> dict:
     """:func:`grad_check` of tconst-41m at full width (tconst, tlin,
-    full), B 1 x 512, then of whisper-small and qwen2-vl-2b at full width
-    and the cut depths and batches of ``FAMILY_GRAD_CHECKS``."""
+    full), B 1 x 512, then of whisper-small, qwen2-vl-2b, mamba2-130m,
+    hymba-1.5b and deepseek-moe-16b at full width and the cut depths and
+    batches of ``FAMILY_GRAD_CHECKS`` (f32 only for ``GRAD_F32_ONLY``);
+    ``measure_floors``: the CPU's own bf16 errors measured, not read from
+    ``GRAD_BF16_FLOOR``."""
     import numpy as np
     from repro_torch.config import get_config
     B, L = GRAD_CHECK_SHAPE
@@ -4199,11 +4515,14 @@ def grad_check_phase(torch, runtime) -> dict:
                          dtype="float32")
         toks = torch.from_numpy(np.random.RandomState(1).randint(
             0, cfg.vocab_size, size=(B, L)))
-        out[mode] = grad_check(torch, runtime, cfg, {"tokens": toks}, mode)
+        out[mode] = grad_check(torch, runtime, cfg, {"tokens": toks}, mode,
+                               measure_floor=measure_floors)
     for arch, (over, fb, fl) in FAMILY_GRAD_CHECKS.items():
         cfg = get_config(arch, dtype="float32", **over)
-        out[arch] = grad_check(torch, runtime, cfg,
-                               family_grad_batch(torch, cfg, fb, fl), arch)
+        out[arch] = grad_check(
+            torch, runtime, cfg, family_grad_batch(torch, cfg, fb, fl), arch,
+            ("float32",) if arch in GRAD_F32_ONLY else
+            ("float32", "bfloat16"), measure_floor=measure_floors)
     return out
 
 
@@ -4252,6 +4571,13 @@ def main() -> int:
     dev = torch.device("cuda")
     max_len = KERNEL_MAX_LEN
 
+    if sys.argv[1:] == ["--grad-floors"]:
+        # the CPU's own bf16 gradient errors of GRAD_BF16_FLOOR, measured
+        grads = grad_check_phase(torch, runtime, measure_floors=True)
+        print(json.dumps({k: r["err_cpu_bf16"] for k, r in grads.items()
+                          if "err_cpu_bf16" in r}))
+        return 0
+
     # 3. kernels vs plain
     t_phase = time.time()
     rows = kernel_phase(torch, cfg41, dev, max_len)
@@ -4259,7 +4585,10 @@ def main() -> int:
     print(f"[launches] device launches per call: {per_call}")
     check(per_call[K2_BWD] == 3, f"K2's backward must take three device "
           f"launches a call (delta, dk/dv, dq): {per_call}")
-    check(all(n == 1 for name, n in per_call.items() if name != K2_BWD),
+    check(per_call[K4_BWD] == 3, f"K4's backward must take three device "
+          f"launches a call (reverse scan, chunks, head sums): {per_call}")
+    check(all(n == 1 for name, n in per_call.items()
+              if name not in (K2_BWD, K4_BWD)),
           f"K1 / K2 / K3 / K4 must take one device launch a call: "
           f"{per_call}")
     phase_s = {"kernels": time.time() - t_phase}
@@ -4573,45 +4902,58 @@ def main() -> int:
               f"device ms, K2 fwd {prof['k2_fwd_calls']} / bwd "
               f"{prof['k2_bwd_calls']} calls, {prof['k2_fwd_ms']:.2f} / "
               f"{prof['k2_bwd_ms']:.2f} device ms")
-    # 5b. training the enc-dec and the VLM at full width
-    t_phase = time.time()
-    family_training = family_train_phase(torch, runtime)
-    phase_s["train families"] = time.time() - t_phase
-    for arch, r in family_training.items():
-        prof = r["profile"]
-        print(f"[train] {arch} bf16 {' '.join(r['argv'][2:])}: "
-              f"{r['n_params'] / 1e9:.3f} B params; losses "
-              f"{[round(x, 3) for x in r['losses']]}; launches {r['launches']}"
-              f" ({r['per_step']} a step, counted on the CPU; plain 0); warm "
-              f"step {r['warm_step_ms']:.1f} ms "
-              f"({[round(x, 1) for x in r['step_ms']]}), {r['tok_s']:.0f} "
-              f"tok/s, peak {r['peak_mem_gb']:.2f} GB; one step: "
-              f"{prof['launches']} device launches, {prof['device_ms']:.1f} "
-              f"device ms, K2 fwd {prof['k2_fwd_calls']} / bwd "
-              f"{prof['k2_bwd_calls']} calls, {prof['k2_fwd_ms']:.2f} / "
-              f"{prof['k2_bwd_ms']:.2f} device ms; load {r['load_s']:.1f}s, "
-              f"data {r['data_s']:.1f}s, train {r['train_s']:.1f}s, profile "
-              f"{r['profile_s']:.1f}s; {card}")
+    # 5b. training the enc-dec and the VLM at full width; 5c. the SSM,
+    # the hybrid and the MoE family (deepseek cut in depth)
+    family_training = {}
+    for phase, train_runs in (("train families", FAMILY_TRAIN_ARGS),
+                        ("train 5c", TRAIN_5C)):
+        t_phase = time.time()
+        done = family_train_phase(torch, runtime, train_runs)
+        phase_s[phase] = time.time() - t_phase
+        family_training.update(done)
+        for arch, r in done.items():
+            prof = r["profile"]
+            print(f"[train] {arch} bf16 {' '.join(r['argv'][2:])} "
+                  f"{r['overrides'] or ''}: {r['n_params'] / 1e9:.3f} B "
+                  f"params; losses {[round(x, 3) for x in r['losses']]}; "
+                  f"launches {r['launches']} ({r['per_step']} a step, "
+                  f"counted on the CPU; plain 0); warm step "
+                  f"{r['warm_step_ms']:.1f} ms "
+                  f"({[round(x, 1) for x in r['step_ms']]}), "
+                  f"{r['tok_s']:.0f} tok/s, peak {r['peak_mem_gb']:.2f} GB; "
+                  f"one step: {prof['launches']} device launches, "
+                  f"{prof['device_ms']:.1f} device ms, calls "
+                  f"{prof['calls']}, K2 fwd / bwd {prof['k2_fwd_ms']:.2f} / "
+                  f"{prof['k2_bwd_ms']:.2f} device ms, K4 fwd / bwd "
+                  f"{prof['k4_fwd_ms']:.2f} / {prof['k4_bwd_ms']:.2f}; top "
+                  f"{[(k, n, round(t, 2)) for k, n, t in prof['top'][:3]]}; "
+                  f"load {r['load_s']:.1f}s, predict {r['predict_s']:.1f}s, "
+                  f"data {r['data_s']:.1f}s, train {r['train_s']:.1f}s, "
+                  f"profile {r['profile_s']:.1f}s; {card}")
     t_phase = time.time()
     grads = grad_check_phase(torch, runtime)
     phase_s["train grad check"] = time.time() - t_phase
     for what, r in grads.items():
         over, fb, fl = FAMILY_GRAD_CHECKS.get(what, ({}, *GRAD_CHECK_SHAPE))
         shape = f"{over or 'full depth'}, B {fb} x {fl}"
+        bf16 = (f"bf16 {r['err_bf16']:.2e} (tol {r['tol_bf16']:.2e} = "
+                f"{GRAD_BF16_FACTOR} x the CPU's bf16 "
+                f"{r['err_cpu_bf16']:.2e})") if "err_bf16" in r else \
+            "bf16 not checked"
+        flips = (f"; routing differs for {r['route_flips']} of "
+                 f"{r['routed']} tokens") if "routed" in r else ""
         print(f"[train] {what} gradients at {shape} vs the CPU f32 plain "
               f"path (rel L2): f32 {r['err_f32']:.2e} (tol {GRAD_TOL_F32}), "
-              f"bf16 {r['err_bf16']:.2e} (tol {r['tol_bf16']:.2e} = "
-              f"{GRAD_BF16_FACTOR} x the CPU's bf16 {r['err_cpu_bf16']:.2e})"
-              + f"; by group f32 "
+              f"{bf16}{flips}; by group f32 "
               f"{ {k: f'{v:.1e}' for k, v in r['err_f32_groups'].items()} }"
               f"; { {k: round(v, 1) for k, v in r['seconds'].items()} } s")
 
     # 6. uniform batch engine (bf16): the paper's three variants on one
     # set of weights -- tconst/dense, tlin/paged and the base transformer
-    # (full/dense) -- in turns (A, B, C, C, B, A): the host-bound step time
-    # drifts between runs
+    # (full/dense) -- one run each (A, B, C; the A B C C B A turns went for
+    # the smoke's time: their host-bound step times are single samples)
     engines = {}
-    for mode, layout in ENGINE_TURNS + ENGINE_TURNS[::-1]:
+    for mode, layout in ENGINE_TURNS:
         t_phase = time.time()
         eargs = serve.parse_args(ENGINE_ARGS + ["--layout", layout])
         ecfg, eapi, eparams = load_run(serve, eargs, attention_mode=mode)
@@ -4627,7 +4969,7 @@ def main() -> int:
         phase_s[f"engine {mode}/{layout} #{len(done)}"] = \
             time.time() - t_phase
     print(f"[engine] bf16 batch {eargs.batch}, max_len "
-          f"{serve.batch_max_len(eargs)}, runs in turns A B C C B A: " +
+          f"{serve.batch_max_len(eargs)}, one run a variant: " +
           "; ".join(f"{k} cache-hit step "
                     f"{[round(r['hit_ms'], 3) for r in v]} ms, resync "
                     f"{[r['miss_ms'] and round(r['miss_ms'], 3) for r in v]}"
@@ -4653,9 +4995,10 @@ def main() -> int:
         r = min((x for x in rows if x["kernel"] == name and
                  x["case"] == case), key=lambda x: x["dtype"] != "bfloat16")
         launched = training["runs"][run[1]][0]["launches"] \
-            if run[0] == "train" else {
-                n: c["kernel"] for n, c in
-                runs[f"{run[0]}/{run[1]}/bfloat16"]["launches"].items()}
+            if run[0] == "train" else \
+            family_training[run[1]]["launches"] if run[0] == "train 5c" \
+            else {n: c["kernel"] for n, c in
+                  runs[f"{run[0]}/{run[1]}/bfloat16"]["launches"].items()}
         line.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
             "launches": launched[name],
@@ -4664,50 +5007,27 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
-    # K2 at a chunked admission's shape (phase 3's chunk rows; launches of
-    # the smollm bf16 run of phase 4c)
-    name, (_, src, repl, _) = K2, KERNELS[K2]
-    chunk_rows_ = [x for x in rows if "_chunk_" in x["case"]]
-    r = next(x for x in chunk_rows_ if x["case"] == "smollm_chunk_960"
-             and x["dtype"] == "bfloat16")
-    line.append({
-        "name": name, "case": "prefill_chunk", "route": "cuda",
-        "source": src, "replaces": repl,
-        "launches": chunked["smollm/paged/bfloat16"]["launches"][K2][
-            "kernel"],
-        "max_abs_err": max(x["max_abs_err"] for x in chunk_rows_),
-        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    # whisper-small's shapes (phase 3's whisper rows; launches of the
-    # phase 4g bf16 runs: dense for K1 and K2, int8 for K1-int8)
-    # and the hybrid's and the VLM's (phase 4h's bf16 runs); K2's backward
-    # at the shapes of phase 5b's train steps (launches: the run's total)
-    hy_dense, hy_paged = hybrid["dense/bfloat16"], hybrid["paged/bfloat16"]
-    vl_int8, vl_paged = vlm["int8/bfloat16"], vlm["paged_int8/bfloat16"]
-    for name, case, run in (
-            (K1, "whisper_cross", encdec["dense/bfloat16"]),
-            (K1_INT8, "whisper_int8_cross", encdec["int8/bfloat16"]),
-            (K2, "whisper_encoder", encdec["dense/bfloat16"]),
-            (K2, "whisper_cross_prefill", encdec["dense/bfloat16"]),
-            (K3, "whisper_hist", encdec["paged/bfloat16"]),
-            (K3_INT8, "whisper_hist", encdec["paged_int8/bfloat16"]),
-            (K1, "hymba_step", hy_dense), (K1_INT8, "qwen_int8_step", vl_int8),
-            (K2, "hymba_prefill_1060_w1024", hy_dense),
-            (K2, "hymba_chunk_1024", hy_paged),
-            (K2, "qwen_prefill_600", vl_int8),
-            (K3, "hymba_hist", hy_paged), (K3_INT8, "qwen_hist", vl_paged),
-            (K4_INTRA, "hymba_l1060", hy_dense),
-            (K4_SCAN, "hymba_l1060", hy_dense),
-            (K2_BWD, "whisper_encoder", family_training[ENCDEC]),
-            (K2_BWD, "whisper_cross", family_training[ENCDEC]),
-            (K2_BWD, "whisper_decoder", family_training[ENCDEC]),
-            (K2_BWD, "qwen_causal_1024", family_training[VLM])):
+    # LINE_EXTRA: K2 at a chunked admission's shape (its error over every
+    # chunk row; launches of the smollm bf16 run of phase 4c) and the
+    # other families' shapes
+    phases = {"chunked": chunked, "encdec": encdec, "hybrid": hybrid,
+              "vlm": vlm, "train": family_training}
+    for name, case, (phase, key) in LINE_EXTRA:
         _, src, repl, _ = KERNELS[name]
-        mine = [x for x in rows if (x["kernel"], x["case"]) == (name, case)]
-        r = next(x for x in mine if x["dtype"] == "bfloat16")
+        mine = [x for x in rows if x["kernel"] == name and (
+            "_chunk_" in x["case"] if phase == "chunked" else
+            x["case"] == case)]
+        r = next(x for x in rows if (x["kernel"], x["case"], x["dtype"]) ==
+                 (name, case, "bfloat16"))
+        check(r["plain_ms"] is not None,
+              f"kernels line {name}/{case}: no plain time")
+        launches = phases[phase][key]["launches"][name]
         line.append({
-            "name": name, "case": case, "route": "cuda", "source": src,
-            "replaces": repl, "launches": run["launches"][name],
+            "name": name,
+            "case": "prefill_chunk" if phase == "chunked" else case,
+            "route": "cuda", "source": src, "replaces": repl,
+            "launches": launches["kernel"] if isinstance(launches, dict)
+            else launches,
             "max_abs_err": max(x["max_abs_err"] for x in mine),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -98,23 +98,26 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator,
 
 
 def init_tconst_lm(cfg: ModelConfig, seed: int = 0,
-                   device: Optional[torch.device] = None) -> Params:
+                   device: Optional[torch.device] = None,
+                   param_dtype: Optional[torch.dtype] = None) -> Params:
     """The port's own seeded init from one ``torch.Generator``.  It does
     not reproduce ``jax.random``: parity tests load the JAX weights
     through :func:`repro_torch.bridge.params_from_jax` instead.
 
     Dense configs draw float32 on the CPU, so every device gets the same
     weights.  MoE configs draw on ``device`` with a generator of that
-    device and cast each tensor to the activation dtype as it is drawn
-    (norm scales stay float32), as ``models/lm.py:init_lm`` does:
-    deepseek-moe-16b in tconst mode is 16.9 B parameters, which drawn in
-    float32 on the host would take ~68 GB and minutes.  Their weights
-    then depend on the device's generator."""
+    device and keep each tensor in ``param_dtype`` (norm scales stay
+    float32), as ``models/lm.py:init_lm`` does: by default (serving) the
+    activation dtype, cast as it is drawn -- deepseek-moe-16b in tconst
+    mode is 16.9 B parameters, which drawn in float32 on the host would
+    take ~68 GB and minutes -- and float32 for training, JAX's
+    ``param_dtype``.  Their weights then depend on the device's
+    generator."""
     moe = cfg.is_moe
     dev = torch.device("cpu") if device is None or not moe \
         else torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    dtype = _dtype(cfg.dtype) if moe else None
+    dtype = (param_dtype or _dtype(cfg.dtype)) if moe else None
     embed = E.init_embed(cfg, gen, dtype)
     blocks = [{"layers": [_init_layer(cfg, gen, dtype)
                           for _ in range(cfg.tconst.block_depth)]}

@@ -39,9 +39,11 @@
 //   their dtype, into a second padded tile) and dt are copied in with
 //   cp.async, and its state slice and y_intra rows loaded into registers,
 //   while the current chunk's product runs; every warp scans the chunk's
-//   dt itself, so a chunk takes one barrier.  No per-chunk state before
-//   each chunk ever reaches device memory.  Writes y (B, L, H, P) in x's
-//   dtype and the final state (B, H, P, N) f32.
+//   dt itself, so a chunk takes one barrier.  Writes y (B, L, H, P) in x's
+//   dtype and the final state (B, H, P, N) f32; under autograd also the
+//   state entering each chunk, (B, H, nc, P, N) f32, which K4's backward
+//   (csrc/ssd_scan_bwd.cu) reads (null when serving: no per-chunk state
+//   then reaches device memory).
 //
 // What bounds it on an H100: at mamba2-130m's admission (H 24, P 64, N 128,
 // Q 64) each launch needs about as long for its bytes as for its f32 FMAs
@@ -507,8 +509,9 @@ ssd_scan_kernel(const float* __restrict__ y_intra,
                 const float* __restrict__ st, const float* __restrict__ dt,
                 const float* __restrict__ a, const T* __restrict__ cm,
                 const float* __restrict__ init, T* __restrict__ y,
-                float* __restrict__ fin, int L, int H, int P, int N, int Q,
-                int nc, long long scb, long long scl) {
+                float* __restrict__ fin, float* __restrict__ entry, int L,
+                int H, int P, int N, int Q, int nc, long long scb,
+                long long scl) {
   constexpr int KS = 32 / PS;
   constexpr int W = 8 / KS;                   // float4 columns a split block
   constexpr int kOwn = PS / 4;                // state float4s a thread owns
@@ -647,12 +650,16 @@ ssd_scan_kernel(const float* __restrict__ y_intra,
     }
 
     // prev <- prev * exp(cs[q-1]) + state_n, into the other prev tile
+    // (prev, the state entering chunk k, saved first where asked)
     const float dec = pair_at(elo, ehi, q - 1);
     float* pnext = pv_s + ((k + 1) & 1) * PS * kLdN;
 #pragma unroll
     for (int j = 0; j < kOwn; ++j) {
       if (own[j] < 0) continue;
       float4 v = ld4(pcur + own[j]);
+      if (entry)
+        st4(entry + ((bh * nc + k) * P + p0) * N + 4 * (tid + kScanThreads * j),
+            v);
       v.x = fmaf(v.x, dec, sv[j].x);
       v.y = fmaf(v.y, dec, sv[j].y);
       v.z = fmaf(v.z, dec, sv[j].z);
@@ -734,8 +741,8 @@ int intra_launch(const void* x, const void* dt, const void* a, const void* b,
 template <typename T, int PS>
 int scan_launch_ps(const void* y_intra, const void* states, const void* dt,
                    const void* a, const void* c, const void* init, void* y,
-                   void* fin, int B, int L, int H, int P, int N, int Q,
-                   long long scb, long long scl, cudaStream_t stream) {
+                   void* fin, void* entry, int B, int L, int H, int P, int N,
+                   int Q, long long scb, long long scl, cudaStream_t stream) {
   static bool configured = false;
   const size_t smem = scan_smem_bytes<T, PS>();
   const cudaError_t err = allow_smem(ssd_scan_kernel<T, PS>, smem,
@@ -747,8 +754,8 @@ int scan_launch_ps(const void* y_intra, const void* states, const void* dt,
       static_cast<const float*>(y_intra), static_cast<const float*>(states),
       static_cast<const float*>(dt), static_cast<const float*>(a),
       static_cast<const T*>(c), static_cast<const float*>(init),
-      static_cast<T*>(y), static_cast<float*>(fin), L, H, P, N, Q, nc, scb,
-      scl);
+      static_cast<T*>(y), static_cast<float*>(fin),
+      static_cast<float*>(entry), L, H, P, N, Q, nc, scb, scl);
   return (int)cudaGetLastError();
 }
 
@@ -758,18 +765,18 @@ int scan_launch_ps(const void* y_intra, const void* states, const void* dt,
 template <typename T>
 int scan_launch(const void* y_intra, const void* states, const void* dt,
                 const void* a, const void* c, const void* init, void* y,
-                void* fin, int B, int L, int H, int P, int N, int Q,
-                long long scb, long long scl, cudaStream_t stream) {
+                void* fin, void* entry, int B, int L, int H, int P, int N,
+                int Q, long long scb, long long scl, cudaStream_t stream) {
   const long long heads = (long long)H * B;
   const int half = (sm_count() + 1) / 2;
   if (P >= 32 && heads * ((P + 31) / 32) >= half)
-    return scan_launch_ps<T, 32>(y_intra, states, dt, a, c, init, y, fin, B,
-                                 L, H, P, N, Q, scb, scl, stream);
+    return scan_launch_ps<T, 32>(y_intra, states, dt, a, c, init, y, fin,
+                                 entry, B, L, H, P, N, Q, scb, scl, stream);
   if (P >= 16 && heads * ((P + 15) / 16) >= half)
-    return scan_launch_ps<T, 16>(y_intra, states, dt, a, c, init, y, fin, B,
-                                 L, H, P, N, Q, scb, scl, stream);
-  return scan_launch_ps<T, 8>(y_intra, states, dt, a, c, init, y, fin, B, L,
-                              H, P, N, Q, scb, scl, stream);
+    return scan_launch_ps<T, 16>(y_intra, states, dt, a, c, init, y, fin,
+                                 entry, B, L, H, P, N, Q, scb, scl, stream);
+  return scan_launch_ps<T, 8>(y_intra, states, dt, a, c, init, y, fin, entry,
+                              B, L, H, P, N, Q, scb, scl, stream);
 }
 
 }  // namespace
@@ -799,20 +806,21 @@ int ssd_intra_chunk_fwd(const void* x, const void* dt, const void* a,
 
 // Launch 2.  y_intra, states as launch 1 writes them; dt, a, c as launch 1
 // takes them; init (B, H, P, N) float or null (zeros).  Writes y (B, L, H,
-// P) in c's dtype and final_state (B, H, P, N) float.  Same contract.
+// P) in c's dtype, final_state (B, H, P, N) float and, unless null, entry
+// (B, H, nc, P, N) float: the state entering each chunk.  Same contract.
 int ssd_chunk_scan_fwd(const void* y_intra, const void* states,
                        const void* dt, const void* a, const void* c,
-                       const void* init, void* y, void* final_state, int B,
-                       int L, int H, int P, int N, int Q, long long scb,
-                       long long scl, int bf16, void* stream) {
+                       const void* init, void* y, void* final_state,
+                       void* entry, int B, int L, int H, int P, int N, int Q,
+                       long long scb, long long scl, int bf16, void* stream) {
   if (B == 0 || H == 0 || L == 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? scan_launch<__nv_bfloat16>(y_intra, states, dt, a, c, init, y,
-                                           final_state, B, L, H, P, N, Q, scb,
-                                           scl, s)
+                                           final_state, entry, B, L, H, P, N,
+                                           Q, scb, scl, s)
               : scan_launch<float>(y_intra, states, dt, a, c, init, y,
-                                   final_state, B, L, H, P, N, Q, scb, scl,
-                                   s);
+                                   final_state, entry, B, L, H, P, N, Q, scb,
+                                   scl, s);
 }
 
 }  // extern "C"

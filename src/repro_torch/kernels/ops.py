@@ -11,7 +11,12 @@ K2 is differentiable: with autograd on and an input that requires grad,
 :func:`flash_attention` runs through :class:`FlashAttention` (the
 ``jax.custom_vjp`` of ``xla_flash.flash_attention``), whose forward also
 returns the rows' log-sum-exp and whose backward is K2's backward kernel
-(CUDA tensors) or its plain version (CPU tensors).
+(CUDA tensors) or its plain version (CPU tensors).  So is K4:
+:func:`ssd_scan` runs through :class:`SSDScan`, whose forward on the card
+also saves the state entering each chunk and whose backward is K4's
+backward kernel (CUDA tensors) or autograd through the plain forward at
+JAX's chunk (CPU tensors), the gradient JAX's ``value_and_grad`` takes
+through ``ssd_chunked``.
 """
 from __future__ import annotations
 
@@ -156,6 +161,46 @@ def prefill_chunk_attention(q: torch.Tensor, k: torch.Tensor,
                            window=window, softcap=softcap)
 
 
+class SSDScan(torch.autograd.Function):
+    """K4 with its backward: on the card the forward saves its inputs and
+    the state entering each chunk (``ssd_scan_train_cuda``) and the
+    backward launches K4's backward kernel; on the CPU the backward is
+    autograd through the plain forward at JAX's chunk.  Returns dx, ddt,
+    da, db, dc and, with an ``init_state``, its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, chunk, init_state):
+        entry = None
+        if x.is_cuda:
+            y, final, entry = SS.ssd_scan_train_cuda(x, dt, a, b, c, chunk,
+                                                     init_state)
+        else:
+            y, final = SS.ssd_scan(x, dt, a, b, c, chunk, init_state)
+        ctx.save_for_backward(x, dt, a, b, c, init_state, entry)
+        ctx.chunk = chunk
+        # an output nothing reads gets None, not a zero tensor (the
+        # trainer never reads the final state)
+        ctx.set_materialize_grads(False)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, a, b, c, init_state, entry = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        if x.is_cuda:
+            grads = SS.ssd_scan_bwd_cuda(x, dt, a, b, c, ctx.chunk, entry,
+                                         dy, dfinal)
+        else:
+            _plain_device(x, "ssd_scan_bwd")
+            SS.COUNTER_BWD.plain += 1
+            grads = SS.ssd_scan_bwd_plain(x, dt, a, b, c, ctx.chunk,
+                                          init_state, dy, dfinal)
+        dx, ddt, da, db, dc, dinit = grads
+        return dx, ddt, da, db, dc, None, \
+            None if init_state is None else dinit
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor, chunk: int,
              init_state: Optional[torch.Tensor] = None
@@ -165,5 +210,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     (Bt, H, P, N) or None; ``chunk`` the model's ``ssm_chunk`` (the card
     tiles at it with a ragged last chunk, the CPU path halves it until it
     divides L).  Returns (y (Bt, L, H, P), final state (Bt, H, P, N) f32)
-    -- ``ssd_chunked``'s result."""
+    -- ``ssd_chunked``'s result; differentiable (:class:`SSDScan`) when
+    autograd is on and an input requires grad."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, a, b, c, init_state)):
+        return SSDScan.apply(x, dt, a, b, c, chunk, init_state)
     return SS.ssd_scan(x, dt, a, b, c, chunk, init_state)

@@ -2,7 +2,8 @@
 
 Runs on ``cuda`` unless ``--device cpu`` is given (no GPU and no
 ``--device cpu``: it raises).  On CUDA every attention's forward and
-backward run K2's kernels; on the CPU their plain versions.  The argv is
+backward run K2's kernels and every mamba2 mixer's K4 and its backward
+kernel; on the CPU their plain versions.  The argv is
 the JAX launcher's plus ``--device`` and ``--mode`` (the attention-mode
 override of JAX's ``examples/train_lm.py``: ``tconst``, ``tlin``, or
 ``full`` for the paper's base transformer on the same weights)::
@@ -10,13 +11,16 @@ override of JAX's ``examples/train_lm.py``: ``tconst``, ``tlin``, or
   PYTHONPATH=src python -m repro_torch.launch.train --arch tconst-41m \\
       --reduced --steps 3 --batch 2 --seq 16 --log-every 1 --device cpu
 
-Without ``--reduced`` it trains ``tconst-41m`` at full width on the card.
+Without ``--reduced`` it trains the arch at full width on the card
+(``--arch mamba2_130m``, ``hymba_1_5b``, ...; deepseek-moe-16b's 16.4 B
+parameters do not fit one card's train state).  Every family trains.
 Prints loss, grad norm and tok/s lines as the JAX launcher does; with
 ``--ckpt-dir`` it writes the final train state in the JAX package's
-msgpack format.  The enc-dec's batch carries zero ``audio_feats`` and
-a VLM's zero ``vision_embeds`` over its first ``frontend_tokens``
-positions, as the JAX launcher's does; tok/s counts the decoder tokens.
-The MoE, SSM and hybrid families raise (ROADMAP Queue 1 items 10b, 10c).
+msgpack format.  The MoE family's leaves are float32, as JAX's
+(``ModelAPI.init(param_dtype=)``).  The enc-dec's batch carries zero
+``audio_feats`` and a VLM's zero ``vision_embeds`` over its first
+``frontend_tokens`` positions, as the JAX launcher's does; tok/s counts
+the decoder tokens.
 """
 from __future__ import annotations
 
@@ -63,25 +67,26 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def load(args) -> tuple:
+def load(args, **overrides) -> tuple:
     """(cfg, api, params) for parsed ``args``: the port's seeded init, in
-    the JAX tree layout the train step takes."""
+    the JAX tree layout the train step takes, every leaf float32 (the MoE
+    family's too, as JAX's ``param_dtype``).  ``overrides`` replace
+    config fields after the argv's (no flag: a caller that trains a model
+    cut in depth, as ``chip_smoke.py`` does deepseek-moe-16b's)."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg, vocab_size=args.vocab)
     if args.mode:
         cfg = cfg.replace(attention_mode=args.mode)
-    if cfg.hybrid_parallel:
-        raise NotImplementedError(
-            f"{cfg.name}: hybrid training (the parallel mamba2 heads: K4 "
-            f"has no backward) is not ported yet: ROADMAP Queue 1 item "
-            f"10c")
+    if overrides:
+        cfg = cfg.replace(**overrides)
     if cfg.attention_mode in ("tconst", "tlin") and \
             args.seq % cfg.tconst.w_og:
         raise ValueError(f"--seq must be a multiple of W_og="
                          f"{cfg.tconst.w_og}")
     api = build_model(cfg, device=args.device)
-    return cfg, api, bridge.stack_params(api.init(args.seed))
+    return cfg, api, bridge.stack_params(
+        api.init(args.seed, param_dtype=torch.float32))
 
 
 def extra_inputs(cfg, batch: int, seq: int, device: Any

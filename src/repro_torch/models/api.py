@@ -1125,12 +1125,20 @@ class ModelAPI:
     cfg: ModelConfig
     device: torch.device
 
-    def init(self, seed: int = 0) -> Any:
+    def init(self, seed: int = 0,
+             param_dtype: Optional[torch.dtype] = None) -> Any:
+        """The port's seeded init.  ``param_dtype`` is the dtype the MoE
+        family's weights are kept in: None (serving) the activation
+        dtype; ``torch.float32`` for training, JAX's ``param_dtype`` (the
+        same draws, unrounded: the serving weights are these rounded to
+        the activation dtype).  Every other family's weights are float32
+        either way."""
         if _is_tconst(self.cfg):
-            return TC.init_tconst_lm(self.cfg, seed, self.device)
+            return TC.init_tconst_lm(self.cfg, seed, self.device,
+                                     param_dtype)
         if self.cfg.is_encdec:
             return ED.init_encdec(self.cfg, seed, self.device)
-        return LM.init_lm(self.cfg, seed, self.device)
+        return LM.init_lm(self.cfg, seed, self.device, param_dtype)
 
     # -- training -----------------------------------------------------------
     def forward(self, params, batch: Dict[str, Any]
@@ -1141,7 +1149,7 @@ class ModelAPI:
         V) f32, aux loss).  It reads what JAX's ``ModelAPI.forward``
         reads; M-RoPE positions other than the text ones go through
         ``LM.lm_forward(..., positions3=)``.  Differentiable for every
-        family whose ``loss`` is ported."""
+        family."""
         cfg = self.cfg
         tokens = batch["tokens"]
         if _is_tconst(cfg):
@@ -1156,22 +1164,13 @@ class ModelAPI:
     def loss(self, params, batch: Dict[str, Any]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Next-token CE plus ``router_aux_coef`` times the aux loss:
-        (total, {"ce", "aux"}).  Trains the TConst family, the dense
-        attention LMs, the enc-dec (``batch["audio_feats"]``) and the VLM
-        (``vision_embeds`` / ``vision_mask``); the MoE (ROADMAP Queue 1
-        item 10b), SSM and hybrid (item 10c) families raise."""
+        (total, {"ce", "aux"}).  Trains every family: the TConst family,
+        the dense attention LMs, the MoE family (the summed Switch aux of
+        its MoE layers, as LMs and inside the TConst core), the SSM
+        family and the hybrid (K4 and its backward), the enc-dec
+        (``batch["audio_feats"]``) and the VLM (``vision_embeds`` /
+        ``vision_mask``)."""
         cfg = self.cfg
-        if cfg.is_moe:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE training (the router aux loss through "
-                f"the expert routing) is not ported yet: ROADMAP Queue 1 "
-                f"item 10b")
-        if cfg.arch_type == "ssm" or cfg.hybrid_parallel:
-            raise NotImplementedError(
-                f"{cfg.name}: SSM training is not ported yet (K4 has no "
-                f"backward; JAX differentiates its scan; the hybrid's "
-                f"parallel mamba2 heads need it too): ROADMAP Queue 1 "
-                f"item 10c")
         logits, aux = self.forward(params, batch)
         tokens = batch["tokens"]
         ce = cross_entropy(logits[:, :-1], tokens[:, 1:])

@@ -24,12 +24,13 @@ beside ``k`` / ``v`` over the ``n_layers - n_dense`` MoE layers.  Layers
 are kept unstacked, one dict per layer in a list (the JAX package stacks
 them for ``jax.lax.scan``; :func:`repro_torch.bridge.lm_params_from_jax`
 unstacks them).  The teacher-forced :func:`lm_forward` is
-differentiable for the dense attention LMs and the VLM (training: K2
-with its backward; a VLM's gradient reaches ``frontend_proj`` through
-the marked positions only, as JAX's does); the serving entry points run
-under ``torch.no_grad``.  Training the MoE, SSM and hybrid families is
-not ported (``ModelAPI.loss`` refuses them: ROADMAP Queue 1 items 10b
-and 10c).
+differentiable for every family (training): attention runs K2 with its
+backward; the MoE FFN passes its gradient through the renormalised top-k
+gates and the aux loss's mean router probability; a mamba2 mixer (the
+SSM family, the hybrid's parallel heads) runs K4 with its backward
+kernel (``ops.SSDScan``); a VLM's gradient reaches ``frontend_proj``
+through the marked positions only, as JAX's does.  The serving entry
+points run under ``torch.no_grad``.
 
 Attention runs on the port's kernels: every multi-query attention
 (forward, prefill) is K2, causal with the layer's window; the decode step
@@ -157,7 +158,8 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator, moe: bool = False,
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0,
-            device: Optional[torch.device] = None) -> Params:
+            device: Optional[torch.device] = None,
+            param_dtype: Optional[torch.dtype] = None) -> Params:
     """The port's own seeded init: the embedding, then the layers in
     order, from one ``torch.Generator``.  It does not reproduce
     ``jax.random``: parity tests bridge the JAX weights.  A model of n
@@ -166,21 +168,25 @@ def init_lm(cfg: ModelConfig, seed: int = 0,
     The SSM and dense attention LMs draw float32 on the CPU (their weights
     are fixed by that).  The hybrid and the VLM (1.4-1.5 B parameters at
     full width: ~6 GB of float32 and tens of seconds on a host) draw
-    float32 on ``device``.  The MoE family draws on ``device`` too and
-    casts each tensor to the activation dtype as it is drawn, so at most
-    one float32 tensor is the extra peak (deepseek-moe-16b: 16.4 B
+    float32 on ``device``.  The MoE family draws on ``device`` too, each
+    tensor in float32, and keeps it in ``param_dtype``: by default
+    (serving) the activation dtype, cast as it is drawn, so at most one
+    float32 tensor is the extra peak (deepseek-moe-16b: 16.4 B
     parameters, its largest tensor ``w_gate`` 738 MB in float32) and a
-    full-width init takes seconds on a card; its norm scales stay
-    float32.  So the weights of a family drawn on ``device`` depend on
-    the device's generator: a run that compares two devices copies one
-    device's weights to the other."""
+    full-width init takes seconds on a card; training passes float32,
+    JAX's ``param_dtype`` (``launch.train.load``: the train state's
+    leaves, which a bf16 AdamW update would round away), so the serving
+    weights are the training init's rounded to the activation dtype.
+    Norm scales stay float32.  So the weights of a family drawn on
+    ``device`` depend on the device's generator: a run that compares two
+    devices copies one device's weights to the other."""
     check_family(cfg)
     moe = cfg.is_moe
     on_device = moe or cfg.hybrid_parallel or cfg.arch_type == "vlm"
     dev = torch.device("cpu") if device is None or not on_device \
         else torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    dtype = getattr(torch, cfg.dtype) if moe else None
+    dtype = (param_dtype or getattr(torch, cfg.dtype)) if moe else None
     n_dense = n_dense_layers(cfg)
     params: Params = {"embed": E.init_embed(cfg, gen, dtype)}
     if n_dense:
@@ -320,8 +326,8 @@ def lm_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     """Teacher-forced forward.  tokens (B, L) -> (logits (B, L, V) f32,
     the MoE layers' summed aux loss, 0 without MoE layers); a VLM's
     inputs as :func:`embed_inputs` and :func:`_rope` take them.
-    Differentiable for the dense attention LMs (JAX remats its layer
-    scan; nothing is rematerialised here)."""
+    Differentiable for every family (JAX remats its layer scan; nothing
+    is rematerialised here)."""
     check_family(cfg)
     x = embed_inputs(params, tokens, cfg, vision_embeds, vision_mask)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

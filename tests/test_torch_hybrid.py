@@ -22,8 +22,10 @@ across by ``bridge.lm_params_from_jax``.
 * Greedy ``SlotScheduler`` streams equal the JAX scheduler's on dense and
   paged_int8 (an under-sized pool: an admission waits for pages).
 * The bridge round-trips a layer holding ``attn`` and ``ssm``
-  (``stack_params`` / ``unstack_params`` / ``params_to_jax``); training is
-  refused (ROADMAP Queue 1 item 10c); the ``serve`` demo on the CPU.
+  (``stack_params`` / ``unstack_params`` / ``params_to_jax``); the loss
+  and every gradient leaf against ``jax.value_and_grad`` (past the
+  window), and the train launcher on the CPU; the ``serve`` demo on the
+  CPU.
 """
 import functools
 
@@ -46,7 +48,8 @@ from repro_torch.models.api import build_decode, build_model
 from repro_torch.serving.scheduler import SlotScheduler
 from repro_torch.serving.session import Session
 from test_torch_lm import _adopt_jax_codes, _code_flips
-from torch_parity import jax_to_numpy, port_cfg, port_streams, t
+from torch_parity import (assert_loss_grads_match_jax, jax_to_numpy,
+                          port_cfg, port_streams, t)
 
 torch.set_num_threads(1)
 LAYOUTS = ("dense", "int8", "paged", "paged_int8")
@@ -244,15 +247,25 @@ def test_bridge_round_trips_hybrid_layers():
         jax.tree_util.tree_structure(ref)
 
 
-def test_training_is_refused_with_its_item():
-    _, _, cfg, params = pair()
-    api = build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10c"):
-        api.loss(params, {"tokens": torch.zeros((1, 8), dtype=torch.int32)})
-    args = train.build_parser().parse_args(
-        ["--arch", "hymba_1_5b", "--reduced", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 10c"):
-        train.load(args)
+def test_loss_and_gradients_match_jax():
+    """L 20 past the window of 8: K2's backward under the window beside
+    the mixer's (JAX's chunk halves from 8 to 4)."""
+    jcfg, jparams, cfg, params = pair()
+    batch = {"tokens": np.random.RandomState(5).randint(
+        0, cfg.vocab_size, size=(2, 20)).astype(np.int32)}
+    assert_loss_grads_match_jax(JAPI.build_model(jcfg), jparams,
+                                build_model(cfg, device="cpu"), params,
+                                batch, "hymba")
+
+
+def test_train_cli_runs_the_hybrid(capsys):
+    assert train.main(["--arch", "hymba_1_5b", "--reduced", "--steps", "2",
+                       "--batch", "2", "--seq", "16", "--log-every", "1",
+                       "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    losses = [float(line.split("loss=")[1].split()[0])
+              for line in out.splitlines() if "loss=" in line]
+    assert len(losses) == 2 and all(np.isfinite(losses))
 
 
 def test_serve_sessions_demo_matches_solo_runs():

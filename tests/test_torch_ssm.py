@@ -11,6 +11,11 @@
   ``repro.models.lm`` on bridged weights, f32, atol 1e-4
   (``tests/test_archs.py``'s tolerance), at prompt lengths whose chunk is
   1 and 8, on ``reduced(mamba2_130m)`` and a tiny SSM config.
+* Training: the loss and every gradient leaf against
+  ``jax.value_and_grad(api.loss)`` (1e-5 / 1e-4 of the leaf's max), one
+  ``make_train_step`` step at ``n_micro`` 2 against JAX's, and the train
+  launcher's checkpoint byte-equal to JAX's ``save_train_state`` of the
+  same state, both ways (K4's backward alone: ``test_torch_ssd_bwd.py``).
 
 Inputs are made with numpy from a seed and handed to both packages.
 """
@@ -22,6 +27,7 @@ import torch
 
 from repro.kernels.ssd_scan import ssd_intra_chunk_pallas, ssd_scan_pallas
 from repro.layers import ssm as JS
+from repro.models import api as JAPI
 from repro.models import lm as JLM
 from repro_torch import runtime
 from repro_torch.config import get_config, reduced
@@ -30,7 +36,9 @@ from repro_torch.kernels import ssd_scan as SS
 from repro_torch.layers import ssm as S
 from repro_torch.models import lm as LM
 from repro_torch.models.api import build_decode, build_model
-from torch_parity import ssm_pair, t
+from torch_parity import (assert_loss_grads_match_jax,
+                          assert_train_cli_checkpoint_equals_jax,
+                          assert_train_step_matches_jax, ssm_pair, t)
 
 torch.set_num_threads(1)
 
@@ -304,17 +312,31 @@ def test_decode_protocol_prefill_into_slot_equals_batch_prefill():
     assert state.bookkeeping["len"].tolist() == [13, 0, 13]
 
 
-# every decoder-only family is served; what is not ported is the
-# training of the SSM family and of those that hold its mixer (the hybrid,
-# item 10c) and of the MoE family (item 10b)
-@pytest.mark.parametrize("arch,over,item", [
-    ("mamba2_130m", {}, "item 10c"),
-    ("mamba2_130m", {"arch_type": "hybrid", "hybrid_parallel": True,
-                     "n_kv_heads": 2}, "item 10c"),
-    ("deepseek_moe_16b", {}, "item 10b")])
-def test_unported_lm_families_raise_with_their_item(arch, over, item):
-    cfg = reduced(get_config(arch), dtype="float32", **over)
-    api = build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        api.loss(api.init(0), {"tokens": torch.zeros((1, 8),
-                                                     dtype=torch.int32)})
+# training the SSM family: ``ModelAPI.loss`` through K4 and its backward
+# (``ops.SSDScan``; the CPU path differentiates the plain scan at JAX's
+# chunk, as JAX's ``value_and_grad`` differentiates ``ssd_chunked``)
+
+
+def _train_batch(cfg, B, L, seed):
+    return {"tokens": np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, size=(B, L)).astype(np.int32)}
+
+
+def test_loss_and_gradients_match_jax():
+    """L 20: JAX's chunk halves from 8 to 4."""
+    jcfg, jparams, cfg, params = ssm_pair()
+    assert_loss_grads_match_jax(JAPI.build_model(jcfg), jparams,
+                                build_model(cfg, device="cpu"), params,
+                                _train_batch(cfg, 2, 20, 5), "mamba2")
+
+
+def test_train_step_n_micro_2_matches_jax():
+    jcfg, jparams, cfg, params = ssm_pair()
+    assert_train_step_matches_jax(JAPI.build_model(jcfg), jparams,
+                                  build_model(cfg, device="cpu"), params,
+                                  _train_batch(cfg, 4, 16, 6), "mamba2")
+
+
+def test_train_cli_checkpoint_equals_jax(tmp_path, capsys):
+    assert_train_cli_checkpoint_equals_jax("mamba2_130m", ssm_pair()[1],
+                                           tmp_path, capsys)

@@ -23,8 +23,9 @@ bucket of ``resync_buckets``).  At B 4 with 3 rows pending it equals
 JAX's ``resync_rows_compacted`` and differs from a resync of the 3 rows
 alone; for a dense config the exact-rows resync equals the padded one bit
 for bit.  Also: ``serve.load`` with ``--reduced`` and a mode override
-builds JAX's reduced config, the MoE init keeps JAX's tree, and
-``ModelAPI.loss`` still refuses MoE training.
+builds JAX's reduced config, the MoE init keeps JAX's tree, and the
+core's aux reaches ``ModelAPI.loss`` (its gradients against JAX's:
+``test_torch_moe_train.py``).
 """
 import functools
 
@@ -360,11 +361,14 @@ def test_serve_load_reduces_in_the_override_mode():
                for layer in b["layers"])
 
 
-def test_moe_training_still_refused():
+def test_moe_forward_aux_reaches_the_loss():
+    """The core runs the last block's RESTORE for MoE configs, so its aux
+    is in ``forward`` and ``loss`` adds it with ``router_aux_coef``."""
     _, _, cfg, params = moe_pair("deepseek-tconst")
     api = build_model(cfg, device="cpu")
     batch = {"tokens": t(_tokens(cfg, (1, 16)))}
     logits, aux = api.forward(params, batch)
     assert logits.shape == (1, 16, cfg.vocab_size) and aux.item() > 0.0
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        api.loss(params, batch)
+    total, parts = api.loss(params, batch)
+    assert torch.equal(parts["aux"], aux)
+    assert torch.allclose(total, parts["ce"] + cfg.router_aux_coef * aux)

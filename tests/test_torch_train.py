@@ -83,11 +83,3 @@ def test_missing_gradient_counts_as_zeros_and_is_decayed():
     torch.testing.assert_close(out["w"], torch.full((3, 4), 1 - 0.1 * 0.1))
     torch.testing.assert_close(out["s"], torch.ones(4))     # rank 1: no decay
 
-
-@pytest.mark.parametrize("arch", ["mamba2_130m", "deepseek_moe_16b"])
-def test_loss_refuses_the_unported_families(arch):
-    from repro_torch.config import get_config, reduced
-    cfg = reduced(get_config(arch), dtype="float32")
-    api = build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        api.loss(None, {"tokens": torch.zeros((1, 8), dtype=torch.int32)})

@@ -178,15 +178,6 @@ def test_train_cli_on_the_cpu(tmp_path, capsys):
     assert "params/blocks/layers/0/attn/wq" in blob
 
 
-@pytest.mark.parametrize("arch,item", [("mamba2_130m", "item 10c"),
-                                       ("deepseek_moe_16b", "item 10b")])
-def test_train_cli_refuses_unported_families(arch, item):
-    from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match=item):
-        train.main(["--arch", arch, "--reduced", "--steps", "1", "--batch",
-                    "1", "--seq", "8", "--device", "cpu"])
-
-
 @pytest.mark.cuda
 def test_cuda_train_step_runs_the_kernels_and_matches_the_cpu():
     """One f32 train step of reduced tconst-41m (tconst and tlin) and its

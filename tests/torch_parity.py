@@ -190,16 +190,22 @@ STEP_LR = 1e-2
 def assert_loss_grads_match_jax(japi, jparams, api, params, batch, what):
     """The port's ``api.loss`` and every gradient leaf at ``params`` (the
     port's unstacked params) against ``jax.value_and_grad(japi.loss)`` on
-    the numpy ``batch``: the loss within 1e-5, each leaf within 1e-4 of
-    its largest |entry| (``test_torch_train.py``'s tolerances)."""
+    the numpy ``batch``: the loss and its aux part (the MoE layers'
+    summed aux loss, 0 without them) within 1e-5, each leaf within 1e-4
+    of its largest |entry| (``test_torch_train.py``'s tolerances).
+    JAX's side is jitted (one compile instead of one an op)."""
     from repro_torch.training.train_step import loss_and_grads
-    (want, _), jgrads = jax.value_and_grad(japi.loss, has_aux=True)(
+    (want, jparts), jgrads = jax.jit(jax.value_and_grad(japi.loss,
+                                                        has_aux=True))(
         jparams, {k: jax.numpy.asarray(v) for k, v in batch.items()})
-    loss, grads = loss_and_grads(api, bridge.stack_params(params),
-                                 {k: torch.from_numpy(v)
-                                  for k, v in batch.items()})
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    loss, grads = loss_and_grads(api, bridge.stack_params(params), tbatch)
     assert abs(float(loss) - float(want)) <= 1e-5, (what, float(loss),
                                                     float(want))
+    with torch.no_grad():
+        aux = api.loss(params, tbatch)[1]["aux"]
+    assert abs(float(aux) - float(jparts["aux"])) <= 1e-5, (
+        what, float(aux), float(jparts["aux"]))
     assert_tree_close(bridge.params_to_jax(bridge.unstack_params(grads)),
                       jax_to_numpy(jgrads), rel=1e-4, what=what)
 
